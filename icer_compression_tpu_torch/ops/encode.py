@@ -1,0 +1,245 @@
+"""Encode orchestration: image batch -> per-lane payload tables.
+
+Counterpart: ``icer_compression_tpu/ops/encode_jax.py``
+(``JaxGrayscaleEncoder`` with the slim backend: ``_plan_groups``,
+``_plan_buckets``, ``_transform_fn``, ``_make_emit_fn``,
+``_make_bucket_fn_slim`` without the per-plane caps, ``encode_batch`` and
+``_unpack_batch``).
+
+Per batch of B same-geometry images: DWT + LL-mean removal +
+sign-magnitude, then per stage group a gather of every segment rectangle
+into one padded lane batch and its emission words for every bitplane,
+then per length bucket kernel 1 and the sort/rebuild/pack tail, all on
+the device.  Rate allocation and stream assembly stay on the host
+(models/grayscale).  Lanes that kernel 1 flags (eviction side buffer
+overflow) or whose payload passes its cap re-encode exactly on the host
+(backend/sequential); ``fallback_lanes`` counts them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..backend import sequential
+from ..core import constants as C
+from ..core.partition import partition_segments
+from ..core.status import IcerError, IcerStatus
+from ..core.subbands import dim_low, subband_view
+from . import entropy_slim as ES
+from . import wavelet
+from .context_model import plane_emissions_words
+
+
+@dataclass(frozen=True)
+class Lane:
+    stage: int
+    subband: int
+    seg: int
+    row: int       # absolute position of the segment in the image
+    col: int
+    h: int
+    w: int
+
+
+def _plan_groups(image_w, image_h, stages, segments):
+    """One group per stage: its subbands' segment lanes, padded to the
+    group's largest segment."""
+    groups = []
+    for stage in range(1, stages + 1):
+        subs = [C.SUBBAND_HL, C.SUBBAND_LH, C.SUBBAND_HH]
+        if stage == stages:
+            subs = [C.SUBBAND_LL] + subs
+        lanes: list[Lane] = []
+        for sb in subs:
+            view = subband_view(image_w, image_h, stage, sb)
+            for rect in partition_segments(view.w, view.h, segments):
+                lanes.append(Lane(stage, sb, rect.index,
+                                  view.row + rect.row, view.col + rect.col,
+                                  rect.h, rect.w))
+        mh = max(l.h for l in lanes)
+        mw = max(l.w for l in lanes)
+        pix_valid = np.zeros((len(lanes), mh, mw), dtype=np.int32)
+        for i, l in enumerate(lanes):
+            pix_valid[i, :l.h, :l.w] = 1
+        groups.append({
+            "lanes": lanes, "mh": mh, "mw": mw, "L": 2 * mh * mw,
+            "sub_codes": np.array([l.subband for l in lanes], np.int32),
+            "pix_valid": pix_valid,
+        })
+    return groups
+
+
+def _plan_buckets(groups):
+    """Partition stage groups into emission-length buckets (ratio <= 2)."""
+    order = sorted(range(len(groups)), key=lambda i: -groups[i]["L"])
+    buckets = []
+    cur = []
+    cur_max = None
+    for gi in order:
+        L = groups[gi]["L"]
+        if cur_max is None or L * 2 >= cur_max:
+            cur.append(gi)
+            cur_max = cur_max or L
+        else:
+            buckets.append({"groups": cur, "L": cur_max})
+            cur, cur_max = [gi], L
+    if cur:
+        buckets.append({"groups": cur, "L": cur_max})
+    return buckets
+
+
+def bucket_sizes(Lb: int):
+    """(kernel length Lk, record slice Lc, payload cap bits) of a bucket
+    whose interleaved emission streams are Lb words long."""
+    Lk = -(-Lb // ES.CHUNK) * ES.CHUNK
+    Lc = min(Lk, (-(-(3 * Lb) // 4) + 255) // 256 * 256)
+    cap_bits = ((Lc + 17 * 10 + 255) // 256) * 256
+    return Lk, Lc, cap_bits
+
+
+class TorchGrayscaleEncoder:
+    """Encoder for one image geometry (one channel) on one device."""
+
+    def __init__(self, image_w: int, image_h: int, stages: int, filt: int,
+                 segments: int, mag_bits: int, device: torch.device):
+        wavelet.check_stages(image_w, image_h, stages)
+        self.w, self.h = image_w, image_h
+        self.stages, self.filt, self.segments = stages, filt, segments
+        self.mag_bits = mag_bits
+        self.device = torch.device(device)
+        self.bitplanes = C.BITPLANES_8 if mag_bits == 7 else C.BITPLANES_16
+        self.groups = _plan_groups(image_w, image_h, stages, segments)
+        self.buckets = _plan_buckets(self.groups)
+        for b in self.buckets:
+            Lk = bucket_sizes(b["L"])[0]
+            if not ES.fused_key_ok(Lk):
+                raise IcerError(
+                    IcerStatus.INVALID_INPUT,
+                    f"segment lanes of {Lk} emission slots exceed the "
+                    "fused-key coder limit (the two-word mode is not "
+                    "ported); use more segments")
+        self.fallback_lanes = 0
+        # per group: gather index of every lane rectangle into the padded
+        # flattened image (out-of-rect reads are masked by pix_valid)
+        self._wp = image_w + max(g["mw"] for g in self.groups)
+        hp = image_h + max(g["mh"] for g in self.groups)
+        self._npad = (hp, self._wp)
+        for g in self.groups:
+            mh, mw = g["mh"], g["mw"]
+            idx = np.array([[(l.row + j) * self._wp + l.col + np.arange(mw)
+                             for j in range(mh)] for l in g["lanes"]],
+                           np.int64)
+            g["idx_t"] = torch.as_tensor(idx, device=self.device)
+            g["pv_t"] = torch.as_tensor(g["pix_valid"], device=self.device)
+            g["sub_t"] = torch.as_tensor(g["sub_codes"], device=self.device)
+
+    # ---- device stages --------------------------------------------------
+    def transform(self, images: torch.Tensor):
+        """(B, h, w) -> (sign-magnitude coefficients, ll_means (B,))."""
+        img, overflow = wavelet.forward_stages(images, self.stages,
+                                               self.filt, self.mag_bits)
+        ll_w = dim_low(self.w, self.stages)
+        ll_h = dim_low(self.h, self.stages)
+        mask = (1 << (self.mag_bits + 1)) - 1
+        ll = img[:, :ll_h, :ll_w]
+        ll_mean = torch.div((ll & mask).sum(dim=(1, 2)), ll_w * ll_h,
+                            rounding_mode="floor")
+        img[:, :ll_h, :ll_w] = wavelet._wrap(
+            ll - ll_mean.to(torch.int32)[:, None, None], self.mag_bits)
+        return wavelet.to_sign_magnitude(img, self.mag_bits), ll_mean, \
+            overflow
+
+    def emit(self, g, img: torch.Tensor):
+        """Group g's packed emission words, rows ordered (image, plane,
+        lane): returns (w0, w1), each (B * planes * N, mh * mw)."""
+        B = img.shape[0]
+        hp, wp = self._npad
+        padded = torch.zeros((B, hp, wp), dtype=torch.int32,
+                             device=img.device)
+        padded[:, :self.h, :self.w] = img
+        batch = padded.reshape(B, -1)[:, g["idx_t"]] * g["pv_t"]
+        N, mh, mw = g["pv_t"].shape
+        batch = batch.reshape(B * N, mh, mw)
+        sub = g["sub_t"].repeat(B)
+        pv = g["pv_t"].repeat(B, 1, 1)
+        w0s, w1s = [], []
+        for lsb in range(self.bitplanes):
+            w0, w1 = plane_emissions_words(batch, sub, pv, lsb,
+                                           self.mag_bits)
+            w0s.append(w0.reshape(B, N, mh * mw))
+            w1s.append(w1.reshape(B, N, mh * mw))
+        w0 = torch.stack(w0s, dim=1).reshape(-1, mh * mw)
+        w1 = torch.stack(w1s, dim=1).reshape(-1, mh * mw)
+        return w0, w1
+
+    def bucket_words(self, b, emitted):
+        """Interleaved (rows, Lk) coder input of one bucket: each row is
+        [w0[0], w1[0], w0[1], w1[1], ...] padded with invalid words."""
+        Lb = b["L"]
+        Lk = bucket_sizes(Lb)[0]
+        parts = []
+        for gi in b["groups"]:
+            w0, w1 = emitted[gi]
+            row = torch.stack([w0, w1], dim=-1).reshape(w0.shape[0], -1)
+            parts.append(torch.nn.functional.pad(row, (0, Lk - row.shape[1])))
+        return torch.cat(parts)
+
+    # ---- host orchestration --------------------------------------------
+    def encode_batch(self, images: np.ndarray):
+        """(B, h, w) same-geometry images -> list of (payload_table,
+        ll_mean); payload_table maps (stage, subband, lsb, seg) ->
+        (payload bytes, bit length)."""
+        B = images.shape[0]
+        x = torch.as_tensor(np.ascontiguousarray(images).astype(np.int32),
+                            device=self.device)
+        img, ll_mean, overflow = self.transform(x)
+        emitted = [self.emit(g, img) for g in self.groups]
+        results = []
+        for b in self.buckets:
+            words = self.bucket_words(b, emitted)
+            _Lk, Lc, cap_bits = bucket_sizes(b["L"])
+            rec, fstate, misc, ev = ES.encode_lanes_slim(
+                words.t().contiguous())
+            ops = ES.slim_sort_operand_packed(rec, fstate, ev)
+            payload, total, over = ES.order_and_pack_lanes(ops, cap_bits, Lc)
+            flag = over | (misc[0] != 0)
+            results.append((words, payload, total, flag))
+
+        if bool(overflow):
+            raise IcerError(IcerStatus.INTEGER_OVERFLOW, "wavelet transform")
+        means = ll_mean.cpu().numpy()
+        if (means > (1 << self.mag_bits) - 1).any():
+            raise IcerError(IcerStatus.INTEGER_OVERFLOW, "ll mean")
+
+        tables: list[dict] = [{} for _ in range(B)]
+        for b, (words, payload, total, flag) in zip(self.buckets, results):
+            payload = payload.cpu().numpy()
+            total = total.cpu().numpy()
+            flag = flag.cpu().numpy()
+            r = 0
+            for gi in b["groups"]:
+                lanes = self.groups[gi]["lanes"]
+                for img_i in range(B):
+                    for lsb in range(self.bitplanes):
+                        for l in lanes:
+                            key = (l.stage, l.subband, lsb, l.seg)
+                            if flag[r]:
+                                tables[img_i][key] = self._host_encode(
+                                    words[r])
+                            else:
+                                nb = int(total[r])
+                                tables[img_i][key] = (
+                                    payload[r, :(nb + 7) // 8].tobytes(), nb)
+                            r += 1
+        return [(tables[i], int(means[i])) for i in range(B)]
+
+    def _host_encode(self, row: torch.Tensor):
+        """Exact host re-encode of one flagged lane from its words."""
+        self.fallback_lanes += 1
+        w = row.cpu().numpy()
+        pl, nb, _ = sequential.encode_emissions(w & 1, (w >> 1) & 31,
+                                                (w >> 6) & 1)
+        return pl, nb

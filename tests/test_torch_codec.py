@@ -1,0 +1,185 @@
+"""The port's slice as a whole vs the JAX package: streams byte for byte,
+decodes pixel for pixel (exact), on the CPU through the kernels' plain
+versions."""
+
+import hashlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_test_image
+from icer_compression_tpu.models import grayscale as G
+from icer_compression_tpu_torch.models import decode as TD
+from icer_compression_tpu_torch.models import grayscale as T
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (h, w, dtype, filter, stages, segments, byte quota); quotas below the
+# stream size truncate it
+CASES = [
+    (64, 64, np.uint16, 0, 4, 6, None),
+    (80, 96, np.uint8, 1, 3, 6, 2500),
+    (64, 64, np.uint8, 1, 1, 6, None),
+    (64, 64, np.uint16, 0, 2, 1, 1200),
+]
+
+
+def _image(h, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return make_test_image(h, w, rng, dtype=dtype, amplitude=100, noise=24)
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_compress_and_decompress_match_jax_package(case):
+    h, w, dtype, filt, stages, segs, quota = CASES[case]
+    img = _image(h, w, dtype, case)
+    jcfg = G.CodecConfig(stages, filt, segs, quota)
+    tcfg = T.CodecConfig(stages, filt, segs, quota)
+    ref = G.compress(img, jcfg)
+    out = T.compress(img, tcfg, device="cpu")
+    assert out == ref
+    if quota is not None:
+        full = G.compress(img, G.CodecConfig(stages, filt, segs, None))
+        assert len(ref) <= quota < len(full)
+    dec = T.decompress(out, tcfg, dtype=dtype, device="cpu")
+    ref_dec = G.decompress(ref, jcfg, dtype=dtype)
+    assert dec.dtype == ref_dec.dtype
+    assert np.array_equal(dec, ref_dec)
+    if quota is None:
+        assert np.array_equal(dec, img)
+
+
+def test_corrupted_stream_decodes_like_jax_package():
+    img = _image(64, 64, np.uint16, 9)
+    cfg = T.CodecConfig(4, 0, 6, None)
+    stream = bytearray(G.compress(img, G.CodecConfig(4, 0, 6, None)))
+    rng = np.random.default_rng(9)
+    for pos in rng.integers(len(stream) // 3, len(stream), 12):
+        stream[pos] ^= 0x5A        # header and payload CRC failures
+    stream = bytes(stream[:-700])  # and a cut tail
+    ref = G.decompress(stream, G.CodecConfig(4, 0, 6, None))
+    out = T.decompress(stream, cfg, device="cpu")
+    assert np.array_equal(out, ref)
+    assert not np.array_equal(out, img)
+
+
+@pytest.mark.parametrize("h,w,st,g,f,seed", [(56, 88, 3, 2, 2, 0),
+                                             (69, 63, 3, 2, 4, 0),
+                                             (94, 82, 4, 3, 5, 0)])
+def test_overread_streams_decode_like_jax_package(h, w, st, g, f, seed):
+    """The JAX package's round-5 over-read configs (the reference's frozen
+    bounds let a plane's decode read the following packets' bytes), as
+    grayscale decodes of their streams: the kernel-2 lanes read the whole
+    stream in place, so the over-read needs no window or re-decode."""
+    from icer_compression_tpu.models.color import compress_yuv
+    from icer_compression_tpu_torch.ops import plane_decode as TPD
+    rng = np.random.default_rng(seed)
+    _ = [rng.integers(0, 100, (h, w)) + rng.integers(0, 26, (h, w))
+         for _ in range(3)]
+    planes = [rng.integers(0, 256, (h, w)).astype(np.uint16)
+              for _ in range(3)]
+    quota = max(256, int(h * w * 6 * 0.15))
+    stream = compress_yuv(*planes, G.CodecConfig(st, f, g, quota))
+    ref = G.decompress(stream, G.CodecConfig(st, f, g, quota))
+    cfg = T.CodecConfig(st, f, g, quota)
+    assert np.array_equal(T.decompress(stream, cfg, device="cpu"), ref)
+    _w, _h, _ll, blob, units = TD.plan_batch([stream], cfg, np.uint16)
+    over = 0
+    for u in units:
+        args = [torch.as_tensor(u[k])
+                for k in ("offs", "ebits", "lane_end", "geom")]
+        _o, _e, pos = TPD.decode_planes(torch.as_tensor(blob), *args,
+                                        u["hmax"], u["wmax"], 8, 15)
+        over += int((pos.numpy() > u["ebits"]).sum())
+    assert over > 0       # some plane decode read past its data_length
+
+
+def test_batch_entry_points_match_single_calls():
+    imgs = np.stack([_image(48, 40, np.uint8, s) for s in (1, 2, 3)])
+    cfg = T.CodecConfig(2, 0, 6, None)
+    streams = T.compress_batch(imgs, cfg, device="cpu")
+    for i in range(3):
+        assert streams[i] == G.compress(imgs[i], G.CodecConfig(2, 0, 6, None))
+    decs = TD.decompress_batch(streams, cfg, np.uint8, device="cpu")
+    for i in range(3):
+        assert np.array_equal(decs[i], imgs[i])
+
+
+def test_flagged_lanes_reencode_exactly_on_host(monkeypatch):
+    """Lanes the coder kernel flags take the exact host re-encode."""
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    real = ES.encode_lanes_slim
+
+    def flag_every_third(words):
+        rec, fstate, misc, ev = real(words)
+        misc = misc.clone()
+        misc[0, ::3] = 1
+        return rec, fstate, misc, ev
+
+    monkeypatch.setattr(ES, "encode_lanes_slim", flag_every_third)
+    img = _image(48, 40, np.uint16, 4)
+    cfg = T.CodecConfig(2, 0, 6, None)
+    enc = T.make_encoder(40, 48, cfg, np.uint16, "cpu")
+    out = T.compress_batch(img[None], cfg, encoder=enc)[0]
+    assert out == G.compress(img, G.CodecConfig(2, 0, 6, None))
+    assert enc.fallback_lanes > 0
+
+
+def test_compress_matches_compress_jax():
+    img = _image(24, 24, np.uint16, 5)
+    ref = G.compress_jax(img, G.CodecConfig(1, 0, 1, None))
+    assert T.compress(img, T.CodecConfig(1, 0, 1, None), device="cpu") == ref
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    img = _image(32, 32, np.uint8, 0)
+    cfg = T.CodecConfig(1, 0, 1, None)
+    stream = T.compress(img, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.compress(img, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.decompress(stream, cfg, dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.decompress_batch([stream], cfg, np.uint8)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import icer_compression_tpu_torch as P\n"
+        "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('icer_compression_tpu.')"
+        " or m == 'icer_compression_tpu']\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith(P.__name__)]))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout) >= 15
+
+
+def test_pinned_boat_references():
+    """The pins chip_smoke.py holds the port to, recomputed with the JAX
+    package's host path."""
+    from PIL import Image
+    boat = np.asarray(Image.open(os.path.join(DATA, "boat.512.png"))
+                      .convert("L")).astype(np.uint16)
+    with open(os.path.join(DATA, "golden_boat512_q50000.sha256")) as f:
+        pins = [ln.split()[0] for ln in f.read().splitlines()]
+    cfg = G.CodecConfig(4, 0, 6, 50000)
+    stream = G.compress(boat, cfg)
+    px = G.decompress(stream, cfg, dtype=np.uint16)
+    assert len(stream) == 48886
+    assert hashlib.sha256(stream).hexdigest() == pins[0]
+    assert hashlib.sha256(np.ascontiguousarray(px, "<u2").tobytes()) \
+        .hexdigest() == pins[1]

@@ -1,0 +1,123 @@
+"""Plain kernel 1 (slim coder) vs the Pallas kernel in interpret mode, and
+its packed payloads vs the sequential reference coder (exact)."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from icer_compression_tpu.backend import sequential as JS  # noqa: E402
+from icer_compression_tpu.ops import pallas_entropy as PE  # noqa: E402
+from icer_compression_tpu_torch.backend import sequential as TS  # noqa: E402
+from icer_compression_tpu_torch.ops import entropy_slim as ES  # noqa: E402
+
+
+def _random_lanes(rng, L, lanes):
+    """The random-lane case of the JAX package's slim coder test."""
+    ctx = rng.integers(0, 18, (L, lanes)).astype(np.int32)
+    p = rng.random((18, lanes))
+    bit = (rng.random((L, lanes))
+           < p[ctx, np.arange(lanes)[None, :]]).astype(np.int32)
+    valid = (rng.random((L, lanes)) < 0.9).astype(np.int32)
+    valid[:, -4:] = 1
+    ctx[:, -4:] = 0
+    bit[:, -4:] = 0
+    return valid, ctx, bit
+
+
+def _eviction_lanes(rng, L, lanes):
+    """The reorder-window eviction case: a golomb run held open while
+    uncoded codewords allocate behind it."""
+    warm = 64
+    n_unc = np.arange(lanes) * 17 + 90
+    valid = np.ones((L, lanes), np.int32)
+    ctx = np.full((L, lanes), 17, np.int32)
+    bit = rng.integers(0, 2, (L, lanes)).astype(np.int32)
+    ctx[:warm] = 0
+    bit[:warm] = 0
+    mask = np.arange(L - warm)[:, None] >= n_unc[None, :]
+    valid[warm:] = np.where(mask, 0, 1)
+    return valid, ctx, bit
+
+
+def _noisy_overflow_lanes(rng, L, lanes, warm=3072, feed=144):
+    """Skewed contexts warmed up into many bins, then uncoded emissions
+    with one zero fed to each context in turn every 16 * ``feed`` steps:
+    every feed opens a codeword that the reorder window evicts later, so
+    lanes collect more than NEV evictions and must raise the flag."""
+    p = np.exp(rng.uniform(np.log(0.003), np.log(0.2), (16, lanes)))
+    ctx = np.full((L, lanes), 17)
+    bit = rng.integers(0, 2, (L, lanes))
+    wc = rng.integers(0, 16, (warm, lanes))
+    ctx[:warm] = wc
+    bit[:warm] = rng.random((warm, lanes)) < p[wc, np.arange(lanes)]
+    t = np.arange(L - warm)[:, None]
+    fed = (t % feed) == 0
+    ctx[warm:] = np.where(fed, (t // feed) % 16, 17)
+    bit[warm:] = np.where(fed, 0, bit[warm:])
+    return (np.ones((L, lanes), np.int32), ctx.astype(np.int32),
+            bit.astype(np.int32))
+
+
+@pytest.mark.parametrize("case,L,chunk", [
+    ("random", 256, 64), ("eviction", 2432, 128)])
+def test_plain_kernel_matches_pallas_and_sequential(case, L, chunk):
+    rng = np.random.default_rng(11)
+    lanes = 128
+    make = _random_lanes if case == "random" else _eviction_lanes
+    valid, ctx, bit = make(rng, L, lanes)
+    words = PE.pack_emissions(valid, ctx, bit, np).astype(np.int32)
+
+    run = PE.make_encode_lanes_slim(L, chunk=chunk, interpret=True,
+                                    lanes=lanes, fused_key=True)
+    with jax.default_device(jax.devices("cpu")[0]):
+        ref = [np.asarray(x) for x in run(jnp.asarray(words))]
+        ref_ops = np.asarray(PE.slim_sort_operand_packed(
+            jnp.asarray(ref[0]), jnp.asarray(ref[1]), jnp.asarray(ref[3]),
+            jnp))
+    out = ES.encode_lanes_slim_plain(torch.from_numpy(words))
+    for name, a, b in zip(("rec", "fstate", "misc", "ev"), out, ref):
+        assert np.array_equal(a.numpy(), b), name
+    ops = ES.slim_sort_operand_packed(*out[:2], out[3])
+    assert np.array_equal(ops.numpy(), ref_ops)
+    if case == "eviction":
+        assert ref[2][2].max() >= 1 and not ref[2][0].any()
+
+    mb = ((3 * L // 2 + 170 + 255) // 256) * 256
+    payload, total, over = ES.order_and_pack_lanes(ops, mb, ops.shape[0])
+    for lane in range(lanes):
+        seq = TS.encode_emissions(valid[:, lane] != 0, ctx[:, lane],
+                                  bit[:, lane])
+        assert seq == JS.encode_emissions(valid[:, lane] != 0, ctx[:, lane],
+                                          bit[:, lane])
+        assert int(out[2][2, lane]) == seq[2]
+        assert not bool(over[lane])
+        nb = int(total[lane])
+        assert (bytes(payload[lane, :(nb + 7) // 8].numpy()), nb) \
+            == seq[:2], lane
+
+
+def test_side_buffer_overflow_flags_fallback():
+    rng = np.random.default_rng(5)
+    L, lanes = 16384, 6
+    valid, ctx, bit = _noisy_overflow_lanes(rng, L, lanes)
+    words = torch.from_numpy(
+        PE.pack_emissions(valid, ctx, bit, np).astype(np.int32))
+    rec, fstate, misc, ev = ES.encode_lanes_slim(words)
+    flagged = misc[0].numpy() != 0
+    assert flagged.any()
+    for lane in range(lanes):
+        _pl, _nb, nflush = TS.encode_emissions(valid[:, lane] != 0,
+                                               ctx[:, lane], bit[:, lane])
+        assert int(misc[2, lane]) == nflush
+        assert flagged[lane] == (nflush > ES.NEV)
+
+
+def test_wrapper_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        ES.encode_lanes_slim(torch.zeros((100, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ES.encode_lanes_slim(torch.zeros((1 << 15, 1), dtype=torch.int32))

@@ -1,0 +1,151 @@
+"""Plain kernel 2 (multi-round plane decoder) vs the JAX package's lane
+model (decode_lanes, round by round) and its Pallas kernel in interpret
+mode (exact, tolerance 0)."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from icer_compression_tpu.backend import sequential as JS  # noqa: E402
+from icer_compression_tpu.ops import decode_lanes as DL  # noqa: E402
+from icer_compression_tpu.ops import pallas_decode as PD  # noqa: E402
+from icer_compression_tpu.ops.context_model import plane_emissions  # noqa: E402
+from icer_compression_tpu_torch.ops import plane_decode as TPD  # noqa: E402
+
+
+def _lanes_case(rng, n, Hmax, Wmax, mag_bits, R):
+    """Random segments (sparse, zero and dense lanes), every plane encoded
+    with the sequential coder into one stream blob.  Returns the decoder
+    inputs and the original coefficients."""
+    lsb0 = (7 if mag_bits == 7 else 9) - 1
+    h = rng.integers(1, Hmax + 1, n).astype(np.int32)
+    w = rng.integers(1, Wmax + 1, n).astype(np.int32)
+    h[0], w[0] = Hmax, Wmax
+    sub = rng.integers(0, 4, n).astype(np.int32)
+    blob = bytearray()
+    offs = np.full((R, n), -1, np.int64)
+    ebits = np.zeros((R, n), np.int64)
+    for lane in range(n):
+        hi = 1 << mag_bits if mag_bits == 7 else 1 << 10
+        mag = rng.integers(0, hi, (h[lane], w[lane]))
+        if lane % 3 == 1:
+            mag = (mag > hi // 2) * mag
+        elif lane % 3 == 2:
+            mag = mag >> 5
+        full = (mag | (rng.integers(0, 2, mag.shape) << mag_bits)).astype(
+            np.int32)
+        for r in range(R):
+            v, c, b = plane_emissions(full, int(sub[lane]), lsb0 - r,
+                                      mag_bits)
+            pl, nb, _ = JS.encode_emissions(v, c, b)
+            offs[r, lane] = len(blob)
+            ebits[r, lane] = nb
+            blob += pl
+            blob += bytes(rng.integers(0, 256, 3).astype(np.uint8))
+    # retirement: a missing middle plane and a stream error (a payload
+    # whose frozen length is too short); one lane reads past its payload
+    # into the following bytes (the reference's over-read)
+    offs[R // 2, 3] = -1
+    ebits[1, 5] += 4000
+    ebits[2, 6] = 1
+    return h, w, sub, bytes(blob), offs, ebits, lsb0
+
+
+def _torch_inputs(h, w, sub, blob, offs, ebits):
+    n = len(h)
+    return (torch.from_numpy(np.frombuffer(blob, np.uint8).copy()),
+            torch.from_numpy(offs.astype(np.int32)),
+            torch.from_numpy(ebits.astype(np.int32)),
+            torch.full((n,), len(blob), dtype=torch.int32),
+            torch.from_numpy(np.stack([h, w, sub]).astype(np.int32)))
+
+
+@pytest.mark.parametrize("mag_bits", [7, 15])
+def test_plain_kernel_matches_lane_model_round_by_round(mag_bits):
+    rng = np.random.default_rng(20 + mag_bits)
+    n, Hmax, Wmax, R = 10, 5, 7, 5
+    h, w, sub, blob, offs, ebits, lsb0 = _lanes_case(rng, n, Hmax, Wmax,
+                                                     mag_bits, R)
+    sdata = np.frombuffer(blob, np.uint8)
+    seg = np.zeros((Hmax, Wmax, n), np.int32)
+    alive = np.ones(n, bool)
+    for r in range(R):
+        alive &= offs[r] >= 0
+        base = np.maximum(offs[r], 0)
+        readable = np.where(alive, len(blob) - base, 0)
+        data = np.zeros((n, max(int(readable.max()), 8)), np.uint8)
+        for lane in range(n):
+            data[lane, :readable[lane]] = sdata[base[lane]:]  \
+                if alive[lane] else 0
+        dec = DL.LaneDecoders(data, readable, ebits[r])
+        ok = DL.decode_plane_lanes(seg, h, w, sub,
+                                   np.full(n, lsb0 - r, np.int32),
+                                   np.full(n, mag_bits, np.int32), dec,
+                                   alive)
+        alive &= ok
+        # the plain kernel over rounds 0..r
+        args = _torch_inputs(h, w, sub, blob, offs[:r + 1], ebits[:r + 1])
+        out, err, pos = TPD.decode_planes(*args, Hmax, Wmax, lsb0, mag_bits)
+        assert np.array_equal(out.numpy().reshape(Hmax, Wmax, n), seg), r
+        assert np.array_equal(err.numpy() != 0, ~alive), r
+        assert np.array_equal(pos[r].numpy(), dec.pos), r
+    assert not alive[3] and not alive[6] and alive.sum() >= 4
+
+
+def test_plain_kernel_matches_pallas_multi_round():
+    rng = np.random.default_rng(31)
+    n, Hmax, Wmax, R, mag_bits = 12, 3, 8, 3, 7
+    h, w, sub, blob, offs, ebits, lsb0 = _lanes_case(rng, n, Hmax, Wmax,
+                                                     mag_bits, R)
+    out, err, _pos = TPD.decode_planes_plain(
+        *_torch_inputs(h, w, sub, blob, offs, ebits), Hmax, Wmax, lsb0,
+        mag_bits)
+
+    # the Pallas kernel's inputs: per-round windows covering the whole
+    # remainder of the stream (so no window ever clips the over-read)
+    lanes = PD.LANES
+    NW = max(16, -(-(len(blob) + 8) // 32) * 8)
+    sdata = np.frombuffer(blob + bytes(4 * NW), np.uint8)
+    words = np.zeros((R, NW, lanes), np.int32)
+    geom = np.zeros((R, 8, lanes), np.int32)
+    present = np.ones(n, bool)
+    for r in range(R):
+        present &= offs[r] >= 0
+        for lane in range(n):
+            if not present[lane]:
+                continue
+            o = offs[r, lane]
+            wb = sdata[o:o + 4 * NW].copy()
+            wb[len(blob) - o:] = 0
+            words[r, :, lane] = wb.view(np.int32)
+        geom[r, 0, :n] = h
+        geom[r, 1, :n] = w
+        geom[r, 2, :n] = sub
+        geom[r, 3] = lsb0 - r
+        geom[r, 4] = mag_bits
+        geom[r, 5, :n] = present | (0x3FFF << 6)
+        geom[r, 6, :n] = ebits[r]
+        geom[r, 7, :n] = np.where(present, (len(blob) - np.maximum(
+            offs[r], 0)) * 8, 0)
+    run = PD.make_decode_plane_pallas(Hmax * Wmax, Wmax, NW, nrounds=R,
+                                      interpret=True)
+    p_out, p_err, _ = run(jnp.asarray(words.reshape(R * NW, lanes)),
+                          jnp.asarray(geom.reshape(R * 8, lanes)))
+    p_out = np.asarray(p_out)[:, :n]
+    assert np.array_equal(out.numpy(), p_out)
+    assert np.array_equal(err.numpy() != 0, np.asarray(p_err)[:n] != 0)
+
+
+def test_wrapper_checks_inputs():
+    s = torch.zeros(16, dtype=torch.uint8)
+    o = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TPD.decode_planes(s, o, o.to(torch.int64), o[0], torch.zeros(
+            (3, 3), dtype=torch.int32), 2, 2, 6, 7)
+    with pytest.raises(ValueError):
+        TPD.decode_planes(s, o, o, o[0], torch.zeros((2, 3),
+                          dtype=torch.int32), 2, 2, 6, 7)

@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels from ``icer_compression_tpu_torch/csrc`` (one
+It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel, into ``build/``), then:
 
   1. holds kernel 1 (slim encode coder) bit-equal to its plain PyTorch
@@ -19,7 +19,25 @@ It builds both CUDA kernels from ``icer_compression_tpu_torch/csrc`` (one
      .sha256 for the stream and the decoded pixels; both kernels must have
      launched;
   4. encodes and decodes a batch of 8 noisy variants of boat, pixel-exact;
-  5. times encode, decode and each kernel (CUDA events) beside its bound.
+  5. times encode, decode and kernels 1-2 (CUDA events) beside their bounds;
+  6. holds kernels 4 and 5 (full state-machine coder, plain and tiled)
+     bit-equal to their plain version on boat's shortest bucket and on a
+     reorder-window eviction block, and kernel 5 equal to kernel 4 on
+     every bucket of boat (its path);
+  7. drives the ``pallas`` coder backend (kernel 4): boat lossless golden
+     sha and the quota-50,000 pins; its host re-encode lanes must be the
+     lanes where kernel 1 evicts or a lane overflows its compacted length
+     or payload cap;
+  8. drives the ``sorted`` coder backend: the same golden sha and pins;
+  9. encodes a 256x256 crop at one stage and one segment (lanes of 32,768
+     slots): the slim encoder must refuse it, ``pallas`` and ``sorted``
+     must agree, and the stream must decode pixel-exact;
+ 10. holds the quota-class encode (quotas 5,000, 20,000, 50,000) equal to
+     the full encode then allocation;
+ 11. continues each unit of boat's decode plan with kernel 3 (seeded
+     single-plane decode) after kernel 2's first R-1 rounds: it must equal
+     kernel 2's R rounds; kernel 3 bit-equal to its plain version;
+ 12. times kernels 3-5 beside their bounds.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object {"kernels": [...]}; the last line is
@@ -56,6 +74,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 K1_OPS_PER_VALID = 48
 K1_OPS_PER_ALLOC = 34
 K2_OPS_PER_PIXEL = 60
+# kernels 4/5: 16 cutoff compares + ~48 for counters, bin state, codeword
+# construction (golomb remainder or custom tables) and the three outputs
+# per valid emission; kernel 3 decodes like kernel 2, one round
+K4_OPS_PER_VALID = 64
 
 
 def log(msg: str) -> None:
@@ -200,6 +222,293 @@ def k2_bound(unit, pos):
     area = unit["geom"][0].astype(np.int64) * unit["geom"][1]
     ops = K2_OPS_PER_PIXEL * int(((p > 0) * area).sum())
     return bound(nbytes, ops)
+
+
+def k4_bound(valid):
+    """Kernels 4/5: three words in per step, three out per row (incl. the
+    17 flush rows); ops from this run's valid emissions."""
+    L, lanes = valid.shape
+    nbytes = 4 * (3 * L * lanes + 3 * (L + 17) * lanes)
+    return bound(nbytes, K4_OPS_PER_VALID * int(valid.sum()))
+
+
+def k3_bound(unit, pos, active):
+    """Kernel 3: the payload bytes the active lanes consumed, the plan
+    rows, the seed canvas in and the canvas, err and pos out; ops from the
+    pixels of the active lanes."""
+    n = unit["offs"].shape[1]
+    p = pos.cpu().numpy().astype(np.int64)
+    px = unit["hmax"] * unit["wmax"] * n
+    nbytes = int(((p + 7) // 8).sum()) + 4 * (7 * n) + 4 * (2 * px + 2 * n)
+    area = unit["geom"][0].astype(np.int64) * unit["geom"][1]
+    ops = K2_OPS_PER_PIXEL * int((active.cpu().numpy() * area).sum())
+    return bound(nbytes, ops)
+
+
+def eviction_lanes(rng, L=2432, lanes=128):
+    """A golomb run held open while uncoded codewords allocate behind it:
+    lanes past ~2048 allocations need the reorder-window eviction."""
+    warm = 64
+    n_unc = np.arange(lanes) * 17 + 90
+    valid = np.ones((L, lanes), np.int32)
+    ctx = np.full((L, lanes), 17, np.int32)
+    bit = rng.integers(0, 2, (L, lanes)).astype(np.int32)
+    ctx[:warm] = 0
+    bit[:warm] = 0
+    valid[warm:] = np.arange(L - warm)[:, None] < n_unc[None, :]
+    return [torch.from_numpy(a) for a in (valid, ctx, bit)]
+
+
+def long_lane_phase(dev, crop):
+    """Phase 9: one stage, one segment: lanes of 2 * (side / 2)^2 slots,
+    32,768 for a 256x256 crop (past the slim coder's fused-key limit)."""
+    from icer_compression_tpu_torch.core.status import IcerError
+    from icer_compression_tpu_torch.models import grayscale as T
+    h, w = crop.shape
+    lcfg = T.CodecConfig(1, 0, 1, None)
+    try:
+        T.make_encoder(w, h, lcfg, np.uint16, dev)
+    except IcerError:
+        pass
+    else:
+        raise AssertionError("slim encoder took lanes past its limit")
+    lenc = {e: T.make_encoder(w, h, lcfg, np.uint16, dev, entropy=e)
+            for e in ("pallas", "sorted")}
+    lp, ls = (T.compress_batch(crop[None], lcfg, encoder=lenc[e])[0]
+              for e in ("pallas", "sorted"))
+    if lp != ls:
+        raise AssertionError("long lanes: pallas and sorted streams differ")
+    if not np.array_equal(T.decompress(lp, lcfg, np.uint16, dev), crop):
+        raise AssertionError("long lanes: decode differs from the crop")
+    log(f"long lanes ({w}x{h}, 1 stage, 1 segment: "
+        f"{lenc['pallas'].buckets[0]['L']} slots): slim refuses, pallas == "
+        f"sorted ({len(lp)} B, host re-encode lanes "
+        f"{lenc['pallas'].fallback_lanes} / {lenc['sorted'].fallback_lanes}"
+        f"), decode pixel-exact")
+    return lp
+
+
+def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
+                 cfg, cfg50):
+    """Phases 6-12 (this slice's paths); returns the kernels-line entries
+    of kernels 3, 4 and 5."""
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
+    from icer_compression_tpu_torch.ops import entropy_full as EF
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+
+    h, w = boat.shape
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    def pixel_sha(px):
+        return sha(np.ascontiguousarray(px, "<u2").tobytes())
+
+    # ---- phase 6: kernels 4 and 5 vs their plain version ---------------
+    penc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="pallas")
+    emitted = [penc.emit(g, img) for g in penc.groups]
+    k4_in = []
+    for b in penc.buckets:
+        Lc = E.bucket_sizes(b["L"])[1]
+        cw, _over = E.compact_words(penc.bucket_words(b, emitted), Lc)
+        k4_in.append([t.t().contiguous() for t in E._split_words(cw)])
+    short = k4_in[-1]
+    evict = [t.to(dev) for t in eviction_lanes(np.random.default_rng(5))]
+    k45_err, k4_plain_s = 0, None
+    for nm, ins in (("boat shortest bucket", short), ("eviction", evict)):
+        ref, plain_s = sync_time(lambda: EF.encode_lanes_full_plain(*ins))
+        k4_plain_s = k4_plain_s or plain_s
+        for kn, fn in (("K4", EF.encode_lanes_full),
+                       ("K5", EF.encode_lanes_full_tiled)):
+            for on, a, b in zip(("code", "nbits", "open"), fn(*ins), ref):
+                k45_err = max(k45_err, assert_equal(f"{kn} {nm} {on}", a, b))
+        log(f"K4 and K5 {nm} (L={ins[0].shape[0]}, {ins[0].shape[1]} "
+            f"lanes): code/nbits/open bit-equal to plain (tolerance 0), "
+            f"plain {plain_s:.1f} s")
+    flag = EF.order_and_pack_lanes(*EF.encode_lanes_full(*evict), 4096)[2]
+    if not bool(flag.any()):
+        raise AssertionError("eviction block flagged no lane")
+    EF.encode_lanes_full_tiled.launches = 0
+    k5_out = [EF.encode_lanes_full_tiled(*ins) for ins in k4_in]
+    k5_launches = EF.encode_lanes_full_tiled.launches
+    for i, (ins, o5) in enumerate(zip(k4_in, k5_out)):
+        for on, a, b in zip(("code", "nbits", "open"), o5,
+                            EF.encode_lanes_full(*ins)):
+            assert_equal(f"K5 vs K4 boat bucket {i} {on}", a, b)
+    log(f"K5 equals K4 on every bucket of boat ({k5_launches} launches; "
+        f"stage 1: L={k4_in[0][0].shape[0]}, {k4_in[0][0].shape[1]} lanes)")
+
+    # ---- phase 7: the pallas backend -----------------------------------
+    EF.encode_lanes_full.launches = 0
+    sp, pallas_s = sync_time(
+        lambda: T.compress_batch(boat[None], cfg, encoder=penc)[0])
+    k4_launches = EF.encode_lanes_full.launches
+    if sha(sp) != golden:
+        raise AssertionError("pallas backend: boat lossless sha differs")
+    if k4_launches <= 0:
+        raise AssertionError("pallas backend: kernel 4 did not launch")
+    host = penc.fallback_lanes
+    expect = 0
+    for b, bw in zip(penc.buckets, slim_words):
+        _Lk, Lc, cap = E.bucket_sizes(b["L"])
+        rec, fstate, misc, ev = ES.encode_lanes_slim(bw)
+        total = ES.order_and_pack_lanes(
+            ES.slim_sort_operand_packed(rec, fstate, ev), cap, Lc)[1]
+        nvalid = (bw & 1).sum(dim=0)
+        expect += int(((misc[2] > 0) | (nvalid > Lc) | (total > cap)).sum())
+    if host != expect:
+        raise AssertionError(f"pallas backend: {host} host re-encode lanes, "
+                             f"{expect} lanes evict or overflow")
+    log(f"pallas backend boat 512 lossless: sha == golden; kernel 4 "
+        f"launches {k4_launches}; host re-encode lanes {host} == lanes "
+        f"where K1 evicts or Lc/cap overflows, {penc.fallback_seconds:.3f} s "
+        f"on the host; encode wall (run once) {pallas_s:.3f} s | {card}")
+    s50 = T.compress_batch(boat[None], cfg50, encoder=penc)[0]
+    d50 = T.decompress(s50, cfg50, dtype=np.uint16, device=dev)
+    if [sha(s50), pixel_sha(d50)] != pins:
+        raise AssertionError("pallas backend: quota 50000 misses the pins")
+    log("pallas backend quota 50000: stream and decoded pixels match pins")
+
+    # ---- phase 8: the sorted backend -----------------------------------
+    senc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted")
+    ss, sorted_s = sync_time(
+        lambda: T.compress_batch(boat[None], cfg, encoder=senc)[0])
+    if sha(ss) != golden:
+        raise AssertionError("sorted backend: boat lossless sha differs")
+    s50 = T.compress_batch(boat[None], cfg50, encoder=senc)[0]
+    d50 = T.decompress(s50, cfg50, dtype=np.uint16, device=dev)
+    if [sha(s50), pixel_sha(d50)] != pins:
+        raise AssertionError("sorted backend: quota 50000 misses the pins")
+    log(f"sorted backend boat 512: lossless sha == golden, quota 50000 "
+        f"matches the pins; host re-encode lanes {senc.fallback_lanes}, "
+        f"{senc.fallback_seconds:.3f} s on the host; encode wall (run once) "
+        f"{sorted_s:.3f} s | {card}")
+
+    # ---- phase 9: a long-lane geometry ---------------------------------
+    long_lane_phase(dev, np.ascontiguousarray(boat[128:384, 128:384]))
+
+    # ---- phase 10: quota classes ---------------------------------------
+    full = T.make_encoder(w, h, cfg, np.uint16, dev)
+    table, mean = full.encode_batch(boat[None])[0]
+    table = {(0,) + k: v for k, v in table.items()}
+    for q in (5000, 20000, 50000):
+        qcfg = T.CodecConfig(4, 0, 6, q)
+        stats = {}
+        sq = T.compress_batch(boat[None], qcfg, device=dev, stats=stats)[0]
+        if sq != T._allocate_stream(table, mean, qcfg, w, h, 9):
+            raise AssertionError(f"quota {q}: class stream differs from the "
+                                 "full encode")
+        log(f"quota {q}: {len(sq)} B == full encode then allocate; class "
+            f"{stats['first_class']} of {stats['classes']}, escalations "
+            f"{stats['escalations']}")
+
+    # ---- phase 11: kernel 3 continues kernel 2 -------------------------
+    _cw, _ch, _ll, blob, units = D.plan_batch([stream], cfg, np.uint16)
+    st = torch.as_tensor(blob, device=dev)
+    k3_args = []
+    PDc.decode_plane_seeded.launches = 0
+    for i, u in enumerate(units):
+        offs, ebits, lane_end, geom = [torch.as_tensor(u[k], device=dev)
+                                       for k in ("offs", "ebits",
+                                                 "lane_end", "geom")]
+        R = offs.shape[0]
+        hm, wm = u["hmax"], u["wmax"]
+        fo, fe, fp = PDc.decode_planes(st, offs, ebits, lane_end, geom, hm,
+                                       wm, 8, 15)
+        ho, he, _hp = PDc.decode_planes(st, offs[:-1], ebits[:-1], lane_end,
+                                        geom, hm, wm, 8, 15)
+        last = torch.where(he != 0, -1, offs[-1])
+        a = (st, last, ebits[-1], lane_end, geom, ho, hm, wm, 8 - (R - 1),
+             15)
+        k3_args.append(a)
+        ko, ke, kp = PDc.decode_plane_seeded(*a)
+        assert_equal(f"K3 unit {i} out", ko, fo)
+        assert_equal(f"K3 unit {i} err", (he != 0) | (ke != 0), fe != 0)
+        assert_equal(f"K3 unit {i} pos", kp, fp[-1])
+    k3_launches = PDc.decode_plane_seeded.launches
+    log(f"K3 seeded with K2's first R-1 rounds equals K2's R rounds on all "
+        f"{len(units)} units of boat's decode plan ({k3_launches} launches)")
+    small = min(range(len(units)),
+                key=lambda i: units[i]["hmax"] * units[i]["wmax"])
+    big = max(range(len(units)),
+              key=lambda i: units[i]["hmax"] * units[i]["wmax"])
+    po, k3_plain_s = sync_time(
+        lambda: PDc.decode_plane_seeded_plain(*k3_args[small]))
+    k3_err = 0
+    for nm, a, b in zip(("out", "err", "pos"),
+                        PDc.decode_plane_seeded(*k3_args[small]), po):
+        k3_err = max(k3_err, assert_equal(f"K3 smallest unit {nm}", a, b))
+    log(f"K3 smallest unit: out/err/pos bit-equal to plain (tolerance 0), "
+        f"plain {k3_plain_s:.1f} s")
+
+    # ---- phase 12: timings ---------------------------------------------
+    k4_short_ms = event_ms(lambda: EF.encode_lanes_full(*short))
+    k5_short_ms = event_ms(lambda: EF.encode_lanes_full_tiled(*short))
+    k4_ms = event_ms(lambda: EF.encode_lanes_full(*k4_in[0]))
+    k5_ms = event_ms(lambda: EF.encode_lanes_full_tiled(*k4_in[0]))
+    k4_img = sum(event_ms(lambda i=i: EF.encode_lanes_full(*i))
+                 for i in k4_in)
+    short_b = k4_bound(short[0])
+    s1_b = k4_bound(k4_in[0][0])
+    img_b = sum(k4_bound(i[0])[0] for i in k4_in)
+    log(f"K4 stage-1 block {tuple(k4_in[0][0].shape)}: {k4_ms:.3f} ms, K5 "
+        f"{k5_ms:.3f} ms (bound {s1_b[0]:.4f} ms, {s1_b[1]}); shortest "
+        f"bucket {tuple(short[0].shape)}: K4 {k4_short_ms:.3f} ms, K5 "
+        f"{k5_short_ms:.3f} ms (bound {short_b[0]:.4f} ms); K4 per image "
+        f"{k4_img:.3f} ms | {card}")
+    k3_ms = [event_ms(lambda a=a: PDc.decode_plane_seeded(*a))
+             for a in k3_args]
+    k3_b = []
+    for u, a in zip(units, k3_args):
+        _o, _e, kp = PDc.decode_plane_seeded(*a)
+        k3_b.append(k3_bound(u, kp, a[1] >= 0))
+    for i, u in enumerate(units):
+        log(f"K3 unit {i}: {u['offs'].shape[1]} lanes, canvas {u['hmax']}x"
+            f"{u['wmax']}, round lsb {k3_args[i][8]}: {k3_ms[i]:.3f} ms "
+            f"(bound {k3_b[i][0]:.5f} ms, {k3_b[i][1]})")
+    log(f"K3 stage-1 LSB round: {k3_ms[big]:.3f} ms | {card}")
+
+    src = "icer_compression_tpu_torch/csrc/"
+    return [
+        {"name": "full_encode", "route": "cuda", "source": src + "full_encode.cu",
+         "replaces": "icer_compression_tpu/ops/pallas_entropy.py:188",
+         "launches": k4_launches, "max_abs_err": k45_err,
+         "equal_to_plain": True,
+         "shape": f"L={short[0].shape[0]} lanes={short[0].shape[1]} "
+                  "(boat shortest bucket)",
+         "ms": k4_short_ms, "plain_ms": 1e3 * k4_plain_s,
+         "bound_ms": short_b[0], "bound_by": short_b[1], "library_ms": None,
+         "stage1_ms": k4_ms, "stage1_bound_ms": s1_b[0],
+         "ms_per_image": k4_img, "bound_ms_per_image": img_b,
+         "path": "compress_batch with entropy='pallas', boat 512 lossless"},
+        {"name": "full_encode_tiled", "route": "cuda",
+         "source": src + "full_encode.cu",
+         "replaces": "icer_compression_tpu/ops/pallas_entropy.py:284",
+         "launches": k5_launches, "max_abs_err": k45_err,
+         "equal_to_plain": True,
+         "shape": f"L={short[0].shape[0]} lanes={short[0].shape[1]} "
+                  "(boat shortest bucket)",
+         "ms": k5_short_ms, "plain_ms": 1e3 * k4_plain_s,
+         "bound_ms": short_b[0], "bound_by": short_b[1], "library_ms": None,
+         "stage1_ms": k5_ms, "stage1_bound_ms": s1_b[0],
+         "path": "every pallas-backend bucket of boat 512 through K5"},
+        {"name": "plane_decode_seeded", "route": "cuda",
+         "source": src + "plane_decode.cu",
+         "replaces": "icer_compression_tpu/ops/pallas_decode.py:1230",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "equal_to_plain": True,
+         "shape": f"lanes={units[small]['offs'].shape[1]} canvas="
+                  f"{units[small]['hmax']}x{units[small]['wmax']} 1 round "
+                  "(boat stage-4 LSB)",
+         "ms": k3_ms[small], "plain_ms": 1e3 * k3_plain_s,
+         "bound_ms": k3_b[small][0], "bound_by": k3_b[small][1],
+         "library_ms": None, "stage1_ms": k3_ms[big],
+         "stage1_bound_ms": k3_b[big][0],
+         "path": "last round of each unit of boat's lossless decode plan"},
+    ]
 
 
 def main() -> int:
@@ -376,6 +685,9 @@ def main() -> int:
         log(f"K1 launch {i}: {tuple(bw.shape)}: {k1_ms[i]:.3f} ms "
             f"(bound {k1_bounds[i][0]:.4f} ms, {k1_bounds[i][1]})")
 
+    new = later_phases(dev, card, boat, img, bucket_words, stream, golden,
+                       pins, cfg, cfg50)
+
     kern = [
         {"name": "slim_encode", "route": "cuda",
          "source": "icer_compression_tpu_torch/csrc/slim_encode.cu",
@@ -399,7 +711,7 @@ def main() -> int:
          "bound_ms": k2_bounds[small][0], "bound_by": k2_bounds[small][1],
          "library_ms": None, "ms_per_image": sum(k2_ms),
          "bound_ms_per_image": sum(b[0] for b in k2_bounds)},
-    ]
+    ] + new
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
         f"decode_ms {1e3 * dec_med:.2f}")
     log(card)

@@ -1,10 +1,13 @@
-// Kernel 2 of the ICER port: multi-round lane-batched bitplane decoder.
+// Kernels 2 and 3 of the ICER port: lane-batched bitplane decoders.
 //
-// Replaces the TPU kernel make_decode_plane_pallas(nrounds=R) of
-// icer_compression_tpu/ops/pallas_decode.py:99 (kernel body :192-1198).
-// Its semantic model is icer_compression_tpu/ops/decode_lanes.py; the plain
-// PyTorch version is decode_planes_plain in ops/plane_decode.py, which
-// documents the I/O contract.
+// Kernel 2 replaces the TPU kernel make_decode_plane_pallas(nrounds=R) of
+// icer_compression_tpu/ops/pallas_decode.py:99 (kernel body :192-1198):
+// all R rounds from a zero canvas, with sticky retirement.  Kernel 3
+// replaces the same factory's single-plane mode, nrounds=None (the seg_ref
+// path, :197 and :273; call :1230): one round from a seeded canvas.  Their
+// semantic model is icer_compression_tpu/ops/decode_lanes.py; the plain
+// PyTorch versions are decode_planes_plain and decode_plane_seeded_plain
+// in ops/plane_decode.py, which documents the I/O contracts.
 //
 // Bound on this card: the data is small (a 512x512 lossless stream is
 // 184 KB, the canvas 1 MB of int32) and so is the arithmetic per pixel, so
@@ -26,6 +29,13 @@
 // (pixel, lane) layout.  Counters and bin stacks are per-thread arrays;
 // the constant tables sit in shared memory.  This version is made to be
 // right; making the chain shorter is later work.
+//
+// Kernel 3 is the same kernel instantiated with kSeeded: each thread first
+// copies its lane's column of the seed canvas into the output canvas and
+// then runs one round (bitplane lsb) on it.  Its bound is the same serial
+// chain, one round of it: (pixels) dependent steps per lane; a lane whose
+// offset is -1 keeps its seed and reports err as a missing plane does in
+// kernel 2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -157,22 +167,28 @@ __device__ __forceinline__ void update(PlaneState& st, int ctx, int bit) {
   st.zero[ctx] = zc;
 }
 
+template <bool kSeeded>
 __global__ void plane_decode_kernel(const uint8_t* __restrict__ stream,
                                     const int32_t* __restrict__ offs,
                                     const int32_t* __restrict__ ebits,
                                     const int32_t* __restrict__ lane_end,
                                     const int32_t* __restrict__ geom,
                                     const int32_t* __restrict__ luts,
+                                    const int32_t* __restrict__ seed,
                                     int32_t* __restrict__ out,
                                     int32_t* __restrict__ err_out,
                                     int32_t* __restrict__ pos_out,
-                                    int R, int n, int wmax, int lsb0,
-                                    int mag_bits) {
+                                    int R, int n, int hmax, int wmax,
+                                    int lsb0, int mag_bits) {
   __shared__ int lut[kLutSize];
   for (int i = threadIdx.x; i < kLutSize; i += blockDim.x) lut[i] = luts[i];
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  if (kSeeded) {
+    for (int p = 0; p < hmax * wmax; ++p)
+      out[(size_t)p * n + lane] = seed[(size_t)p * n + lane];
+  }
 
   const int h = geom[lane], w = geom[n + lane], sb = geom[2 * n + lane];
   const bool is_hl = sb == 1, is_hh = sb == 3;
@@ -286,10 +302,30 @@ extern "C" int plane_decode_launch(const void* stream, const void* offs,
   if (n <= 0) return (int)cudaSuccess;
   const int threads = 32;
   const int blocks = (n + threads - 1) / threads;
-  plane_decode_kernel<<<blocks, threads, 0, (cudaStream_t)cuda_stream>>>(
+  plane_decode_kernel<false><<<blocks, threads, 0,
+                               (cudaStream_t)cuda_stream>>>(
       (const uint8_t*)stream, (const int32_t*)offs, (const int32_t*)ebits,
       (const int32_t*)lane_end, (const int32_t*)geom, (const int32_t*)luts,
-      (int32_t*)out, (int32_t*)err, (int32_t*)pos, R, n, wmax, lsb0,
-      mag_bits);
+      nullptr, (int32_t*)out, (int32_t*)err, (int32_t*)pos, R, n, hmax,
+      wmax, lsb0, mag_bits);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plane_decode_seeded_launch(
+    const void* stream, const void* offs, const void* ebits,
+    const void* lane_end, const void* geom, const void* seed,
+    const void* luts, void* out, void* err, void* pos, int n, int hmax,
+    int wmax, int lsb, int mag_bits, int lut_size, void* cuda_stream) {
+  if (lut_size != kLutSize || hmax <= 0 || wmax <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  const int threads = 32;
+  const int blocks = (n + threads - 1) / threads;
+  plane_decode_kernel<true><<<blocks, threads, 0,
+                              (cudaStream_t)cuda_stream>>>(
+      (const uint8_t*)stream, (const int32_t*)offs, (const int32_t*)ebits,
+      (const int32_t*)lane_end, (const int32_t*)geom, (const int32_t*)luts,
+      (const int32_t*)seed, (int32_t*)out, (int32_t*)err, (int32_t*)pos, 1,
+      n, hmax, wmax, lsb, mag_bits);
   return (int)cudaGetLastError();
 }

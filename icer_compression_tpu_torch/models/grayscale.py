@@ -1,12 +1,14 @@
 """Grayscale ICER codec entry points.
 
 Counterpart: ``icer_compression_tpu/models/grayscale.py`` (``CodecConfig``,
-``allocate_from_table``, ``assemble_stream``, and ``compress_jax`` /
-``decompress`` semantics).  ``compress`` encodes every plane of every
-segment on the device (ops/encode) and then allocates the byte quota on
-the host, in the reference's packet priority order; the stream is
-byte-identical to the JAX package's at any quota.  ``decompress`` runs the
-lane-batched decoder (models/decode).
+``allocate_from_table``, ``assemble_stream``, ``_jax_quota_classes`` and
+the ``compress_jax`` / ``decompress`` semantics).  ``compress`` encodes on
+the device (ops/encode) only the priority-prefix bitplanes that the byte
+quota's class admits, allocates the quota on the host in the reference's
+packet priority order, and widens to the next class (encoding only the
+planes it adds) when the prefix falls short; the stream is byte-identical
+to the JAX package's at any quota.  ``decompress`` runs the lane-batched
+decoder (models/decode).
 
 Every entry point takes ``device=None``, which means ``"cuda"``; without a
 CUDA device the caller must pass ``device="cpu"``.
@@ -95,39 +97,166 @@ def assemble_stream(encoded: dict, order) -> bytes:
     return bytes(out)
 
 
-def make_encoder(w: int, h: int, config: CodecConfig, dtype, device=None):
-    """An encoder for (h, w) images of ``dtype`` on ``device``."""
+def make_encoder(w: int, h: int, config: CodecConfig, dtype, device=None,
+                 entropy: str = "slim", plane_cuts: tuple | None = None):
+    """An encoder for (h, w) images of ``dtype`` on ``device``, with the
+    coder backend ``entropy`` (``slim``, ``pallas`` or ``sorted``) over
+    the plane windows ``plane_cuts`` (None: every plane)."""
     from ..ops.encode import TorchGrayscaleEncoder
     return TorchGrayscaleEncoder(w, h, config.stages, config.filt,
                                  config.segments, _mag_bits(dtype),
-                                 resolve_device(device))
+                                 resolve_device(device), entropy=entropy,
+                                 plane_cuts=plane_cuts)
+
+
+# Byte-mass share of bitplane lsb (0 = LSB) for natural imagery, measured
+# on the boat.512 lossless stream (``encode_jax.PLANE_MASS``): the quota
+# prefix classes place their boundaries with it.
+PLANE_MASS = (0.225, 0.238, 0.214, 0.157, 0.080, 0.034, 0.020, 0.016,
+              0.016)
+
+_QUOTA_CLASSES: dict[tuple, list] = {}
+_ENCODERS: dict[tuple, object] = {}
+
+
+def quota_classes(w: int, h: int, stages: int, bitplanes: int):
+    """Priority-prefix classes for quota-aware encoding: [(model fraction,
+    cuts)], cuts[gi] the lowest lsb any prefix packet needs from stage
+    group gi.  The packet priority order is a pure function of (stage,
+    subband, lsb), so the prefix a quota admits is static up to the
+    payload sizes; boundaries sit where the PLANE_MASS byte model crosses
+    1/16, 1/8, 1/4, 1/2 and 1 (the reference stops coding at the quota,
+    icer_compress.c:404; this is the lane-masked equivalent)."""
+    cached = _QUOTA_CLASSES.get((w, h, stages, bitplanes))
+    if cached is not None:
+        return cached
+    packets = sort_packets(build_packets_grayscale(w, h, stages, 0,
+                                                   bitplanes))
+    npk = len(packets)
+    mass = PLANE_MASS[:bitplanes]
+    mass = [m / sum(mass) for m in mass]
+    per_lsb_packets = max(1, npk // bitplanes)
+    classes, seen = [], set()
+    cum = 0.0
+    bounds = [1 / 16, 1 / 8, 1 / 4, 1 / 2, 1.0]
+    bi = 0
+    cuts = [bitplanes] * stages
+    for i, p in enumerate(packets):
+        cum += mass[p.lsb] / per_lsb_packets
+        gi = p.decomp_level - 1
+        cuts[gi] = min(cuts[gi], p.lsb)
+        last = i + 1 == npk
+        if bi < len(bounds) and (cum >= bounds[bi] or last):
+            while bi < len(bounds) and cum >= bounds[bi]:
+                bi += 1
+            t = tuple(cuts)
+            if t not in seen:
+                seen.add(t)
+                classes.append((min(cum, 1.0), t))
+    if classes[-1][1] != (0,) * stages:
+        classes.append((1.0, (0,) * stages))
+    _QUOTA_CLASSES[(w, h, stages, bitplanes)] = classes
+    return classes
+
+
+def _cached_encoder(w, h, stages, filt, segments, mag_bits, entropy,
+                    device, windows):
+    """One encoder per (geometry, backend, device, plane windows)."""
+    from ..ops.encode import TorchGrayscaleEncoder
+    key = (w, h, stages, filt, segments, mag_bits, entropy, str(device),
+           windows)
+    enc = _ENCODERS.get(key)
+    if enc is None:
+        enc = _ENCODERS[key] = TorchGrayscaleEncoder(
+            w, h, stages, filt, segments, mag_bits, device, entropy=entropy,
+            plane_cuts=windows)
+    return enc
+
+
+def _window_encoder(enc, windows):
+    """``enc`` itself for its own plane windows, else the cached encoder
+    of its geometry, backend and device for ``windows``."""
+    if windows == enc.plane_cuts:
+        return enc
+    return _cached_encoder(enc.w, enc.h, enc.stages, enc.filt, enc.segments,
+                           enc.mag_bits, enc.entropy, enc.device, windows)
 
 
 def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
-                   encoder=None) -> list[bytes]:
+                   encoder=None, stats: dict | None = None) -> list[bytes]:
     """Compress a (B, h, w) batch of same-geometry grayscale images; each
     stream equals ``compress`` of its image.  ``encoder`` (from
-    ``make_encoder``) may be passed to reuse its plan across calls."""
+    ``make_encoder``) picks the coder backend and may be passed to reuse
+    its plan across calls; without one the ``slim`` backend runs.
+
+    The quota picks a prefix class for the whole batch; when any image's
+    allocation needs a plane outside it, the batch widens to the next
+    class and encodes only the planes that adds.  ``stats``, if given,
+    receives the first class, the last and the widening steps taken."""
     images = np.asarray(images)
     if images.ndim != 3:
         raise IcerError(IcerStatus.INVALID_INPUT, "expected (B, h, w)")
     mag_bits = _mag_bits(images.dtype)
-    _b, h, w = images.shape
-    if encoder is None:
-        encoder = make_encoder(w, h, config, images.dtype, device)
+    B, h, w = images.shape
     bitplanes = _bitplanes(mag_bits)
-    out = []
-    for table, ll_mean in encoder.encode_batch(images):
-        packets = sort_packets(build_packets_grayscale(
-            w, h, config.stages, ll_mean, bitplanes))
-        nsegs = {(p.decomp_level, p.subband_type): config.segments
-                 for p in packets}
-        encoded = allocate_from_table(
-            packets, {(0,) + k: v for k, v in table.items()},
-            config.byte_quota, nsegs, w, h)
-        out.append(assemble_stream(encoded,
-                                   rearrange_order_grayscale(bitplanes)))
+    full = ((0, bitplanes),) * config.stages
+    if encoder is None:
+        encoder = _cached_encoder(w, h, config.stages, config.filt,
+                                  config.segments, mag_bits, "slim",
+                                  resolve_device(device), full)
+    classes = quota_classes(w, h, config.stages, bitplanes)
+    quota = config.byte_quota
+    if quota is None:
+        ci = len(classes) - 1
+    else:
+        # byte coverage needed: the quota as a fraction of a lossless
+        # stream (~0.65 x raw for natural images), with 1.7x headroom
+        want = min(1.0, 1.7 * quota / max(1, 0.65 * h * w))
+        ci = next((i for i, (frac, _) in enumerate(classes)
+                   if frac >= want), len(classes) - 1)
+    if stats is not None:
+        stats.update(first_class=ci, classes=len(classes), escalations=0)
+
+    tables: list[dict] = [{} for _ in range(B)]
+    means = [0] * B
+    prev = (bitplanes,) * config.stages
+    while True:
+        cuts = classes[ci][1]
+        windows = tuple((lo, hi) for lo, hi in zip(cuts, prev))
+        if any(lo < hi for lo, hi in windows):
+            # per-lane payloads do not depend on other lanes, so the union
+            # of the window tables equals the wider class's table
+            enc = _window_encoder(encoder, windows)
+            for i, (table, ll_mean) in enumerate(enc.encode_batch(images)):
+                tables[i].update({(0,) + k: v for k, v in table.items()})
+                means[i] = ll_mean
+            prev = tuple(min(a, b) for a, b in zip(cuts, prev))
+        try:
+            out = [_allocate_stream(tables[i], means[i], config, w, h,
+                                    bitplanes) for i in range(B)]
+            break
+        except KeyError:
+            # the quota admits more than the encoded prefix: widen
+            if ci + 1 >= len(classes):
+                raise
+            ci += 1
+            if stats is not None:
+                stats["escalations"] += 1
+    if stats is not None:
+        stats["last_class"] = ci
     return out
+
+
+def _allocate_stream(table, ll_mean, config, w, h, bitplanes) -> bytes:
+    """One image's stream from its payload table; raises KeyError when
+    the quota admits a packet the table lacks."""
+    packets = sort_packets(build_packets_grayscale(
+        w, h, config.stages, ll_mean, bitplanes))
+    nsegs = {(p.decomp_level, p.subband_type): config.segments
+             for p in packets}
+    encoded = allocate_from_table(packets, table, config.byte_quota, nsegs,
+                                  w, h)
+    return assemble_stream(encoded, rearrange_order_grayscale(bitplanes))
 
 
 def compress(image: np.ndarray, config: CodecConfig, device=None) -> bytes:

@@ -1,23 +1,37 @@
 """Encode orchestration: image batch -> per-lane payload tables.
 
 Counterpart: ``icer_compression_tpu/ops/encode_jax.py``
-(``JaxGrayscaleEncoder`` with the slim backend: ``_plan_groups``,
-``_plan_buckets``, ``_transform_fn``, ``_make_emit_fn``,
-``_make_bucket_fn_slim`` without the per-plane caps, ``encode_batch`` and
-``_unpack_batch``).
+(``JaxGrayscaleEncoder``: ``_plan_groups``,
+``_plan_buckets``, ``_transform_fn``, ``_make_emit_fn`` with its plane
+window, ``_gather_compact_words``, the bucket functions of the three coder
+backends -- ``_make_bucket_fn`` (``sorted``), ``_make_bucket_fn_pallas``
+and ``_make_bucket_fn_slim`` without the per-plane caps -- ``encode_batch``
+and ``_unpack_batch``).
 
 Per batch of B same-geometry images: DWT + LL-mean removal +
 sign-magnitude, then per stage group a gather of every segment rectangle
-into one padded lane batch and its emission words for every bitplane,
-then per length bucket kernel 1 and the sort/rebuild/pack tail, all on
-the device.  Rate allocation and stream assembly stay on the host
-(models/grayscale).  Lanes that kernel 1 flags (eviction side buffer
-overflow) or whose payload passes its cap re-encode exactly on the host
-(backend/sequential); ``fallback_lanes`` counts them.
+into one padded lane batch and its emission words for every bitplane of
+the group's plane window, then per length bucket the coder backend, all on
+the device:
+
+  ``slim``   kernel 1 over the interleaved words, then the fused-key
+             sort/rebuild/pack tail (ops/entropy_slim);
+  ``pallas`` the valid-first compaction, kernel 4, then the record tail
+             (ops/entropy_full);
+  ``sorted`` the valid-first compaction, then the sort-centric coder in
+             plain PyTorch (ops/entropy_sorted).
+
+Rate allocation and stream assembly stay on the host (models/grayscale).
+Lanes that a backend flags (kernel 1's eviction side buffer overflow, a
+reorder-window flush that kernel 4 and the sorted coder leave to the host,
+more valid emissions than the compacted length, a payload past its cap)
+re-encode exactly on the host (backend/sequential); ``fallback_lanes``
+counts them and ``fallback_seconds`` adds up their host time.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,9 +42,13 @@ from ..core import constants as C
 from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
 from ..core.subbands import dim_low, subband_view
+from . import entropy_full as EF
 from . import entropy_slim as ES
+from . import entropy_sorted as SO
 from . import wavelet
 from .context_model import plane_emissions_words
+
+ENTROPY_BACKENDS = ("slim", "pallas", "sorted")
 
 
 @dataclass(frozen=True)
@@ -91,47 +109,95 @@ def _plan_buckets(groups):
     return buckets
 
 
+def _cap_bits(Lc: int) -> int:
+    """Payload cap: ~1 bit per compacted emission slot plus flush slack."""
+    return ((Lc + 17 * 10 + 255) // 256) * 256
+
+
 def bucket_sizes(Lb: int):
-    """(kernel length Lk, record slice Lc, payload cap bits) of a bucket
-    whose interleaved emission streams are Lb words long."""
+    """(kernel length Lk, compacted length Lc, payload cap bits) of a
+    bucket whose interleaved emission streams are Lb words long (the
+    ``slim`` and ``pallas`` backends)."""
     Lk = -(-Lb // ES.CHUNK) * ES.CHUNK
     Lc = min(Lk, (-(-(3 * Lb) // 4) + 255) // 256 * 256)
-    cap_bits = ((Lc + 17 * 10 + 255) // 256) * 256
-    return Lk, Lc, cap_bits
+    return Lk, Lc, _cap_bits(Lc)
+
+
+def compact_words(words: torch.Tensor, Lc: int):
+    """Valid-first compaction of interleaved (rows, n) emission words: a
+    stable partition of each row into its valid words, then its invalid
+    ones, cut to Lc.  The coder's output depends only on the valid
+    subsequence.  Returns (words (rows, Lc), over): ``over`` flags rows
+    with more than Lc valid words (they re-encode on the host)."""
+    valid = (words & 1) != 0
+    pos = torch.arange(words.shape[-1], device=words.device)
+    key = torch.where(valid, pos, words.shape[-1] + pos)
+    order = torch.sort(key, dim=-1).indices[:, :Lc]
+    return torch.gather(words, -1, order), valid.sum(dim=-1) > Lc
+
+
+def _split_words(words: torch.Tensor):
+    """Packed words valid | ctx << 1 | bit << 6 -> (valid, ctx, bit)."""
+    return words & 1, (words >> 1) & 31, (words >> 6) & 1
 
 
 class TorchGrayscaleEncoder:
-    """Encoder for one image geometry (one channel) on one device."""
+    """Encoder for one image geometry (one channel) on one device.
+
+    ``entropy`` picks the coder backend (``slim``, ``pallas`` or
+    ``sorted``).  ``plane_cuts`` bounds the bitplanes encoded per stage
+    group, as in the JAX encoder: one entry per stage, an int ``lo`` (the
+    planes lo .. all) or a ``(lo, hi)`` window; ``encode_batch`` then
+    returns only those lanes."""
 
     def __init__(self, image_w: int, image_h: int, stages: int, filt: int,
-                 segments: int, mag_bits: int, device: torch.device):
+                 segments: int, mag_bits: int, device: torch.device,
+                 entropy: str = "slim", plane_cuts: tuple | None = None):
+        if entropy not in ENTROPY_BACKENDS:
+            raise ValueError(
+                f"unknown entropy backend {entropy!r}: expected 'slim', "
+                "'pallas' or 'sorted'")
         wavelet.check_stages(image_w, image_h, stages)
         self.w, self.h = image_w, image_h
         self.stages, self.filt, self.segments = stages, filt, segments
         self.mag_bits = mag_bits
+        self.entropy = entropy
         self.device = torch.device(device)
         self.bitplanes = C.BITPLANES_8 if mag_bits == 7 else C.BITPLANES_16
         self.groups = _plan_groups(image_w, image_h, stages, segments)
         self.buckets = _plan_buckets(self.groups)
-        for b in self.buckets:
-            Lk = bucket_sizes(b["L"])[0]
-            if not ES.fused_key_ok(Lk):
-                raise IcerError(
-                    IcerStatus.INVALID_INPUT,
-                    f"segment lanes of {Lk} emission slots exceed the "
-                    "fused-key coder limit (the two-word mode is not "
-                    "ported); use more segments")
+        if plane_cuts is None:
+            plane_cuts = (0,) * len(self.groups)
+        if len(plane_cuts) != len(self.groups):
+            raise ValueError("plane_cuts must have one entry per stage")
+        self.plane_cuts = tuple(
+            (int(c[0]), int(c[1])) if isinstance(c, tuple)
+            else (int(c), self.bitplanes) for c in plane_cuts)
+        if entropy == "slim":
+            for b in self.buckets:
+                Lk = bucket_sizes(b["L"])[0]
+                if not ES.fused_key_ok(Lk):
+                    raise IcerError(
+                        IcerStatus.INVALID_INPUT,
+                        f"segment lanes of {Lk} emission slots exceed the "
+                        "slim coder's fused-key limit (its two-word mode is "
+                        "not ported); use more segments or another "
+                        "entropy backend")
+        self._code = {"slim": self._code_slim, "pallas": self._code_pallas,
+                      "sorted": self._code_sorted}[entropy]
         self.fallback_lanes = 0
+        self.fallback_seconds = 0.0
         # per group: gather index of every lane rectangle into the padded
         # flattened image (out-of-rect reads are masked by pix_valid)
         self._wp = image_w + max(g["mw"] for g in self.groups)
         hp = image_h + max(g["mh"] for g in self.groups)
         self._npad = (hp, self._wp)
-        for g in self.groups:
+        for g, cut in zip(self.groups, self.plane_cuts):
             mh, mw = g["mh"], g["mw"]
             idx = np.array([[(l.row + j) * self._wp + l.col + np.arange(mw)
                              for j in range(mh)] for l in g["lanes"]],
                            np.int64)
+            g["cut"] = cut
             g["idx_t"] = torch.as_tensor(idx, device=self.device)
             g["pv_t"] = torch.as_tensor(g["pix_valid"], device=self.device)
             g["sub_t"] = torch.as_tensor(g["sub_codes"], device=self.device)
@@ -153,8 +219,12 @@ class TorchGrayscaleEncoder:
             overflow
 
     def emit(self, g, img: torch.Tensor):
-        """Group g's packed emission words, rows ordered (image, plane,
-        lane): returns (w0, w1), each (B * planes * N, mh * mw)."""
+        """Group g's packed emission words for the planes of its window,
+        rows ordered (image, plane, lane): returns (w0, w1), each
+        (B * planes * N, mh * mw), or None for an empty window."""
+        lo, hi = g["cut"]
+        if lo >= hi:
+            return None
         B = img.shape[0]
         hp, wp = self._npad
         padded = torch.zeros((B, hp, wp), dtype=torch.int32,
@@ -166,7 +236,7 @@ class TorchGrayscaleEncoder:
         sub = g["sub_t"].repeat(B)
         pv = g["pv_t"].repeat(B, 1, 1)
         w0s, w1s = [], []
-        for lsb in range(self.bitplanes):
+        for lsb in range(lo, hi):
             w0, w1 = plane_emissions_words(batch, sub, pv, lsb,
                                            self.mag_bits)
             w0s.append(w0.reshape(B, N, mh * mw))
@@ -178,20 +248,46 @@ class TorchGrayscaleEncoder:
     def bucket_words(self, b, emitted):
         """Interleaved (rows, Lk) coder input of one bucket: each row is
         [w0[0], w1[0], w0[1], w1[1], ...] padded with invalid words."""
-        Lb = b["L"]
-        Lk = bucket_sizes(Lb)[0]
+        Lk = bucket_sizes(b["L"])[0]
         parts = []
         for gi in b["groups"]:
+            if emitted[gi] is None:
+                continue
             w0, w1 = emitted[gi]
             row = torch.stack([w0, w1], dim=-1).reshape(w0.shape[0], -1)
             parts.append(torch.nn.functional.pad(row, (0, Lk - row.shape[1])))
         return torch.cat(parts)
 
+    # ---- coder backends: words -> (payload, total bits, host flag) -------
+    def _code_slim(self, b, words):
+        _Lk, Lc, cap_bits = bucket_sizes(b["L"])
+        rec, fstate, misc, ev = ES.encode_lanes_slim(words.t().contiguous())
+        ops = ES.slim_sort_operand_packed(rec, fstate, ev)
+        payload, total, over = ES.order_and_pack_lanes(ops, cap_bits, Lc)
+        return payload, total, over | (misc[0] != 0)
+
+    def _code_pallas(self, b, words):
+        _Lk, Lc, cap_bits = bucket_sizes(b["L"])
+        cw, over = compact_words(words, Lc)
+        code, nbits, opn = EF.encode_lanes_full(
+            *(t.t().contiguous() for t in _split_words(cw)))
+        payload, total, flag = EF.order_and_pack_lanes(code, nbits, opn,
+                                                       cap_bits)
+        return payload, total, flag | over
+
+    def _code_sorted(self, b, words):
+        Lb = b["L"]
+        Lc = min(Lb, (-(-(3 * Lb) // 4) + 255) // 256 * 256)
+        cw, over = compact_words(words, Lc)
+        payload, total, flag = SO.encode_emissions_sorted(
+            *_split_words(cw), max_bits=_cap_bits(Lc))
+        return payload, total, flag | over
+
     # ---- host orchestration --------------------------------------------
     def encode_batch(self, images: np.ndarray):
         """(B, h, w) same-geometry images -> list of (payload_table,
         ll_mean); payload_table maps (stage, subband, lsb, seg) ->
-        (payload bytes, bit length)."""
+        (payload bytes, bit length) for the lanes of the plane window."""
         B = images.shape[0]
         x = torch.as_tensor(np.ascontiguousarray(images).astype(np.int32),
                             device=self.device)
@@ -199,14 +295,11 @@ class TorchGrayscaleEncoder:
         emitted = [self.emit(g, img) for g in self.groups]
         results = []
         for b in self.buckets:
+            gis = [gi for gi in b["groups"] if emitted[gi] is not None]
+            if not gis:
+                continue
             words = self.bucket_words(b, emitted)
-            _Lk, Lc, cap_bits = bucket_sizes(b["L"])
-            rec, fstate, misc, ev = ES.encode_lanes_slim(
-                words.t().contiguous())
-            ops = ES.slim_sort_operand_packed(rec, fstate, ev)
-            payload, total, over = ES.order_and_pack_lanes(ops, cap_bits, Lc)
-            flag = over | (misc[0] != 0)
-            results.append((words, payload, total, flag))
+            results.append((gis, words) + self._code(b, words))
 
         if bool(overflow):
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "wavelet transform")
@@ -215,15 +308,16 @@ class TorchGrayscaleEncoder:
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "ll mean")
 
         tables: list[dict] = [{} for _ in range(B)]
-        for b, (words, payload, total, flag) in zip(self.buckets, results):
+        for gis, words, payload, total, flag in results:
             payload = payload.cpu().numpy()
             total = total.cpu().numpy()
             flag = flag.cpu().numpy()
             r = 0
-            for gi in b["groups"]:
+            for gi in gis:
                 lanes = self.groups[gi]["lanes"]
+                lo, hi = self.groups[gi]["cut"]
                 for img_i in range(B):
-                    for lsb in range(self.bitplanes):
+                    for lsb in range(lo, hi):
                         for l in lanes:
                             key = (l.stage, l.subband, lsb, l.seg)
                             if flag[r]:
@@ -238,8 +332,10 @@ class TorchGrayscaleEncoder:
 
     def _host_encode(self, row: torch.Tensor):
         """Exact host re-encode of one flagged lane from its words."""
-        self.fallback_lanes += 1
+        t0 = time.perf_counter()
         w = row.cpu().numpy()
         pl, nb, _ = sequential.encode_emissions(w & 1, (w >> 1) & 31,
                                                 (w >> 6) & 1)
+        self.fallback_lanes += 1
+        self.fallback_seconds += time.perf_counter() - t0
         return pl, nb

@@ -1,10 +1,11 @@
-"""Lane-batched bitplane decoder: kernel 2 (``csrc/plane_decode.cu``).
+"""Lane-batched bitplane decoders: kernels 2 and 3 (``csrc/plane_decode.cu``).
 
 Counterparts: ``icer_compression_tpu/ops/pallas_decode.py``
-(``make_decode_plane_pallas(nrounds=R)``) for the kernel, and
+(``make_decode_plane_pallas(nrounds=R)`` for kernel 2, the same factory
+with ``nrounds=None`` for kernel 3), and
 ``icer_compression_tpu/ops/decode_lanes.py`` (``decode_plane_lanes``,
 ``LaneDecoders``, ``_build_custom_refill_lut``), whose PyTorch translation
-is the kernel's plain version ``decode_planes_plain``.
+is the kernels' plain version ``decode_planes_plain``.
 
 One call decodes all R bitplane rounds, MSB to LSB, of n segment lanes
 that share a padded (hmax, wmax) canvas.  Contract (int32 unless noted):
@@ -25,6 +26,10 @@ that share a padded (hmax, wmax) canvas.  Contract (int32 unless noted):
      pos   (R, n)       bit position reached in each round (0 if retired)
 Round r decodes bitplane ``lsb0 - r``.  Each round starts fresh counters
 and bin stacks (one decoder per plane, as in the reference).
+
+Kernel 3 (``decode_plane_seeded``) decodes one round, bitplane ``lsb``,
+on a seed canvas ``seg`` (hmax * wmax, n) instead of zeros: offs, ebits
+and pos are (n,); a lane with offs -1 keeps its seed and sets err.
 """
 
 from __future__ import annotations
@@ -340,9 +345,11 @@ def _check_inputs(stream, offs, ebits, lane_end, geom, hmax, wmax):
 
 
 def decode_planes_plain(stream, offs, ebits, lane_end, geom, hmax: int,
-                        wmax: int, lsb0: int, mag_bits: int):
-    """Plain PyTorch version of kernel 2: a loop over rounds and pixels,
-    vectorised over lanes.  Same contract as ``decode_planes``."""
+                        wmax: int, lsb0: int, mag_bits: int, seg=None):
+    """Plain PyTorch version of kernels 2 and 3: a loop over rounds and
+    pixels, vectorised over lanes.  Same contract as ``decode_planes``;
+    with ``seg`` (hmax * wmax, n) the canvas starts from it (kernel 3)
+    instead of zeros."""
     _check_inputs(stream, offs, ebits, lane_end, geom, hmax, wmax)
     R, n = offs.shape
     dev = stream.device
@@ -352,7 +359,10 @@ def decode_planes_plain(stream, offs, ebits, lane_end, geom, hmax: int,
     h, w = g[0], g[1]
     is_hl = g[2] == C.SUBBAND_HL
     is_hh = g[2] == C.SUBBAND_HH
-    seg = torch.zeros((hmax, wmax, n), dtype=torch.int64, device=dev)
+    if seg is None:
+        seg = torch.zeros((hmax, wmax, n), dtype=torch.int64, device=dev)
+    else:
+        seg = seg.to(torch.int64).reshape(hmax, wmax, n).clone()
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     pos = torch.zeros((R, n), dtype=torch.int32, device=dev)
     for r in range(R):
@@ -403,3 +413,61 @@ def decode_planes(stream, offs, ebits, lane_end, geom, hmax: int, wmax: int,
 
 
 decode_planes.launches = 0
+
+
+def _check_seed(seg, stream, n, hmax, wmax):
+    if seg.dtype != torch.int32 or tuple(seg.shape) != (hmax * wmax, n):
+        raise ValueError(f"seg must be int32 of shape {(hmax * wmax, n)}")
+    if seg.device != stream.device:
+        raise ValueError(f"seg is on {seg.device}, stream on {stream.device}")
+
+
+def decode_plane_seeded_plain(stream, offs, ebits, lane_end, geom, seg,
+                              hmax: int, wmax: int, lsb: int, mag_bits: int):
+    """Plain PyTorch version of kernel 3 (one round of
+    ``decode_planes_plain`` on the seed canvas)."""
+    _check_seed(seg, stream, offs.shape[0], hmax, wmax)
+    out, err, pos = decode_planes_plain(
+        stream, offs[None], ebits[None], lane_end, geom, hmax, wmax, lsb,
+        mag_bits, seg=seg)
+    return out, err, pos[0]
+
+
+def decode_plane_seeded(stream, offs, ebits, lane_end, geom, seg, hmax: int,
+                        wmax: int, lsb: int, mag_bits: int):
+    """Kernel 3: decode bitplane ``lsb`` of n lanes on the seed canvas
+    ``seg``; returns (out (hmax * wmax, n), err (n,), pos (n,)).
+
+    CUDA tensors launch ``csrc/plane_decode.cu``; CPU tensors run the
+    plain version."""
+    if stream.device.type == "cpu":
+        return decode_plane_seeded_plain(stream, offs, ebits, lane_end, geom,
+                                         seg, hmax, wmax, lsb, mag_bits)
+    if stream.device.type != "cuda":
+        raise ValueError(f"unsupported device {stream.device}")
+    n = offs.shape[0]
+    _check_inputs(stream, offs[None], ebits[None], lane_end, geom, hmax,
+                  wmax)
+    _check_seed(seg, stream, n, hmax, wmax)
+    dev = stream.device
+    args = [t.contiguous()
+            for t in (stream, offs, ebits, lane_end, geom, seg)]
+    out = torch.empty((hmax * wmax, n), dtype=torch.int32, device=dev)
+    err = torch.empty(n, dtype=torch.int32, device=dev)
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    luts = decode_luts(str(dev))
+    fn = kernels.load("plane_decode").plane_decode_seeded_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        cs = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*(t.data_ptr() for t in args), luts.data_ptr(),
+                    out.data_ptr(), err.data_ptr(), pos.data_ptr(), n, hmax,
+                    wmax, lsb, mag_bits, LUT_SIZE, cs)
+    kernels.check(status, "plane_decode_seeded")
+    decode_plane_seeded.launches += 1
+    return out, err, pos
+
+
+decode_plane_seeded.launches = 0

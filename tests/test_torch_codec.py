@@ -15,6 +15,7 @@ from conftest import make_test_image
 from icer_compression_tpu.models import grayscale as G
 from icer_compression_tpu_torch.models import decode as TD
 from icer_compression_tpu_torch.models import grayscale as T
+from test_torch_entropy_slim import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -183,3 +184,96 @@ def test_pinned_boat_references():
     assert hashlib.sha256(stream).hexdigest() == pins[0]
     assert hashlib.sha256(np.ascontiguousarray(px, "<u2").tobytes()) \
         .hexdigest() == pins[1]
+
+
+# (h, w, dtype, stages, byte quota) for the coder backends
+BACKEND_CASES = [
+    (64, 64, np.uint8, 1, None),
+    (64, 64, np.uint16, 3, 2000),
+    (80, 96, np.uint8, 2, None),
+    (80, 96, np.uint16, 3, None),
+]
+_JAX_STREAMS: dict = {}
+
+
+def _jax_stream(case):
+    """G.compress_jax of a backend case (compiled once per case)."""
+    if case not in _JAX_STREAMS:
+        h, w, dtype, stages, quota = BACKEND_CASES[case]
+        _JAX_STREAMS[case] = G.compress_jax(
+            _image(h, w, dtype, 30 + case), G.CodecConfig(stages, 0, 6, quota))
+    return _JAX_STREAMS[case]
+
+
+@pytest.mark.parametrize("entropy", ["pallas", "sorted"])
+@pytest.mark.parametrize("case", range(len(BACKEND_CASES)))
+def test_coder_backends_match_jax_package(case, entropy):
+    h, w, dtype, stages, quota = BACKEND_CASES[case]
+    img = _image(h, w, dtype, 30 + case)
+    cfg = T.CodecConfig(stages, 0, 6, quota)
+    enc = T.make_encoder(w, h, cfg, dtype, "cpu", entropy=entropy)
+    assert enc.entropy == entropy
+    out = T.compress_batch(img[None], cfg, encoder=enc)[0]
+    assert out == G.compress(img, G.CodecConfig(stages, 0, 6, quota))
+    if quota is None:
+        assert out == _jax_stream(case)
+
+
+def _flat_image():
+    """A near-constant image: its planes code so few bytes that the
+    quota prefix classes undershoot and have to widen."""
+    rng = np.random.default_rng(3)
+    return (100 + (rng.random((64, 64)) < 0.01)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("quota,escalates", [(300, False), (600, False),
+                                             (816, True)])
+def test_quota_classes_match_compress_jax(quota, escalates):
+    img = _flat_image()
+    cfg = T.CodecConfig(1, 0, 1, quota)
+    stats = {}
+    out = T.compress_batch(img[None], cfg, device="cpu", stats=stats)[0]
+    assert out == G.compress_jax(img, G.CodecConfig(1, 0, 1, quota))
+    assert (stats["escalations"] > 0) == escalates
+    assert stats["first_class"] < stats["classes"] - 1
+    # the full encode, then allocation, gives the same stream
+    enc = T.make_encoder(64, 64, cfg, np.uint8, "cpu")
+    table, mean = enc.encode_batch(img[None])[0]
+    assert out == T._allocate_stream({(0,) + k: v for k, v in table.items()},
+                                     mean, cfg, 64, 64, 7)
+
+
+def test_plane_window_encoder_returns_only_its_lanes():
+    img = _image(48, 40, np.uint16, 6)
+    cfg = T.CodecConfig(2, 0, 6, None)
+    full, mean = T.make_encoder(40, 48, cfg, np.uint16, "cpu",
+                                entropy="sorted").encode_batch(img[None])[0]
+    part, mean2 = T.make_encoder(40, 48, cfg, np.uint16, "cpu",
+                                 entropy="sorted",
+                                 plane_cuts=((3, 5), 7)).encode_batch(
+                                     img[None])[0]
+    assert mean2 == mean
+    assert set(part) == {k for k in full if
+                         (3 <= k[2] < 5 if k[0] == 1 else k[2] >= 7)}
+    assert all(part[k] == full[k] for k in part)
+
+
+@pytest.mark.parametrize("entropy", ["slim", "pallas", "sorted"])
+def test_long_lanes_need_a_backend_without_the_fused_key_limit(entropy):
+    """A 256x256 image at one stage and one segment has lanes of 32,768
+    emission slots: past the slim coder's fused-key limit, fine for the
+    other two backends (construction only)."""
+    from icer_compression_tpu_torch.core.status import IcerError
+    cfg = T.CodecConfig(1, 0, 1, None)
+    if entropy == "slim":
+        with pytest.raises(IcerError, match="fused-key"):
+            T.make_encoder(256, 256, cfg, np.uint16, "cpu", entropy=entropy)
+    else:
+        enc = T.make_encoder(256, 256, cfg, np.uint16, "cpu", entropy=entropy)
+        assert enc.buckets[0]["L"] == 2 * 128 * 128
+
+
+def test_unknown_entropy_backend_raises():
+    with pytest.raises(ValueError, match="entropy"):
+        T.make_encoder(32, 32, T.CodecConfig(1, 0, 1, None), np.uint8, "cpu",
+                       entropy="fused")

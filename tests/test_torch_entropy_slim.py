@@ -15,6 +15,18 @@ from icer_compression_tpu_torch.backend import sequential as TS  # noqa: E402
 from icer_compression_tpu_torch.ops import entropy_slim as ES  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain kernels launch thousands of tiny ops per call: beside the
+    other test workers, torch's default per-process thread pool
+    oversubscribes the cores and every op waits on it, so the port's
+    tests run torch on one thread (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_lanes(rng, L, lanes):
     """The random-lane case of the JAX package's slim coder test."""
     ctx = rng.integers(0, 18, (L, lanes)).astype(np.int32)

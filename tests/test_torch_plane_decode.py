@@ -15,6 +15,7 @@ from icer_compression_tpu.ops import decode_lanes as DL  # noqa: E402
 from icer_compression_tpu.ops import pallas_decode as PD  # noqa: E402
 from icer_compression_tpu.ops.context_model import plane_emissions  # noqa: E402
 from icer_compression_tpu_torch.ops import plane_decode as TPD  # noqa: E402
+from test_torch_entropy_slim import one_torch_thread  # noqa: E402,F401
 
 
 def _lanes_case(rng, n, Hmax, Wmax, mag_bits, R):
@@ -149,3 +150,123 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         TPD.decode_planes(s, o, o, o[0], torch.zeros((2, 3),
                           dtype=torch.int32), 2, 2, 6, 7)
+
+
+def _seeded_case(rng, kind):
+    """The seeded single-plane constructions of the JAX package's Pallas
+    decoder tests: planes above ``lsb`` already decoded into the seed
+    canvas, one plane to decode per lane (``model``: ragged segments and
+    a truncated payload; ``multitile``: two 8-column tiles per row)."""
+    n, mag_bits = PD.LANES, 7
+    if kind == "model":
+        Hmax, Wpad, lsb = 4, 8, 2
+        h = rng.integers(1, Hmax + 1, n).astype(np.int32)
+        w = rng.integers(1, Wpad + 1, n).astype(np.int32)
+    else:
+        Hmax, Wpad, lsb = 3, 16, 1
+        h = np.full(n, Hmax, np.int32)
+        w = rng.integers(9, Wpad + 1, n).astype(np.int32)
+    sub = rng.integers(0, 4, n).astype(np.int32)
+    full = np.zeros((Hmax, Wpad, n), np.int32)
+    for lane in range(n):
+        mag = rng.integers(0, 1 << mag_bits, (h[lane], w[lane]))
+        if lane % 3 == 1:
+            mag = (mag > 64) * mag
+        if lane % 3 == 2 and kind == "model":
+            mag = np.zeros_like(mag)
+        sign = rng.integers(0, 2, (h[lane], w[lane]))
+        full[:h[lane], :w[lane], lane] = mag | (sign << mag_bits)
+    payloads = []
+    for lane in range(n):
+        v, c, b = plane_emissions(full[:h[lane], :w[lane], lane],
+                                  int(sub[lane]), lsb, mag_bits)
+        pl, nb, _ = JS.encode_emissions(v, c, b)
+        payloads.append((pl, nb))
+    if kind == "model":
+        payloads[9] = (payloads[9][0][:1], payloads[9][1])   # truncated
+    magmask = (1 << mag_bits) - 1
+    seg0 = (full & magmask & ~((1 << (lsb + 1)) - 1)).astype(np.int32)
+    seg0 |= np.where((seg0 & magmask) != 0, full & (1 << mag_bits), 0)
+    return h, w, sub, payloads, seg0, lsb, mag_bits
+
+
+@pytest.mark.parametrize("kind", ["model", "multitile"])
+def test_plain_seeded_plane_matches_pallas_and_lane_model(kind):
+    rng = np.random.default_rng(12345)
+    h, w, sub, payloads, seg0, lsb, mag_bits = _seeded_case(rng, kind)
+    Hmax, Wpad, n = seg0.shape
+
+    # the lane model and the Pallas kernel on per-lane payload windows
+    maxb = max(len(p) for p, _ in payloads) + 8
+    data = np.zeros((n, maxb), np.uint8)
+    readable = np.array([len(p) for p, _ in payloads], np.int64)
+    ebits = np.array([nb for _, nb in payloads], np.int64)
+    for lane, (p, _nb) in enumerate(payloads):
+        data[lane, :len(p)] = np.frombuffer(bytes(p), np.uint8)
+    ref = seg0.copy()
+    ok_ref = DL.decode_plane_lanes(
+        ref, h, w, sub, np.full(n, lsb, np.int32),
+        np.full(n, mag_bits, np.int32), DL.LaneDecoders(data, readable, ebits),
+        np.ones(n, bool))
+    NW = max(16, ((maxb + 3) // 4 + 7) // 8 * 8)
+    wbytes = np.zeros((NW * 4, n), np.uint8)
+    wbytes[:maxb] = data.T
+    words = np.ascontiguousarray(wbytes.T).view("<u4").view(np.int32).T
+    geom8 = np.stack([h, w, sub, np.full(n, lsb), np.full(n, mag_bits),
+                      np.ones(n), ebits, readable * 8,
+                      ]).astype(np.int32)
+    run = PD.make_decode_plane_pallas(Hmax * Wpad, Wpad, NW, interpret=True)
+    p_out, p_err, _ = run(jnp.asarray(words), jnp.asarray(geom8),
+                          jnp.asarray(seg0.reshape(Hmax * Wpad, n)))
+
+    # the port: every payload in one stream, each lane reading to its end
+    blob = b"".join(bytes(p) for p, _ in payloads)
+    starts = np.cumsum([0] + [len(p) for p, _ in payloads])
+    out, err, pos = TPD.decode_plane_seeded(
+        torch.from_numpy(np.frombuffer(blob, np.uint8).copy()),
+        torch.from_numpy(starts[:-1].astype(np.int32)),
+        torch.from_numpy(ebits.astype(np.int32)),
+        torch.from_numpy(starts[1:].astype(np.int32)),
+        torch.from_numpy(np.stack([h, w, sub]).astype(np.int32)),
+        torch.from_numpy(seg0.reshape(Hmax * Wpad, n)), Hmax, Wpad, lsb,
+        mag_bits)
+    out = out.numpy()
+    assert np.array_equal(out, np.asarray(p_out))
+    assert np.array_equal(err.numpy() != 0, np.asarray(p_err) != 0)
+    assert np.array_equal(out.reshape(Hmax, Wpad, n), ref)
+    assert np.array_equal(err.numpy() != 0, ~ok_ref)
+
+
+def test_seeded_plane_continues_a_multi_round_decode():
+    """Kernel 3 seeded with rounds 0..R-2 of kernel 2 equals kernel 2's R
+    rounds; a lane retired before round R-1 gets offs -1 and keeps its
+    canvas."""
+    rng = np.random.default_rng(41)
+    n, Hmax, Wmax, R, mag_bits = 10, 5, 7, 4, 7
+    h, w, sub, blob, offs, ebits, lsb0 = _lanes_case(rng, n, Hmax, Wmax,
+                                                     mag_bits, R)
+    full = TPD.decode_planes(*_torch_inputs(h, w, sub, blob, offs, ebits),
+                             Hmax, Wmax, lsb0, mag_bits)
+    head = TPD.decode_planes(*_torch_inputs(h, w, sub, blob, offs[:-1],
+                                            ebits[:-1]),
+                             Hmax, Wmax, lsb0, mag_bits)
+    stream, o, e, lane_end, geom = _torch_inputs(h, w, sub, blob, offs,
+                                                 ebits)
+    last = torch.where(head[1] != 0, -1, o[-1])
+    out, err, pos = TPD.decode_plane_seeded(stream, last, e[-1], lane_end,
+                                            geom, head[0], Hmax, Wmax,
+                                            lsb0 - (R - 1), mag_bits)
+    assert torch.equal(out, full[0])
+    assert torch.equal((err != 0), (full[1] != 0))
+    assert torch.equal(((head[1] != 0) | (err != 0)), (full[1] != 0))
+    assert torch.equal(pos, full[2][-1])
+    assert bool((head[1] != 0).any())
+
+
+def test_seeded_wrapper_checks_the_seed():
+    s = torch.zeros(16, dtype=torch.uint8)
+    o = torch.zeros(3, dtype=torch.int32)
+    g = torch.ones((3, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TPD.decode_plane_seeded(s, o, o, o, g, torch.zeros(
+            (4, 3), dtype=torch.int32), 2, 3, 1, 7)

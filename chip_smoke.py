@@ -9,8 +9,9 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel, into ``build/``), then:
 
   1. holds kernel 1 (slim encode coder) bit-equal to its plain PyTorch
-     version on boat 512's stage-1 emission words and on a noisy block
-     that overflows the eviction side buffer;
+     version on boat 512's stage-1 emission words, on a noisy block that
+     overflows the eviction side buffer and on a block whose lanes need
+     the reorder-window eviction;
   2. holds kernel 2 (multi-round plane decoder) bit-equal to its plain
      version on a crop of boat, lossless and at a truncating quota;
   3. drives the main path: boat 512 lossless (stages 4, filter A, 6
@@ -19,7 +20,9 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
      .sha256 for the stream and the decoded pixels; both kernels must have
      launched;
   4. encodes and decodes a batch of 8 noisy variants of boat, pixel-exact;
-  5. times encode, decode and kernels 1-2 (CUDA events) beside their bounds;
+  5. times encode, decode and kernels 1-2 (CUDA events) beside their
+     bounds; kernel 2 over all four units of the decode at once, against
+     the sum of its launches one by one (the units overlap on the card);
   6. holds kernels 4 and 5 (full state-machine coder, plain and tiled)
      bit-equal to their plain version on boat's shortest bucket and on a
      reorder-window eviction block, and kernel 5 equal to kernel 4 on
@@ -37,7 +40,20 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
  11. continues each unit of boat's decode plan with kernel 3 (seeded
      single-plane decode) after kernel 2's first R-1 rounds: it must equal
      kernel 2's R rounds; kernel 3 bit-equal to its plain version;
- 12. times kernels 3-5 beside their bounds.
+ 12. times kernels 3-5 beside their bounds;
+ 13. forces retirement in the middle of lanes of boat's decode plan (a
+     middle round's plane missing, or its frozen length cut to 1-8 bits
+     so that stream errors land inside the round with later rounds
+     present) and holds kernel 2 bit-equal to its plain version there on
+     the stage-4 unit, with the canvas in shared memory and in device
+     memory;
+ 14. holds kernels 2 and 3 with the canvas forced into device memory
+     bit-equal to the shared-memory placement on every unit of boat's
+     plan;
+ 15. encodes boat at one stage and one segment (256x256 lanes, through
+     the ``pallas`` coder: the slim coder refuses lanes that long) and
+     decodes it with kernel 2 on a canvas too large for shared memory:
+     pixel-exact.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object {"kernels": [...]}; the last line is
@@ -72,7 +88,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # and the record per valid emission, + a 17-row scan per allocation;
 # kernel 2: ~60 per decoded pixel (neighbour contexts, bin, stack).
 K1_OPS_PER_VALID = 48
-K1_OPS_PER_ALLOC = 34
+# an allocation checks a lower bound of the oldest open ordinal and opens
+# the codeword; the 17-row scan runs only near the reorder window's edge
+K1_OPS_PER_ALLOC = 6
 K2_OPS_PER_PIXEL = 60
 # kernels 4/5: 16 cutoff compares + ~48 for counters, bin state, codeword
 # construction (golomb remainder or custom tables) and the three outputs
@@ -257,6 +275,17 @@ def eviction_lanes(rng, L=2432, lanes=128):
     bit[:warm] = 0
     valid[warm:] = np.arange(L - warm)[:, None] < n_unc[None, :]
     return [torch.from_numpy(a) for a in (valid, ctx, bit)]
+
+
+def eviction_words(rng):
+    """``eviction_lanes`` as kernel 1's emission words, padded with empty
+    steps to a multiple of the coder's chunk."""
+    from icer_compression_tpu_torch.ops.entropy_slim import CHUNK
+    valid, ctx, bit = eviction_lanes(rng)
+    words = valid | (ctx << 1) | (bit << 6)
+    pad = -words.shape[0] % CHUNK
+    return torch.cat([words, torch.zeros((pad, words.shape[1]),
+                                         dtype=torch.int32)])
 
 
 def long_lane_phase(dev, crop):
@@ -482,6 +511,8 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
          "ms": k4_short_ms, "plain_ms": 1e3 * k4_plain_s,
          "bound_ms": short_b[0], "bound_by": short_b[1], "library_ms": None,
          "stage1_ms": k4_ms, "stage1_bound_ms": s1_b[0],
+         "ns_per_step": 1e6 * k4_ms / k4_in[0][0].shape[0],
+         "step": "one emission slot of a stage-1 lane",
          "ms_per_image": k4_img, "bound_ms_per_image": img_b,
          "path": "compress_batch with entropy='pallas', boat 512 lossless"},
         {"name": "full_encode_tiled", "route": "cuda",
@@ -494,6 +525,8 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
          "ms": k5_short_ms, "plain_ms": 1e3 * k4_plain_s,
          "bound_ms": short_b[0], "bound_by": short_b[1], "library_ms": None,
          "stage1_ms": k5_ms, "stage1_bound_ms": s1_b[0],
+         "ns_per_step": 1e6 * k5_ms / k4_in[0][0].shape[0],
+         "step": "one emission slot of a stage-1 lane",
          "path": "every pallas-backend bucket of boat 512 through K5"},
         {"name": "plane_decode_seeded", "route": "cuda",
          "source": src + "plane_decode.cu",
@@ -507,8 +540,129 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
          "bound_ms": k3_b[small][0], "bound_by": k3_b[small][1],
          "library_ms": None, "stage1_ms": k3_ms[big],
          "stage1_bound_ms": k3_b[big][0],
+         "ns_per_step": 1e6 * k3_ms[big] / (units[big]["hmax"]
+                                            * units[big]["wmax"]),
+         "step": "one pixel of a stage-1 lane's round",
          "path": "last round of each unit of boat's lossless decode plan"},
     ]
+
+
+def retirement_plan(unit):
+    """Boat's decode plan for one unit with retirement forced in the middle
+    of lanes: lane j % 4 == 1 loses a middle plane, j % 4 == 2 has a
+    middle round's frozen length cut to 1-8 bits (a stream error lands
+    where a refill first needs more bits), j % 4 == 3 both, the cut round
+    before the missing one.  Returns (offs, ebits, the cut round per
+    lane or -1)."""
+    offs, ebits = unit["offs"].copy(), unit["ebits"].copy()
+    R, n = offs.shape
+    cut = np.full(n, -1)
+    for j in range(n):
+        mid = 2 + j % (R - 3)
+        if j % 4 in (2, 3):
+            ebits[mid, j] = 1 + j % 8
+            cut[j] = mid
+        if j % 4 == 1:
+            offs[mid, j] = -1
+        elif j % 4 == 3:
+            offs[mid + 1, j] = -1
+    return offs, ebits, cut
+
+
+def decode_phases(dev, card, boat, st, units, small):
+    """Phases 13-15: kernel 2 under forced mid-lane retirement, in both
+    canvas placements, and on a canvas larger than shared memory."""
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+
+    # ---- phase 13: retirement in the middle of lanes -------------------
+    u = units[small]
+    offs, ebits, cut = retirement_plan(u)
+    args = [torch.as_tensor(a, device=dev)
+            for a in (offs, ebits, u["lane_end"], u["geom"])]
+    hm, wm = u["hmax"], u["wmax"]
+    want, plain_s = sync_time(
+        lambda: PDc.decode_planes_plain(st, *args, hm, wm, 8, 15))
+    retire_err = 0
+    for placement, where in (("auto", "shared"), ("device", "device")):
+        got = PDc.decode_planes(st, *args, hm, wm, 8, 15,
+                                _placement=placement)
+        if PDc.decode_planes.placement != where:
+            raise AssertionError(f"K2 placement {placement!r} ran "
+                                 f"{PDc.decode_planes.placement!r}")
+        for nm, a, b in zip(("out", "err", "pos"), got, want):
+            retire_err = max(retire_err, assert_equal(
+                f"K2 forced retirement ({where}) {nm}", a, b))
+    err = want[1].cpu().numpy()
+    pos = want[2].cpu().numpy()
+    mid = [j for j in range(len(cut)) if cut[j] >= 0 and err[j]
+           and pos[cut[j], j] > 0 and not pos[cut[j] + 1:, j].any()]
+    if len({(cut[j], pos[cut[j], j]) for j in mid}) < 2:
+        raise AssertionError("forced stream errors did not land inside "
+                             "rounds at different points")
+    log(f"K2 forced retirement on the stage-4 unit ({len(cut)} lanes, "
+        f"{int(err.sum())} retired; {len(mid)} by stream errors inside a "
+        f"middle round, at bits "
+        f"{sorted(int(pos[cut[j], j]) for j in mid)}): out/err/pos "
+        f"bit-equal to plain with the canvas in shared and in device "
+        f"memory, plain {plain_s:.1f} s")
+
+    # ---- phase 14: device-memory placement on every unit ---------------
+    place_err = retire_err
+    inputs = D.unit_inputs(units, dev)
+    for i, a in enumerate(inputs):
+        sh = PDc.decode_planes(st, *a, 8, 15)
+        if PDc.decode_planes.placement != "shared":
+            raise AssertionError(f"unit {i} did not run in shared memory")
+        dv = PDc.decode_planes(st, *a, 8, 15, _placement="device")
+        for nm, x, y in zip(("out", "err", "pos"), dv, sh):
+            place_err = max(place_err, assert_equal(
+                f"K2 unit {i} device vs shared placement {nm}", x, y))
+        # kernel 3 on the unit's last round, seeded with the rounds before
+        o, e, le, g, hm, wm = a
+        head = PDc.decode_planes(st, o[:-1], e[:-1], le, g, hm, wm, 8, 15)
+        k3a = (st, torch.where(head[1] != 0, -1, o[-1]), e[-1], le, g,
+               head[0], hm, wm, 8 - (o.shape[0] - 1), 15)
+        sh3 = PDc.decode_plane_seeded(*k3a)
+        dv3 = PDc.decode_plane_seeded(*k3a, _placement="device")
+        if PDc.decode_plane_seeded.placement != "device":
+            raise AssertionError("K3 did not run in device memory")
+        for nm, x, y in zip(("out", "err", "pos"), dv3, sh3):
+            place_err = max(place_err, assert_equal(
+                f"K3 unit {i} device vs shared placement {nm}", x, y))
+    big = max(range(len(units)),
+              key=lambda i: units[i]["hmax"] * units[i]["wmax"])
+    dev_ms = event_ms(lambda: PDc.decode_planes(
+        st, *inputs[big], 8, 15, _placement="device"))
+    log(f"K2 and K3 with the canvas in device memory bit-equal to shared "
+        f"memory on all {len(units)} units; K2 stage-1 launch {dev_ms:.3f} "
+        f"ms in device memory | {card}")
+
+    # ---- phase 15: one stage, one segment: 256x256 lanes ---------------
+    h, w = boat.shape
+    cfg1 = T.CodecConfig(1, 0, 1, None)
+    enc = T.make_encoder(w, h, cfg1, np.uint16, dev, entropy="pallas")
+    s1, enc_s = sync_time(
+        lambda: T.compress_batch(boat[None], cfg1, encoder=enc)[0])
+    PDc.decode_planes.launches = 0
+    d1, dec_s = sync_time(lambda: T.decompress(s1, cfg1, np.uint16, dev))
+    dec_launches = PDc.decode_planes.launches
+    if not np.array_equal(d1, boat):
+        raise AssertionError("1 stage, 1 segment: decode differs from boat")
+    if PDc.decode_planes.placement != "device":
+        raise AssertionError("256x256 lanes did not use device memory")
+    _w, _h, _ll, blob1, units1 = D.plan_batch([s1], cfg1, np.uint16)
+    st1 = torch.as_tensor(blob1, device=dev)
+    in1 = D.unit_inputs(units1, dev)
+    k2_ms1 = event_ms(lambda: D.decode_units(st1, in1, 8, 15), reps=3)
+    log(f"boat 512, 1 stage, 1 segment ({len(s1)} B, {len(units1)} "
+        f"unit(s) of {units1[0]['hmax']}x{units1[0]['wmax']}): decode "
+        f"pixel-exact with the canvas in device memory ({dec_launches} "
+        f"launch(es)); encode {enc_s:.3f} s ({enc.fallback_lanes} host "
+        f"re-encode lanes), decode {dec_s:.3f} s, K2 {k2_ms1:.3f} ms | "
+        f"{card}")
+    return {"retire_err": retire_err, "place_err": place_err}
 
 
 def main() -> int:
@@ -569,6 +723,16 @@ def main() -> int:
     log(f"K1 noisy block {tuple(nw.shape)}: bit-equal to plain; evictions "
         f"max {int(kn[2][2].max())}, lanes flagged "
         f"{int((kn[2][0] != 0).sum())}")
+    ew = eviction_words(np.random.default_rng(5)).to(dev)
+    ke = ES.encode_lanes_slim(ew)
+    for nm, a, b in zip(("rec", "fstate", "misc", "ev"), ke,
+                        ES.encode_lanes_slim_plain(ew)):
+        k1_err = max(k1_err, assert_equal(f"K1 eviction {nm}", a, b))
+    if not bool((ke[2][2] > 0).any()):
+        raise AssertionError("eviction block evicted in no lane")
+    log(f"K1 eviction block {tuple(ew.shape)}: bit-equal to plain; lanes "
+        f"evicting {int((ke[2][2] > 0).sum())}, evictions max "
+        f"{int(ke[2][2].max())}")
 
     # ---- phase 2: kernel 2 vs its plain version ------------------------
     crop = np.ascontiguousarray(boat[200:296, 180:276])
@@ -668,6 +832,29 @@ def main() -> int:
         k2_bounds.append(k2_bound(u, pos))
     small = min(range(len(units)),
                 key=lambda i: units[i]["hmax"] * units[i]["wmax"])
+    big = max(range(len(units)),
+              key=lambda i: units[i]["hmax"] * units[i]["wmax"])
+    # the rounds of a lane run as a wavefront, round k two rows behind
+    # round k - 1: the chain is one round's pixels plus that lag per round
+    ub = units[big]
+    k2_steps = ub["hmax"] * ub["wmax"] + 2 * ub["wmax"] * (
+        ub["offs"].shape[0] - 1)
+    inputs = D.unit_inputs(units, dev)
+    k2_all_ms = event_ms(lambda: D.decode_units(st, inputs, 8, 15))
+    for i, (a, b) in enumerate(zip(D.decode_units(st, inputs, 8, 15),
+                                   [PDc.decode_planes(st, *a, 8, 15)
+                                    for a in inputs])):
+        for nm, x, y in zip(("out", "err", "pos"), a, b):
+            assert_equal(f"K2 unit {i} overlapped vs alone {nm}", x, y)
+    if not k2_all_ms < sum(k2_ms):
+        raise AssertionError(f"the decode's units did not overlap: "
+                             f"{k2_all_ms:.3f} ms together, "
+                             f"{sum(k2_ms):.3f} ms one by one")
+    log(f"K2 all {len(units)} units on their own streams: {k2_all_ms:.3f} "
+        f"ms, against {sum(k2_ms):.3f} ms one by one and {max(k2_ms):.3f} "
+        f"ms for the longest (units overlap); stage-1 launch "
+        f"{1e6 * k2_ms[big] / k2_steps:.1f} ns per dependent step "
+        f"({k2_steps} steps) | {card}")
     us = units[small]
     po, k2_plain_s = sync_time(lambda: PDc.decode_planes_plain(
         st, *k2_args[small], us["hmax"], us["wmax"], 8, 15))
@@ -683,10 +870,12 @@ def main() -> int:
             f"{k2_bounds[i][1]})")
     for i, bw in enumerate(bucket_words):
         log(f"K1 launch {i}: {tuple(bw.shape)}: {k1_ms[i]:.3f} ms "
-            f"(bound {k1_bounds[i][0]:.4f} ms, {k1_bounds[i][1]})")
+            f"(bound {k1_bounds[i][0]:.4f} ms, {k1_bounds[i][1]}; "
+            f"{1e6 * k1_ms[i] / bw.shape[0]:.1f} ns per step)")
 
     new = later_phases(dev, card, boat, img, bucket_words, stream, golden,
                        pins, cfg, cfg50)
+    dec = decode_phases(dev, card, boat, st, units, small)
 
     kern = [
         {"name": "slim_encode", "route": "cuda",
@@ -698,7 +887,9 @@ def main() -> int:
          "ms": k1_ms[0], "plain_ms": 1e3 * plain_s,
          "bound_ms": k1_bounds[0][0], "bound_by": k1_bounds[0][1],
          "library_ms": None, "ms_per_image": sum(k1_ms),
-         "bound_ms_per_image": sum(b[0] for b in k1_bounds)},
+         "bound_ms_per_image": sum(b[0] for b in k1_bounds),
+         "ns_per_step": 1e6 * k1_ms[0] / w1.shape[0],
+         "step": "one emission slot of a stage-1 lane"},
         {"name": "plane_decode", "route": "cuda",
          "source": "icer_compression_tpu_torch/csrc/plane_decode.cu",
          "replaces": "icer_compression_tpu/ops/pallas_decode.py:99",
@@ -710,7 +901,14 @@ def main() -> int:
          "ms": k2_ms[small], "plain_ms": 1e3 * k2_plain_s,
          "bound_ms": k2_bounds[small][0], "bound_by": k2_bounds[small][1],
          "library_ms": None, "ms_per_image": sum(k2_ms),
-         "bound_ms_per_image": sum(b[0] for b in k2_bounds)},
+         "bound_ms_per_image": sum(b[0] for b in k2_bounds),
+         "units_overlapped_ms": k2_all_ms, "stage1_ms": k2_ms[big],
+         "stage1_bound_ms": k2_bounds[big][0],
+         "ns_per_step": 1e6 * k2_ms[big] / k2_steps,
+         "step": "one pixel of a stage-1 lane's critical path: one "
+                 "round's pixels plus two rows per later round",
+         "retirement_max_abs_err": dec["retire_err"],
+         "device_placement_max_abs_err": dec["place_err"]},
     ] + new
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
         f"decode_ms {1e3 * dec_med:.2f}")

@@ -6,7 +6,8 @@ the per-round offset plan of ``_decode_batch``, the finalize of
 subband geometry; each bucket's lanes (of every image of the batch)
 decode all their plane rounds in one kernel-2 launch that reads the
 concatenated streams in place, so no stream windows are gathered and no
-lane is re-decoded on the host.  The finalize (canvas assembly,
+lane is re-decoded on the host.  The buckets' launches go to streams of
+their own, so they overlap on the card.  The finalize (canvas assembly,
 sign-magnitude, LL mean, inverse DWT, clamp) runs as PyTorch ops on the
 device.
 """
@@ -121,6 +122,39 @@ def plan_batch(streams, config: CodecConfig, dtype):
     return w, h, ll_means, blob, units
 
 
+def unit_inputs(units, device):
+    """Each unit's kernel-2 inputs as tensors on ``device``: a list of
+    (offs, ebits, lane_end, geom, hmax, wmax)."""
+    return [tuple(torch.as_tensor(u[k], device=device)
+                  for k in ("offs", "ebits", "lane_end", "geom"))
+            + (u["hmax"], u["wmax"]) for u in units]
+
+
+def decode_units(stream_t, inputs, lsb0: int, mag_bits: int):
+    """Kernel 2 over every unit; returns each unit's (out, err, pos).
+
+    On the card each unit launches on a stream of its own, so the units'
+    lanes are in flight at once, and the caller's stream waits for all of
+    them.  Every tensor crossing streams is recorded on the stream that
+    uses it, so the caching allocator does not hand it out early."""
+    if stream_t.device.type != "cuda":
+        return [decode_planes(stream_t, *a, lsb0, mag_bits) for a in inputs]
+    main = torch.cuda.current_stream(stream_t.device)
+    sides = [torch.cuda.Stream(stream_t.device) for _ in inputs]
+    results = []
+    for side, a in zip(sides, inputs):
+        side.wait_stream(main)
+        for t in (stream_t,) + a[:4]:
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            results.append(decode_planes(stream_t, *a, lsb0, mag_bits))
+    for side, res in zip(sides, results):
+        main.wait_stream(side)
+        for t in res:
+            t.record_stream(main)
+    return results
+
+
 def _canvas_index(units, B, w, h):
     """Gather index from the concatenated unit outputs (+ one trailing
     zero) into the (B, h, w) sign-magnitude canvas."""
@@ -152,14 +186,8 @@ def decompress_batch(streams, config: CodecConfig, dtype=np.uint16,
     w, h, ll_means, blob, units = plan_batch(streams, config, dtype)
     B = len(streams)
     stream_t = torch.as_tensor(blob, device=dev)
-    outs = []
-    for u in units:
-        t = {k: torch.as_tensor(u[k], device=dev)
-             for k in ("offs", "ebits", "lane_end", "geom")}
-        out, _err, _pos = decode_planes(
-            stream_t, t["offs"], t["ebits"], t["lane_end"], t["geom"],
-            u["hmax"], u["wmax"], bitplanes - 1, mag_bits)
-        outs.append(out.reshape(-1))
+    outs = [out.reshape(-1) for out, _err, _pos in decode_units(
+        stream_t, unit_inputs(units, dev), bitplanes - 1, mag_bits)]
     outs.append(torch.zeros(1, dtype=torch.int32, device=dev))
     gidx = torch.as_tensor(_canvas_index(units, B, w, h), device=dev)
     canvas = torch.cat(outs)[gidx]

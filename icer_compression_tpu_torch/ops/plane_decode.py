@@ -58,6 +58,9 @@ LUT_SCTX = 905       # 5 x 5 SIGN_CONTEXT_TABLE
 LUT_SPRED = 930      # 5 x 5 SIGN_PREDICTION_TABLE
 LUT_SIZE = 955
 
+MAX_ROUNDS = 16      # kernel 2 runs one warp per round
+_PLACEMENTS = {1: "shared", 2: "device"}
+
 
 def _build_custom_refill_lut():
     """(bin 1..7, 5-bit lookahead) -> (hit_len, in_val_reversed, in_bits).
@@ -247,9 +250,11 @@ class _Lanes:
 
 
 def _decode_plane_plain(seg, st: _Lanes, h, w, is_hl, is_hh, lsb, mag_bits,
-                        active):
+                        active, rows=None):
     """One bitplane of every active lane, in place on seg (hmax, wmax,
-    n); the counterpart of decode_lanes.decode_plane_lanes."""
+    n); the counterpart of decode_lanes.decode_plane_lanes.  ``rows``
+    (a range, default all) decodes only those rows, so a caller can step
+    one round's ``st`` row by row, as kernel 2's wavefront does."""
     hmax, wmax, n = seg.shape
     lut = st.lut
     magmask = (1 << mag_bits) - 1
@@ -263,7 +268,7 @@ def _decode_plane_plain(seg, st: _Lanes, h, w, is_hl, is_hh, lsb, mag_bits,
         return torch.where(sig(r, c, plane) != 0,
                            -((seg[r, c] >> mag_bits) & 1), 0)
 
-    for r in range(hmax):
+    for r in range(hmax) if rows is None else rows:
         row_act = active & (r < h)
         if not bool(row_act.any()):
             continue
@@ -379,12 +384,24 @@ def decode_planes_plain(stream, offs, ebits, lane_end, geom, hmax: int,
             (~alive).to(torch.int32), pos)
 
 
+def _placement_arg(placement: str) -> int:
+    if placement not in ("auto", "device"):
+        raise ValueError(f"canvas placement {placement!r} is not 'auto' or "
+                         "'device'")
+    return int(placement == "device")
+
+
 def decode_planes(stream, offs, ebits, lane_end, geom, hmax: int, wmax: int,
-                  lsb0: int, mag_bits: int):
+                  lsb0: int, mag_bits: int, *, _placement: str = "auto"):
     """Kernel 2: decode R plane rounds of n lanes (contract above).
 
     CUDA tensors launch ``csrc/plane_decode.cu``; CPU tensors run the
-    plain version."""
+    plain version.  The kernel keeps a lane's canvas in shared memory
+    where it fits and in ``out`` otherwise; ``_placement="device"``
+    forces the latter (for tests of that placement; no entry point
+    passes it).  ``decode_planes.placement`` records the last launch's
+    choice ("shared" or "device")."""
+    force_device = _placement_arg(_placement)
     if stream.device.type == "cpu":
         return decode_planes_plain(stream, offs, ebits, lane_end, geom,
                                    hmax, wmax, lsb0, mag_bits)
@@ -392,6 +409,8 @@ def decode_planes(stream, offs, ebits, lane_end, geom, hmax: int, wmax: int,
         raise ValueError(f"unsupported device {stream.device}")
     _check_inputs(stream, offs, ebits, lane_end, geom, hmax, wmax)
     R, n = offs.shape
+    if not 1 <= R <= MAX_ROUNDS:
+        raise ValueError(f"{R} rounds; kernel 2 runs 1 to {MAX_ROUNDS}")
     dev = stream.device
     args = [t.contiguous() for t in (stream, offs, ebits, lane_end, geom)]
     out = torch.zeros((hmax * wmax, n), dtype=torch.int32, device=dev)
@@ -400,19 +419,23 @@ def decode_planes(stream, offs, ebits, lane_end, geom, hmax: int, wmax: int,
     luts = decode_luts(str(dev))
     fn = kernels.load("plane_decode").plane_decode_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p] * 2
+    where = ctypes.c_int(0)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*(t.data_ptr() for t in args), luts.data_ptr(),
                     out.data_ptr(), err.data_ptr(), pos.data_ptr(), R, n,
-                    hmax, wmax, lsb0, mag_bits, LUT_SIZE, cs)
+                    hmax, wmax, lsb0, mag_bits, LUT_SIZE, force_device,
+                    ctypes.byref(where), cs)
     kernels.check(status, "plane_decode")
     decode_planes.launches += 1
+    decode_planes.placement = _PLACEMENTS[where.value]
     return out, err, pos
 
 
 decode_planes.launches = 0
+decode_planes.placement = None
 
 
 def _check_seed(seg, stream, n, hmax, wmax):
@@ -434,12 +457,14 @@ def decode_plane_seeded_plain(stream, offs, ebits, lane_end, geom, seg,
 
 
 def decode_plane_seeded(stream, offs, ebits, lane_end, geom, seg, hmax: int,
-                        wmax: int, lsb: int, mag_bits: int):
+                        wmax: int, lsb: int, mag_bits: int, *,
+                        _placement: str = "auto"):
     """Kernel 3: decode bitplane ``lsb`` of n lanes on the seed canvas
     ``seg``; returns (out (hmax * wmax, n), err (n,), pos (n,)).
 
     CUDA tensors launch ``csrc/plane_decode.cu``; CPU tensors run the
-    plain version."""
+    plain version.  ``_placement`` as for ``decode_planes``."""
+    force_device = _placement_arg(_placement)
     if stream.device.type == "cpu":
         return decode_plane_seeded_plain(stream, offs, ebits, lane_end, geom,
                                          seg, hmax, wmax, lsb, mag_bits)
@@ -458,16 +483,20 @@ def decode_plane_seeded(stream, offs, ebits, lane_end, geom, seg, hmax: int,
     luts = decode_luts(str(dev))
     fn = kernels.load("plane_decode").plane_decode_seeded_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p] * 2
+    where = ctypes.c_int(0)
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*(t.data_ptr() for t in args), luts.data_ptr(),
                     out.data_ptr(), err.data_ptr(), pos.data_ptr(), n, hmax,
-                    wmax, lsb, mag_bits, LUT_SIZE, cs)
+                    wmax, lsb, mag_bits, LUT_SIZE, force_device,
+                    ctypes.byref(where), cs)
     kernels.check(status, "plane_decode_seeded")
     decode_plane_seeded.launches += 1
+    decode_plane_seeded.placement = _PLACEMENTS[where.value]
     return out, err, pos
 
 
 decode_plane_seeded.launches = 0
+decode_plane_seeded.placement = None

@@ -133,3 +133,11 @@ def test_wrapper_rejects_bad_shapes():
         ES.encode_lanes_slim(torch.zeros((100, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
         ES.encode_lanes_slim(torch.zeros((1 << 15, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("words", [
+    torch.zeros((256, 4), dtype=torch.int64),
+    torch.zeros(256, dtype=torch.int32)], ids=["int64", "1-D"])
+def test_wrapper_rejects_a_bad_dtype_or_rank(words):
+    with pytest.raises(ValueError):
+        ES.encode_lanes_slim(words)

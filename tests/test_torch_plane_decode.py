@@ -97,6 +97,89 @@ def test_plain_kernel_matches_lane_model_round_by_round(mag_bits):
     assert not alive[3] and not alive[6] and alive.sum() >= 4
 
 
+def _wavefront_decode(rng, h, w, sub, blob, offs, ebits, Hmax, Wmax, lsb0,
+                      mag_bits):
+    """Kernel 2's schedule on the plain decoder: each round steps its own
+    decoder row by row on one shared canvas, round k taking row r only
+    after round k-1 has finished row min(r+1, Hmax-1), in an order drawn
+    from ``rng``.  Rounds after a lane's stream error run on; at the end
+    they are discarded as the kernel does.  Returns (out, err, pos,
+    whether some round ran ahead of its predecessor's last row, whether
+    the discard changed the canvas)."""
+    stream, o, e, lane_end, geom = _torch_inputs(h, w, sub, blob, offs,
+                                                 ebits)
+    R, n = offs.shape
+    lut = TPD.decode_luts("cpu").to(torch.int64)
+    g = geom.to(torch.int64)
+    is_hl, is_hh = g[2] == 1, g[2] == 3
+    runs = np.array([next((k for k in range(R) if offs[k, j] < 0), R)
+                     for j in range(n)])
+    seg = torch.zeros((Hmax, Wmax, n), dtype=torch.int64)
+    sts, act = [], []
+    for k in range(R):
+        active = torch.from_numpy(k < runs)
+        base = torch.clamp(o[k].to(torch.int64), min=0)
+        readable = torch.where(active, lane_end.to(torch.int64) - base, 0)
+        sts.append(TPD._Lanes(stream.to(torch.int64), base, readable,
+                              e[k].to(torch.int64), lut))
+        act.append(active)
+    done = [0] * R
+    overlapped = False
+    while True:
+        ready = [k for k in range(R) if done[k] < Hmax and (
+            k == 0 or done[k - 1] >= min(done[k] + 2, Hmax))]
+        if not ready:
+            break
+        k = ready[rng.integers(len(ready))]
+        overlapped |= k > 0 and done[k - 1] < Hmax
+        TPD._decode_plane_plain(seg, sts[k], g[0], g[1], is_hl, is_hh,
+                                lsb0 - k, mag_bits, act[k],
+                                rows=range(done[k], done[k] + 1))
+        done[k] += 1
+    assert done == [Hmax] * R
+
+    errs = np.stack([(sts[k].err & act[k]).numpy() for k in range(R)])
+    fin = np.where(errs.any(0), errs.argmax(0), runs)
+    kk = np.arange(R)[:, None]
+    pos = np.where((kk < runs) & (kk <= fin),
+                   np.stack([st.pos.numpy() for st in sts]), 0)
+    out = seg.numpy()
+    raw = out.copy()
+    magmask = (1 << mag_bits) - 1
+    for j in np.flatnonzero(fin + 1 < runs):
+        keep = magmask & ~((1 << (lsb0 - fin[j])) - 1)
+        mg = out[:, :, j] & keep
+        out[:, :, j] = np.where(mg != 0, mg | (out[:, :, j] & (magmask + 1)),
+                                0)
+    return (out.reshape(Hmax * Wmax, n), (fin < R).astype(np.int32), pos,
+            overlapped, not np.array_equal(raw, out))
+
+
+@pytest.mark.parametrize("mag_bits", [7, 15])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wavefront_order_matches_sequential_rounds(mag_bits, seed):
+    """Kernel 2 runs a lane's rounds at once, round k one row behind
+    round k-1 plus one; any such interleaving, with the discard rule for
+    rounds after a stream error, gives the sequential decoder's out, err
+    and pos (the stream error in round 2 of lane 6, the missing middle
+    plane of lane 3 and lane 5's over-read included)."""
+    rng = np.random.default_rng(50 + mag_bits)
+    n, Hmax, Wmax, R = 10, 5, 7, 5
+    h, w, sub, blob, offs, ebits, lsb0 = _lanes_case(rng, n, Hmax, Wmax,
+                                                     mag_bits, R)
+    want = TPD.decode_planes_plain(*_torch_inputs(h, w, sub, blob, offs,
+                                                  ebits),
+                                   Hmax, Wmax, lsb0, mag_bits)
+    out, err, pos, overlapped, discarded = _wavefront_decode(
+        np.random.default_rng(seed), h, w, sub, blob, offs, ebits, Hmax,
+        Wmax, lsb0, mag_bits)
+    assert overlapped and discarded
+    assert np.array_equal(out, want[0].numpy())
+    assert np.array_equal(err, want[1].numpy())
+    assert np.array_equal(pos, want[2].numpy())
+    assert err[3] == 1 and err[6] == 1
+
+
 def test_plain_kernel_matches_pallas_multi_round():
     rng = np.random.default_rng(31)
     n, Hmax, Wmax, R, mag_bits = 12, 3, 8, 3, 7
@@ -150,6 +233,21 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         TPD.decode_planes(s, o, o, o[0], torch.zeros((2, 3),
                           dtype=torch.int32), 2, 2, 6, 7)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_wrappers_check_the_canvas_placement(seeded):
+    s = torch.zeros(16, dtype=torch.uint8)
+    o = torch.zeros((1, 3), dtype=torch.int32)
+    g = torch.ones((3, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        if seeded:
+            TPD.decode_plane_seeded(s, o[0], o[0], o[0], g,
+                                    torch.zeros((4, 3), dtype=torch.int32),
+                                    2, 2, 1, 7, _placement="registers")
+        else:
+            TPD.decode_planes(s, o, o, o[0], g, 2, 2, 1, 7,
+                              _placement="registers")
 
 
 def _seeded_case(rng, kind):

@@ -23,9 +23,12 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
   5. times encode, decode and kernels 1-2 (CUDA events) beside their
      bounds; kernel 2 over all four units of the decode at once, against
      the sum of its launches one by one (the units overlap on the card);
-  6. holds kernels 4 and 5 (full state-machine coder, plain and tiled)
-     bit-equal to their plain version on boat's shortest bucket and on a
-     reorder-window eviction block, and kernel 5 equal to kernel 4 on
+  6. holds kernels 4 and 5 (full state-machine coder, tiles of 32 and of
+     8 steps) bit-equal to their plain version on boat's shortest bucket,
+     on a reorder-window eviction block, on a random block whose length is
+     no multiple of either tile (lanes of different valid lengths, an
+     all-empty lane, all-empty tiles inside lanes) and on boat's compacted
+     stage-1 block cut to 2,000 rows, and kernel 5 equal to kernel 4 on
      every bucket of boat (its path);
   7. drives the ``pallas`` coder backend (kernel 4): boat lossless golden
      sha and the quota-50,000 pins; its host re-encode lanes must be the
@@ -40,7 +43,9 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
  11. continues each unit of boat's decode plan with kernel 3 (seeded
      single-plane decode) after kernel 2's first R-1 rounds: it must equal
      kernel 2's R rounds; kernel 3 bit-equal to its plain version;
- 12. times kernels 3-5 beside their bounds;
+ 12. times kernels 3-5 beside their bounds, kernels 4 and 5 also per
+     valid step of the longest lane and with the share of their tiles
+     that hold no valid step (the chain skips those);
  13. forces retirement in the middle of lanes of boat's decode plan (a
      middle round's plane missing, or its frozen length cut to 1-8 bits
      so that stream errors land inside the round with later rounds
@@ -53,7 +58,13 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
  15. encodes boat at one stage and one segment (256x256 lanes, through
      the ``pallas`` coder: the slim coder refuses lanes that long) and
      decodes it with kernel 2 on a canvas too large for shared memory:
-     pixel-exact.
+     pixel-exact; kernel 5 equals kernel 4 on that encode's block, whose
+     opening emissions pass 2^16.
+
+After the build it reads each kernel's registers and spills from the
+compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
+(LDL/STL) in its SASS (``cuobjdump -sass``): kernels 4 and 5 must have
+none.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object {"kernels": [...]}; the last line is
@@ -65,6 +76,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import struct
 import subprocess
@@ -96,6 +108,9 @@ K2_OPS_PER_PIXEL = 60
 # construction (golomb remainder or custom tables) and the three outputs
 # per valid emission; kernel 3 decodes like kernel 2, one round
 K4_OPS_PER_VALID = 64
+# the tiles of kernels 4 and 5 (csrc/full_encode.cu: full_encode_launch and
+# full_encode_tiled_launch), for the share of tiles their chain skips
+K4_TILE, K5_TILE = 32, 8
 
 
 def log(msg: str) -> None:
@@ -277,6 +292,88 @@ def eviction_lanes(rng, L=2432, lanes=128):
     return [torch.from_numpy(a) for a in (valid, ctx, bit)]
 
 
+def edge_lanes(rng, L=2500, lanes=40):
+    """Random emissions (skewed contexts, some uncoded) at a length that is
+    no multiple of 64, 32 or 8: lane j holds its valid steps in its first
+    ~j/lanes of the rows, lane 0 none, odd lanes lose 10% of them at
+    random and every third lane has a 300-row hole of empty steps inside
+    (whole empty tiles in the middle of a lane)."""
+    ctx = rng.integers(0, 20, (L, lanes))
+    p = rng.random((20, lanes))
+    bit = rng.random((L, lanes)) < p[ctx, np.arange(lanes)]
+    n = (np.arange(lanes) * L) // (lanes - 1)
+    valid = np.arange(L)[:, None] < n[None, :]
+    valid[:, 1::2] &= rng.random((L, lanes // 2)) < 0.9
+    for j in range(3, lanes, 3):
+        a = int(rng.integers(100, max(101, n[j] - 400)))
+        valid[a:a + 300, j] = False
+    return [torch.from_numpy(a.astype(np.int32)) for a in (valid, ctx, bit)]
+
+
+def tile_busy(valid, tile):
+    """(tiles, lanes) bool: the tiles of ``tile`` rows that hold a valid
+    step (the last tile masked)."""
+    L, lanes = valid.shape
+    v = torch.cat([valid != 0, torch.zeros((-L % tile, lanes),
+                                           dtype=torch.bool,
+                                           device=valid.device)])
+    return v.reshape(-1, tile, lanes).any(dim=1)
+
+
+def tile_stats(valid, tile):
+    """(share of a block's tiles of ``tile`` rows with no valid step, valid
+    steps of its longest lane)."""
+    busy = tile_busy(valid, tile)
+    return 1.0 - float(busy.float().mean()), int((valid != 0).sum(0).max())
+
+
+def kernel_resources(kernels):
+    """Per kernel function of every library: registers, stack frame and
+    spill bytes from this build's ``-Xptxas -v`` log (when this process
+    built it) and the count of local-memory loads and stores (LDL/STL) in
+    its SASS (``cuobjdump -sass``)."""
+    res = {}
+
+    def short(mangled):
+        # a mangled name spells each identifier after its length
+        m = re.search(r"\d([a-z_]+_kernel)(I\w*?E)?E", mangled)
+        if not m:
+            return mangled
+        targs = m.group(2) or ""
+        ints = re.findall(r"Li(\d+)E", targs)
+        return m.group(1) + (f"<{','.join(ints)}>" if ints else targs)
+
+    for name in kernels.KERNELS:
+        fn = None
+        for ln in kernels.BUILD_LOGS.get(name, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = short(m.group(1))
+                res.setdefault(fn, {})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m and fn:
+                res[fn].update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                               spill_ld=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn:
+                res[fn]["regs"] = int(m.group(1))
+        cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(kernels.lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = short(m.group(1))
+                res.setdefault(fn, {})["ldl_stl"] = 0
+            elif fn and re.search(r"\b(LDL|STL)(\.\w+)*\b", ln):
+                res[fn]["ldl_stl"] += 1
+    return res
+
+
 def eviction_words(rng):
     """``eviction_lanes`` as kernel 1's emission words, padded with empty
     steps to a multiple of the coder's chunk."""
@@ -346,17 +443,30 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
         k4_in.append([t.t().contiguous() for t in E._split_words(cw)])
     short = k4_in[-1]
     evict = [t.to(dev) for t in eviction_lanes(np.random.default_rng(5))]
+    edge = [t.to(dev) for t in edge_lanes(np.random.default_rng(11))]
+    head = [t[:2000].contiguous() for t in k4_in[0]]
     k45_err, k4_plain_s = 0, None
-    for nm, ins in (("boat shortest bucket", short), ("eviction", evict)):
+    for nm, ins in (("boat shortest bucket", short), ("eviction", evict),
+                    ("random edges", edge), ("boat stage 1, 2000 rows", head)):
         ref, plain_s = sync_time(lambda: EF.encode_lanes_full_plain(*ins))
         k4_plain_s = k4_plain_s or plain_s
         for kn, fn in (("K4", EF.encode_lanes_full),
                        ("K5", EF.encode_lanes_full_tiled)):
             for on, a, b in zip(("code", "nbits", "open"), fn(*ins), ref):
                 k45_err = max(k45_err, assert_equal(f"{kn} {nm} {on}", a, b))
+        sk4 = tile_stats(ins[0], K4_TILE)[0]
+        sk5 = tile_stats(ins[0], K5_TILE)[0]
         log(f"K4 and K5 {nm} (L={ins[0].shape[0]}, {ins[0].shape[1]} "
-            f"lanes): code/nbits/open bit-equal to plain (tolerance 0), "
-            f"plain {plain_s:.1f} s")
+            f"lanes, {int(ins[0].sum())} valid steps, empty tiles "
+            f"{100 * sk4:.1f}% of K4's / {100 * sk5:.1f}% of K5's): "
+            f"code/nbits/open bit-equal to plain (tolerance 0), plain "
+            f"{plain_s:.1f} s")
+    ev = edge[0].sum(dim=0)
+    busy = tile_busy(edge[0], K4_TILE).int()
+    inner = (busy == 0) & (busy.flip(0).cumsum(0).flip(0) > 0)
+    if not (int(ev[0]) == 0 and len(set(ev.tolist())) > 20
+            and int(inner.sum()) > 0 and edge[0].shape[0] % 8):
+        raise AssertionError("random edge block lacks its edge cases")
     flag = EF.order_and_pack_lanes(*EF.encode_lanes_full(*evict), 4096)[2]
     if not bool(flag.any()):
         raise AssertionError("eviction block flagged no lane")
@@ -480,14 +590,26 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
     k5_ms = event_ms(lambda: EF.encode_lanes_full_tiled(*k4_in[0]))
     k4_img = sum(event_ms(lambda i=i: EF.encode_lanes_full(*i))
                  for i in k4_in)
+    k5_path = sum(event_ms(lambda i=i: EF.encode_lanes_full_tiled(*i))
+                  for i in k4_in)
     short_b = k4_bound(short[0])
     s1_b = k4_bound(k4_in[0][0])
     img_b = sum(k4_bound(i[0])[0] for i in k4_in)
+    skip4, chain = tile_stats(k4_in[0][0], K4_TILE)
+    skip5 = tile_stats(k4_in[0][0], K5_TILE)[0]
+    L1 = k4_in[0][0].shape[0]
     log(f"K4 stage-1 block {tuple(k4_in[0][0].shape)}: {k4_ms:.3f} ms, K5 "
-        f"{k5_ms:.3f} ms (bound {s1_b[0]:.4f} ms, {s1_b[1]}); shortest "
-        f"bucket {tuple(short[0].shape)}: K4 {k4_short_ms:.3f} ms, K5 "
-        f"{k5_short_ms:.3f} ms (bound {short_b[0]:.4f} ms); K4 per image "
-        f"{k4_img:.3f} ms | {card}")
+        f"{k5_ms:.3f} ms (bound {s1_b[0]:.4f} ms, {s1_b[1]}); per slot K4 "
+        f"{1e6 * k4_ms / L1:.1f} ns, K5 {1e6 * k5_ms / L1:.1f} ns; per valid "
+        f"step of the longest lane ({chain} steps) K4 "
+        f"{1e6 * k4_ms / chain:.1f} ns, K5 {1e6 * k5_ms / chain:.1f} ns; "
+        f"tiles with no valid step, skipped by the chain: "
+        f"{100 * skip4:.1f}% of K4's {K4_TILE}-row tiles, "
+        f"{100 * skip5:.1f}% of K5's {K5_TILE}-row tiles; shortest bucket "
+        f"{tuple(short[0].shape)}: K4 {k4_short_ms:.3f} ms, K5 "
+        f"{k5_short_ms:.3f} ms (bound "
+        f"{short_b[0]:.4f} ms); per image (4 launches) K4 {k4_img:.3f} ms, "
+        f"K5 {k5_path:.3f} ms (bound {img_b:.4f} ms) | {card}")
     k3_ms = [event_ms(lambda a=a: PDc.decode_plane_seeded(*a))
              for a in k3_args]
     k3_b = []
@@ -511,8 +633,11 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
          "ms": k4_short_ms, "plain_ms": 1e3 * k4_plain_s,
          "bound_ms": short_b[0], "bound_by": short_b[1], "library_ms": None,
          "stage1_ms": k4_ms, "stage1_bound_ms": s1_b[0],
-         "ns_per_step": 1e6 * k4_ms / k4_in[0][0].shape[0],
+         "ns_per_step": 1e6 * k4_ms / L1,
          "step": "one emission slot of a stage-1 lane",
+         "ns_per_valid_step": 1e6 * k4_ms / chain,
+         "valid_step": "one valid emission of the longest stage-1 lane",
+         "stage1_tiles_skipped": skip4,
          "ms_per_image": k4_img, "bound_ms_per_image": img_b,
          "path": "compress_batch with entropy='pallas', boat 512 lossless"},
         {"name": "full_encode_tiled", "route": "cuda",
@@ -525,8 +650,12 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
          "ms": k5_short_ms, "plain_ms": 1e3 * k4_plain_s,
          "bound_ms": short_b[0], "bound_by": short_b[1], "library_ms": None,
          "stage1_ms": k5_ms, "stage1_bound_ms": s1_b[0],
-         "ns_per_step": 1e6 * k5_ms / k4_in[0][0].shape[0],
+         "ns_per_step": 1e6 * k5_ms / L1,
          "step": "one emission slot of a stage-1 lane",
+         "ns_per_valid_step": 1e6 * k5_ms / chain,
+         "valid_step": "one valid emission of the longest stage-1 lane",
+         "stage1_tiles_skipped": skip5,
+         "ms_per_path": k5_path, "bound_ms_per_path": img_b,
          "path": "every pallas-backend bucket of boat 512 through K5"},
         {"name": "plane_decode_seeded", "route": "cuda",
          "source": src + "plane_decode.cu",
@@ -571,9 +700,12 @@ def retirement_plan(unit):
 
 def decode_phases(dev, card, boat, st, units, small):
     """Phases 13-15: kernel 2 under forced mid-lane retirement, in both
-    canvas placements, and on a canvas larger than shared memory."""
+    canvas placements, and on a canvas larger than shared memory; kernel 5
+    against kernel 4 on lanes whose opening emissions pass 2^16."""
     from icer_compression_tpu_torch.models import decode as D
     from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
+    from icer_compression_tpu_torch.ops import entropy_full as EF
     from icer_compression_tpu_torch.ops import plane_decode as PDc
 
     # ---- phase 13: retirement in the middle of lanes -------------------
@@ -662,6 +794,26 @@ def decode_phases(dev, card, boat, st, units, small):
         f"launch(es)); encode {enc_s:.3f} s ({enc.fallback_lanes} host "
         f"re-encode lanes), decode {dec_s:.3f} s, K2 {k2_ms1:.3f} ms | "
         f"{card}")
+    img1 = enc.transform(torch.as_tensor(boat.astype(np.int32)[None],
+                                         device=dev))[0]
+    em1 = [enc.emit(g, img1) for g in enc.groups]
+    for i, b in enumerate(enc.buckets):
+        cw, _over = E.compact_words(enc.bucket_words(b, em1),
+                                    E.bucket_sizes(b["L"])[1])
+        ins = [t.t().contiguous() for t in E._split_words(cw)]
+        o4 = EF.encode_lanes_full(*ins)
+        for on, a, b5 in zip(("code", "nbits", "open"), o4,
+                             EF.encode_lanes_full_tiled(*ins)):
+            assert_equal(f"K5 vs K4 1 stage 1 segment bucket {i} {on}", a,
+                         b5)
+        top = int(torch.where(o4[1] > 0, o4[2], 0).max())
+        if i == 0 and top < 1 << 16:
+            raise AssertionError(f"opening emissions reach only {top}")
+        k4_1 = event_ms(lambda: EF.encode_lanes_full(*ins), reps=3)
+        k5_1 = event_ms(lambda: EF.encode_lanes_full_tiled(*ins), reps=3)
+        log(f"K5 equals K4 on the 1 stage, 1 segment bucket {i} "
+            f"{tuple(ins[0].shape)} (opening emissions up to {top}); K4 "
+            f"{k4_1:.3f} ms, K5 {k5_1:.3f} ms | {card}")
     return {"retire_err": retire_err, "place_err": place_err}
 
 
@@ -686,6 +838,14 @@ def main() -> int:
         kernels.load(name)
     log(f"build: {build_s:.2f} s wall, per source "
         f"{ {k: round(v, 2) for k, v in per_src.items()} }")
+    res = kernel_resources(kernels)
+    for fn, r in sorted(res.items()):
+        log(f"sass/ptxas {fn}: {r}")
+    k45 = {fn: r for fn, r in res.items()
+           if fn.startswith("full_encode_kernel")}
+    if len(k45) != 2 or any(r.get("ldl_stl") or r.get("spill_st")
+                            or r.get("spill_ld") for r in k45.values()):
+        raise AssertionError(f"kernels 4/5 use local memory: {k45}")
 
     data = REPO / "tests" / "data"
     boat = read_png_gray8(data / "boat.512.png").astype(np.uint16)

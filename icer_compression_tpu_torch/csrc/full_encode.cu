@@ -12,40 +12,62 @@
 // lanes, moves about 65 MB: about 19 us at 3.35 TB/s), and the arithmetic
 // is a few tens of integer operations per valid step.  The real limit is
 // the serial chain: every step reads the counters and bin state that the
-// previous step wrote, so a lane of L steps costs L dependent step
-// latencies, and a block has only a few hundred lanes for 132 SMs.  Unlike
-// kernel 1 this coder also builds each codeword (golomb remainder bit
-// reversal, custom output tables) inside the chain.
+// previous step wrote, so a lane of n valid steps costs n dependent step
+// latencies, and a block has only a few hundred lanes for 132 SMs.  With
+// one thread on the chain, a step costs about as many cycles as it has
+// dependent instructions, so the design takes instructions off the chain.
 //
-// Design: one thread per lane, the TPU grid over L-chunks becoming a loop
-// over all L steps inside the thread.  The 17 context counters and the 17
-// bin states (run count or input prefix, prefix length, opening emission)
-// are per-thread arrays indexed directly by context and bin: the TPU
-// kernel's 17-way select trees and packed-word table scans exist only
-// because Mosaic has no per-lane dynamic indexing.  The constant tables
-// (cutoffs, golomb m/l/i, custom input lengths, output codes and the custom
-// flush table that kernel 1 also reads) sit in shared memory.  The 17
-// flush rows are written by the kernel after the last step.  There is no
-// reorder-window eviction here, as on the TPU: the tail detects lanes that
-// need one and the caller re-encodes them on the host.
-//
-// Kernel 5: on the TPU the tiling amortises dynamic-row VMEM access.  Here
-// the analogue is the same loop unrolled by 8: the tile's 24 input words
-// are loaded into registers before its 8 dependent steps.  The loads do not
-// depend on the chain, so issuing them first keeps all 24 in flight
-// together and the chain waits for memory once per tile instead of once per
-// step; the tile's 24 output words are stored after the steps.  A last
-// tile shorter than 8 rows is masked.  This version is made to be right;
-// making the chain shorter is later work.
+// Design (kernel 1's layout, csrc/slim_encode.cu): one lane per block of
+// one warp, so the lanes spread over the SMs and no lane pays another's
+// branches.  Thread 0 runs the chain; the warp does everything else.
+//  - The three input streams go through a ring of kStages tiles of kTile
+//    steps in shared memory with cp.async, kStages - 1 tiles ahead of the
+//    chain; the last tile is masked (any L).  Thread i copies step i of a
+//    tile and packs it into one word, valid | ctx << 1 | bit << 6 (the
+//    packing of ops/encode._split_words; ctx >= 17 is the uncoded
+//    context), so the chain reads a step with one shared load.
+//  - The chain visits only the tile's valid steps (a ballot of the valid
+//    flags), and a tile without one skips the chain: an empty step
+//    changes no state.  On compacted, valid-first lanes (the `pallas`
+//    backend) each lane's chain ends at its last valid tile.
+//  - The 17 context counters sit in shared memory as counts_word (with a
+//    constant entry for the uncoded context's (1, 2) counts): the counts
+//    and the bin and inversion they give, so a step has its bin with one
+//    load and the 16-cutoff count runs for the updated counts, beside the
+//    bin-state work.  The chain loads the next step's counters and the
+//    word of the step after it ahead; where the next step has this step's
+//    context, it takes the updated counters from registers.  The 17 bin
+//    states (k | nb << 16 beside the opening emission + 1, 0 = closed) sit
+//    in shared memory too, the 16 bin cutoffs in registers.
+//  - The chain keeps only what the next step reads.  For a completed
+//    codeword it writes a descriptor (bin, golomb run length or custom
+//    input prefix, run-done or uncoded bit) and the opening emission; the
+//    warp then expands the tile's descriptors into (code, nbits, open)
+//    (golomb remainder bit reversal, custom output tables) and stores the
+//    tile's three output rows.
+//  - After the last tile, 17 threads write the end-of-plane flush rows
+//    from the bin states, through the same expansion.
+// Kernel 4 steps tiles of 32, one step per thread of the warp (measured no
+// slower than kernel 1's 64); kernel 5 is the same kernel with the TPU
+// kernel's 8-step tile and a deeper ring.  There is no reorder-window
+// eviction here, as on the TPU: the tail detects lanes that need one and
+// the caller re-encodes them on the host.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coder_common.cuh"
+
 namespace {
+
+using icer::bin_of;
+using icer::cp_async4;
+using icer::cp_async_commit;
+using icer::cp_async_wait;
 
 constexpr int kRescaleCap = 500;        // CONTEXT_RESCALING_CAP
 constexpr int kBig = 1 << 30;
-constexpr int kTile = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
 // LUT layout, shared with ops/entropy_full.py (its first 2337 entries are
 // kernel 1's LUT from ops/entropy_slim.py)
@@ -59,228 +81,250 @@ constexpr int kLutCout = 2371;
 constexpr int kLutCobits = 2627;
 constexpr int kLutSize = 2883;
 
-struct CoderState {
-  int zero[17];
-  int total[17];
-  int bk[17];    // golomb run length / custom input prefix
-  int bnb[17];   // custom prefix length
-  int bop[17];   // opening emission, -1 = closed
-};
-
 __device__ __forceinline__ int bitrev16(int v, int nbits) {
   return (int)(__brev((unsigned)(v & 0xFFFF)) >> 16) >> (16 - nbits);
 }
 
-// One emission step; writes the completed codeword (or none) to the
-// (code, nbits, open) triple.
-__device__ __forceinline__ void coder_step(CoderState& s, const int* lut,
-                                           int v, int c, int b, int emi,
-                                           int& out_code, int& out_nbits,
-                                           int& out_open) {
-  out_code = 0;
-  out_nbits = 0;
-  out_open = kBig;
-  if (!v) return;
+// A completed codeword's descriptor: 1 | bin << 1 | f << 6 | kv << 7, with
+// f the golomb run-done flag (the 1-bit full-run code) or the uncoded bit,
+// kv the golomb run length before the step or the custom input prefix.
+__device__ __forceinline__ uint32_t descriptor(int bn, uint32_t f,
+                                               uint32_t kv) {
+  return 1u | (uint32_t)bn << 1 | f << 6 | kv << 7;
+}
 
-  // ---- counters & bin (the uncoded context codes with (1, 2))
-  const bool unc = c >= 17;
-  const int zc = unc ? 0 : s.zero[c];
-  const int tc = unc ? 0 : s.total[c];
-  const int zcu = unc ? 1 : zc;
-  const int tcu = unc ? 2 : tc;
-  const bool inv = zcu < (tcu >> 1);
-  const int zeff = inv ? tcu - zcu : zcu;
-  const int cb = b ^ (inv ? 1 : 0);
-  const int comp = zeff << 16;
-  int bn = 0;
-#pragma unroll
-  for (int q = 0; q < 16; ++q) bn += comp >= tcu * lut[kLutCut + q];
-  if (!unc) {
-    int tc2 = tc + 1;
-    int zc2 = zc + (b == 0);
-    if (tc2 >= kRescaleCap) {
-      tc2 >>= 1;
-      if (zc2 > tc2) zc2 >>= 1;
-    }
-    s.zero[c] = zc2;
-    s.total[c] = tc2;
-  }
+// A context's counter word: total | zero << 16 | bin << 25 | inv << 30,
+// with the bin and the inversion that those counts give, so that a step
+// reads its bin with its counts and the 16-cutoff count runs when the
+// counts change, beside the rest of the step.
+__device__ __forceinline__ uint32_t counts_word(const int* cut, int tc,
+                                                int zc) {
+  const bool inv = zc < (tc >> 1);
+  const int zeff = inv ? tc - zc : zc;
+  const int bn = bin_of(cut, zeff << 16, tc);
+  return (uint32_t)tc | (uint32_t)zc << 16 | (uint32_t)bn << 25
+         | (inv ? 1u << 30 : 0u);
+}
 
-  // ---- the bin's open codeword
-  int k = s.bk[bn], nb = s.bnb[bn], op = s.bop[bn];
-  if (op < 0) {
-    op = emi;
-    k = 0;
-    nb = 0;
-  }
-  bool complete;
-  int code, nbits, newk;
+// The (code, nbits) of a descriptor.
+__device__ __forceinline__ void expand(uint32_t d, const int* lut, int& code,
+                                       int& nbits) {
+  const int bn = (d >> 1) & 31;
+  const int f = (d >> 6) & 1;
+  const int kv = (int)(d >> 7);
   if (bn >= 8) {
-    // golomb: a one ends the run (the codeword of the k zeros before it),
-    // m zeros are a full run (the 1-bit codeword '1')
-    const int m = lut[kLutGm + bn], l = lut[kLutGl + bn];
-    const int i = lut[kLutGi + bn];
-    const int kz = k + (cb == 0);
-    const bool run_done = cb == 0 && kz >= m;
-    const int adj = k < i ? k : k + i;
-    const int glen = l + (k >= i);
-    complete = cb == 1 || run_done;
-    code = run_done ? 1 : bitrev16(adj, glen);
-    nbits = run_done ? 1 : glen;
-    newk = kz;
+    const int l = lut[kLutGl + bn], i = lut[kLutGi + bn];
+    const int adj = kv < i ? kv : kv + i;
+    const int glen = l + (kv >= i);
+    code = f ? 1 : bitrev16(adj, glen);
+    nbits = f ? 1 : glen;
   } else if (bn >= 1) {
-    // custom: the input prefix grows by one bit (nb <= 4 in these bins)
-    const int val = (k | (cb << nb)) & 31;
-    const int key = bn * 32 + val;
-    complete = lut[kLutCinb + key] == nb + 1;
-    code = lut[kLutCout + key];
-    nbits = lut[kLutCobits + key];
-    newk = val;
+    code = lut[kLutCout + bn * 32 + kv];
+    nbits = lut[kLutCobits + bn * 32 + kv];
   } else {
-    complete = true;
-    code = cb;
+    code = f;
     nbits = 1;
-    newk = 0;
-  }
-  if (complete) {
-    s.bk[bn] = 0;
-    s.bnb[bn] = 0;
-    s.bop[bn] = -1;
-    out_code = code;
-    out_nbits = nbits;
-    out_open = op;
-  } else {
-    s.bk[bn] = newk;
-    s.bnb[bn] = nb + 1;
-    s.bop[bn] = op;
   }
 }
 
-__device__ __forceinline__ void init_state(CoderState& s) {
-  for (int q = 0; q < 17; ++q) {
-    s.zero[q] = 2;
-    s.total[q] = 4;
-    s.bk[q] = 0;
-    s.bnb[q] = 0;
-    s.bop[q] = -1;
-  }
-}
+template <int kTile, int kStages>
+__global__ void __launch_bounds__(32)
+full_encode_kernel(const int32_t* __restrict__ valid,
+                   const int32_t* __restrict__ ctx,
+                   const int32_t* __restrict__ bit,
+                   int32_t* __restrict__ code, int32_t* __restrict__ nbits,
+                   int32_t* __restrict__ opn,
+                   const int32_t* __restrict__ luts, int L, int lanes) {
+  // thread i copies, packs and expands step i of each tile
+  static_assert(kTile >= 1 && kTile <= 32 && kStages >= 2, "tile shape");
+  __shared__ int32_t lut[kLutSize];
+  __shared__ int32_t ring[kStages][3][kTile];   // valid, ctx, bit
+  __shared__ uint32_t word[kTile];   // packed step, then its descriptor
+  __shared__ int32_t opw[kTile];     // opening emission of a completion
+  __shared__ uint32_t zt[18];        // counts_word per context; [17] uncoded
+  __shared__ int2 bs[17];            // (k | nb << 16, opening emission + 1)
+  const int tid = threadIdx.x;
+  const int lane = blockIdx.x;
+  for (int i = tid; i < kLutSize; i += 32) lut[i] = luts[i];
+  if (tid < 17) bs[tid] = make_int2(0, 0);
 
-// The 17 end-of-plane flush rows (rows L .. L + 16).
-__device__ void flush_rows(const CoderState& s, const int* lut, int L,
-                           int lanes, int lane, int32_t* code,
-                           int32_t* nbits, int32_t* opn) {
-  for (int b = 0; b < 17; ++b) {
-    int fc = 0, fn = 0, fo = kBig;
-    if (b >= 1 && s.bop[b] >= 0) {
-      const int k = s.bk[b], nb = s.bnb[b];
-      if (b >= 8) {
-        const int m = lut[kLutGm + b], l = lut[kLutGl + b];
-        const int i = lut[kLutGi + b];
-        const int adj = k < i ? k : k + i;
-        const int glen = l + (k >= i);
-        fc = k == m - 1 ? 1 : bitrev16(adj, glen);
-        fn = k == m - 1 ? 1 : glen;
-      } else {
-        const int fv = lut[kLutFlv + (b * 8 + (nb & 7)) * 32 + (k & 31)];
-        const int fin = (k | (fv << nb)) & 31;
-        fc = lut[kLutCout + b * 32 + fin];
-        fn = lut[kLutCobits + b * 32 + fin];
-      }
-      fo = s.bop[b];
+  const int T = (L + kTile - 1) / kTile;
+  auto load_tile = [&](int t) {
+    int32_t(*const dst)[kTile] = ring[t % kStages];
+    const int r = t * kTile + tid;
+    if (tid >= kTile) return;
+    if (r < L) {
+      const size_t off = (size_t)r * lanes + lane;
+      cp_async4(&dst[0][tid], valid + off);
+      cp_async4(&dst[1][tid], ctx + off);
+      cp_async4(&dst[2][tid], bit + off);
+    } else {
+      dst[0][tid] = 0;   // past the end: an empty step
     }
-    const size_t r = (size_t)(L + b) * lanes + lane;
-    code[r] = fc;
-    nbits[r] = fn;
-    opn[r] = fo;
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < T) load_tile(s);
+    cp_async_commit();
   }
-}
-
-__device__ __forceinline__ void load_lut(int* lut, const int32_t* luts) {
-  for (int i = threadIdx.x; i < kLutSize; i += blockDim.x) lut[i] = luts[i];
   __syncthreads();
-}
 
-__global__ void full_encode_kernel(const int32_t* __restrict__ valid,
-                                   const int32_t* __restrict__ ctx,
-                                   const int32_t* __restrict__ bit,
-                                   int32_t* __restrict__ code,
-                                   int32_t* __restrict__ nbits,
-                                   int32_t* __restrict__ opn,
-                                   const int32_t* __restrict__ luts, int L,
-                                   int lanes) {
-  __shared__ int lut[kLutSize];
-  load_lut(lut, luts);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  CoderState s;
-  init_state(s);
-  for (int i = 0; i < L; ++i) {
-    const size_t r = (size_t)i * lanes + lane;
-    int oc, on, oo;
-    coder_step(s, lut, valid[r], ctx[r], bit[r], i, oc, on, oo);
-    code[r] = oc;
-    nbits[r] = on;
-    opn[r] = oo;
-  }
-  flush_rows(s, lut, L, lanes, lane, code, nbits, opn);
-}
-
-__global__ void full_encode_tiled_kernel(const int32_t* __restrict__ valid,
-                                         const int32_t* __restrict__ ctx,
-                                         const int32_t* __restrict__ bit,
-                                         int32_t* __restrict__ code,
-                                         int32_t* __restrict__ nbits,
-                                         int32_t* __restrict__ opn,
-                                         const int32_t* __restrict__ luts,
-                                         int L, int lanes) {
-  __shared__ int lut[kLutSize];
-  load_lut(lut, luts);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  CoderState s;
-  init_state(s);
-  for (int base = 0; base < L; base += kTile) {
-    int tv[kTile], tc[kTile], tb[kTile];
-    // the tile's loads, all issued before the dependent steps
+  const int* const gm = lut + kLutGm;
+  const int* const cinb = lut + kLutCinb;
+  int cut[16];
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const size_t r = (size_t)(base + j) * lanes + lane;
-      const bool in = base + j < L;
-      tv[j] = in ? valid[r] : 0;
-      tc[j] = in ? ctx[r] : 0;
-      tb[j] = in ? bit[r] : 0;
+  for (int j = 0; j < 16; ++j) cut[j] = lut[kLutCut + j];
+  // the coded contexts start at (zero, total) = (2, 4); the uncoded one
+  // codes with (1, 2) and is never updated
+  if (tid < 18) zt[tid] = tid < 17 ? counts_word(cut, 4, 2)
+                                   : counts_word(cut, 2, 1);
+  __syncwarp();
+
+  for (int t = 0; t < T; ++t) {
+    // each thread packs the step it copied, so no barrier before it
+    cp_async_wait<kStages - 2>();
+    if (t + kStages - 1 < T) load_tile(t + kStages - 1);
+    cp_async_commit();
+    const int32_t(*const src)[kTile] = ring[t % kStages];
+    bool v = false;
+    if (tid < kTile) {
+      v = src[0][tid] != 0;
+      const uint32_t c = min((uint32_t)src[1][tid], 17u);
+      word[tid] = v ? 1u | c << 1 | ((uint32_t)src[2][tid] & 1u) << 6 : 0u;
     }
-    int oc[kTile], on[kTile], oo[kTile];
-#pragma unroll
-    for (int j = 0; j < kTile; ++j)
-      coder_step(s, lut, tv[j], tc[j], tb[j], base + j, oc[j], on[j], oo[j]);
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      if (base + j < L) {
-        const size_t r = (size_t)(base + j) * lanes + lane;
-        code[r] = oc[j];
-        nbits[r] = on[j];
-        opn[r] = oo[j];
+    uint32_t todo = __ballot_sync(kFull, v);
+    __syncwarp();
+    const int base = t * kTile;
+
+    if (tid == 0 && todo) {
+      // The tile's valid steps in order.  Each iteration loads the next
+      // step's counters and the word of the step after it, so a step
+      // starts with its counters at hand; where the next step has this
+      // step's context, it takes the updated counters from registers.
+      int cur = __ffs(todo) - 1;
+      todo &= todo - 1;
+      int nxt = todo ? __ffs(todo) - 1 : -1;
+      todo &= todo - 1;
+      uint32_t w = word[cur];
+      uint32_t wn = nxt >= 0 ? word[nxt] : 0u;
+      uint32_t z = zt[(w >> 1) & 31];
+      for (;;) {
+        const int c = (w >> 1) & 31;
+        const uint32_t b = (w >> 6) & 1;
+        const int cn = (wn >> 1) & 31;
+        const uint32_t zpre = zt[cn];
+        int nn = -1;
+        uint32_t wnn = 0u;
+        if (todo) {
+          nn = __ffs(todo) - 1;
+          todo &= todo - 1;
+          wnn = word[nn];
+        }
+
+        // ---- the bin, read with the counts
+        const int bn = (z >> 25) & 31;
+        const uint32_t cb = b ^ ((z >> 30) & 1);
+        const int2 st = bs[bn];
+        const uint32_t gmb = (uint32_t)gm[bn];   // loaded beside the state
+
+        // ---- the counter update and the next bin (zt[17] stays)
+        int tc2 = (int)(z & 0xFFFF) + 1;
+        int zc2 = (int)((z >> 16) & 511) + (b == 0);
+        if (tc2 >= kRescaleCap) {
+          tc2 >>= 1;
+          if (zc2 > tc2) zc2 >>= 1;
+        }
+        const uint32_t znew = c < 17 ? counts_word(cut, tc2, zc2) : z;
+        if (c < 17) zt[c] = znew;
+
+        // ---- the bin's open codeword
+        int op1 = st.y;
+        uint32_t k = st.x & 0xFFFF;
+        uint32_t nb = (uint32_t)st.x >> 16;
+        if (op1 == 0) {
+          op1 = base + cur + 1;
+          k = 0;
+          nb = 0;
+        }
+        const bool isg = bn >= 8;
+        const bool isc = bn >= 1 && bn <= 7;
+        const uint32_t kz = k + (cb == 0);
+        // custom bins hold nb <= 4 (golomb bins count nb up but never read it)
+        const uint32_t val = (k | (cb << (nb & 7))) & 31;
+        const uint32_t nb2 = nb + 1;
+        bool complete = isg ? (cb == 1 || kz >= gmb) : true;
+        if (isc) complete = (uint32_t)cinb[bn * 32 + val] == nb2;
+        const uint32_t newk = isg ? kz : val;
+        bs[bn] = complete ? make_int2(0, 0)
+                          : make_int2((int)(newk | nb2 << 16), op1);
+        if (complete) {
+          // golomb: completing on a zero is a full run
+          word[cur] = descriptor(bn, isg ? (uint32_t)(cb == 0) : cb,
+                                 isg ? k : val);
+          opw[cur] = op1 - 1;
+        } else {
+          word[cur] = 0u;
+        }
+        if (nxt < 0) break;
+        z = cn == c ? znew : zpre;
+        w = wn;
+        wn = wnn;
+        cur = nxt;
+        nxt = nn;
       }
     }
+    __syncwarp();
+
+    // ---- the tile's codewords, off the chain
+    if (tid < kTile && base + tid < L) {
+      const uint32_t d = word[tid];
+      int cw = 0, cn = 0, co = kBig;
+      if (d & 1u) {
+        expand(d, lut, cw, cn);
+        co = opw[tid];
+      }
+      const size_t off = (size_t)(base + tid) * lanes + lane;
+      code[off] = cw;
+      nbits[off] = cn;
+      opn[off] = co;
+    }
   }
-  flush_rows(s, lut, L, lanes, lane, code, nbits, opn);
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // ---- the 17 end-of-plane flush rows (rows L .. L + 16)
+  if (tid < 17) {
+    const int2 st = bs[tid];
+    int fc = 0, fn = 0, fo = kBig;
+    if (tid >= 1 && st.y > 0) {
+      const uint32_t k = st.x & 0xFFFF;
+      const uint32_t nb = (uint32_t)st.x >> 16;
+      uint32_t d;
+      if (tid >= 8) {
+        d = descriptor(tid, k == (uint32_t)gm[tid] - 1, k);
+      } else {
+        const uint32_t fv =
+            (uint32_t)lut[kLutFlv + (tid * 8 + (nb & 7)) * 32 + (k & 31)];
+        d = descriptor(tid, 0u, (k | (fv << nb)) & 31);
+      }
+      expand(d, lut, fc, fn);
+      fo = st.y - 1;
+    }
+    const size_t off = (size_t)(L + tid) * lanes + lane;
+    code[off] = fc;
+    nbits[off] = fn;
+    opn[off] = fo;
+  }
 }
 
-using KernelFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
-                          int32_t*, int32_t*, int32_t*, const int32_t*, int,
-                          int);
-
-int launch(KernelFn kernel, const void* valid, const void* ctx,
-           const void* bit, void* code, void* nbits, void* opn,
-           const void* luts, int L, int lanes, int lut_size, void* stream) {
+template <int kTile, int kStages>
+int launch(const void* valid, const void* ctx, const void* bit, void* code,
+           void* nbits, void* opn, const void* luts, int L, int lanes,
+           int lut_size, void* stream) {
   if (lut_size != kLutSize || L < 0 || L + 17 >= kBig)
     return (int)cudaErrorInvalidValue;
   if (lanes <= 0) return (int)cudaSuccess;
-  const int threads = 64;
-  const int blocks = (lanes + threads - 1) / threads;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  full_encode_kernel<kTile, kStages><<<lanes, 32, 0, (cudaStream_t)stream>>>(
       (const int32_t*)valid, (const int32_t*)ctx, (const int32_t*)bit,
       (int32_t*)code, (int32_t*)nbits, (int32_t*)opn, (const int32_t*)luts,
       L, lanes);
@@ -293,8 +337,8 @@ extern "C" int full_encode_launch(const void* valid, const void* ctx,
                                   const void* bit, void* code, void* nbits,
                                   void* opn, const void* luts, int L,
                                   int lanes, int lut_size, void* stream) {
-  return launch(full_encode_kernel, valid, ctx, bit, code, nbits, opn, luts,
-                L, lanes, lut_size, stream);
+  return launch<32, 3>(valid, ctx, bit, code, nbits, opn, luts, L, lanes,
+                       lut_size, stream);
 }
 
 extern "C" int full_encode_tiled_launch(const void* valid, const void* ctx,
@@ -302,6 +346,6 @@ extern "C" int full_encode_tiled_launch(const void* valid, const void* ctx,
                                         void* nbits, void* opn,
                                         const void* luts, int L, int lanes,
                                         int lut_size, void* stream) {
-  return launch(full_encode_tiled_kernel, valid, ctx, bit, code, nbits, opn,
-                luts, L, lanes, lut_size, stream);
+  return launch<8, 8>(valid, ctx, bit, code, nbits, opn, luts, L, lanes,
+                      lut_size, stream);
 }

@@ -62,7 +62,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coder_common.cuh"
+
 namespace {
+
+using icer::bin_of;
 
 constexpr int kCircBuf = 2048;          // CIRC_BUF_SIZE
 constexpr int kRescaleCap = 500;        // CONTEXT_RESCALING_CAP
@@ -131,22 +135,6 @@ __device__ __forceinline__ void fill_window(uint32_t* win,
       if (b + j < readable) v |= (uint32_t)payload[b + j] << (8 * j);
     win[i] = v;
   }
-}
-
-// The bin of a probability: the number of cutoffs it meets (the ladder
-// ascends), counted in four independent sums so the 16 compares issue
-// together (constant indices only: a rolled reduction would put the sums
-// in local memory).
-__device__ __forceinline__ int bin_of(const int* cut, int comp, int tc) {
-  int a = 0, b = 0, c = 0, d = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a += comp >= tc * cut[j];
-    b += comp >= tc * cut[4 + j];
-    c += comp >= tc * cut[8 + j];
-    d += comp >= tc * cut[12 + j];
-  }
-  return (a + b) + (c + d);
 }
 
 // One context-modelled bit with counts (zc, tc); sets st.err on a stream

@@ -37,7 +37,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coder_common.cuh"
+
 namespace {
+
+using icer::bin_of;
+using icer::cp_async4;
+using icer::cp_async_commit;
+using icer::cp_async_wait;
 
 constexpr int kNEV = 32;
 constexpr int kCircBuf = 2048;          // CIRC_BUF_SIZE
@@ -53,38 +60,6 @@ constexpr int kLutGm = 16;
 constexpr int kLutCinb = 33;
 constexpr int kLutFlv = 289;
 constexpr int kLutSize = 2337;
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The bin of a probability: the number of cutoffs it meets (the ladder
-// ascends), counted in four independent sums so the 16 compares issue
-// together (constant indices only: a rolled reduction would put the sums
-// in local memory).
-__device__ __forceinline__ int bin_of(const int* cut, int comp, int tc) {
-  int a = 0, b = 0, c = 0, d = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a += comp >= tc * cut[j];
-    b += comp >= tc * cut[4 + j];
-    c += comp >= tc * cut[8 + j];
-    d += comp >= tc * cut[12 + j];
-  }
-  return (a + b) + (c + d);
-}
 
 __global__ void __launch_bounds__(32)
 slim_encode_kernel(const int32_t* __restrict__ words,

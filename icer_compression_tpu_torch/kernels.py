@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
 run at first use into ``build/`` beside the package (named by a hash of the
-source, so an edited source rebuilds); ``build_all`` starts one ``nvcc``
-per source, all at once.  Nothing is built or imported from CUDA when the
-module is imported.
+source and of the shared headers ``csrc/*.cuh``, so an edited source or
+header rebuilds); ``build_all`` starts one ``nvcc`` per source, all at
+once, and keeps each compiler log (``-Xptxas -v``: registers, shared
+memory and spills per kernel) in ``BUILD_LOGS``.  Nothing is built or
+imported from CUDA when the module is imported.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("slim_encode", "plane_decode", "full_encode")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -38,8 +41,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    return BUILD / f"{name}-{hashlib.sha256(src).hexdigest()[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every header in ``csrc/``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    return BUILD / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, float]:
@@ -63,6 +70,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue

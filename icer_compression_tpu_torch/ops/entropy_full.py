@@ -224,11 +224,13 @@ def _launch(entry: str, valid, ctx, bit):
 
 def encode_lanes_full(valid: torch.Tensor, ctx: torch.Tensor,
                       bit: torch.Tensor):
-    """Kernel 4: the full state-machine coder over (L, lanes) streams.
+    """Kernel 4: the full state-machine coder over (L, lanes) streams, one
+    lane per one-warp block stepping tiles of 32 rows.
 
     A CUDA tensor launches ``csrc/full_encode.cu``; a CPU tensor runs the
-    plain version.  Returns (code, nbits, open) as in the module
-    docstring."""
+    plain version.  ``ctx`` >= 17 is the uncoded context and ``bit`` is 0
+    or 1 (the kernel reads ``bit & 1``).  Returns (code, nbits, open) as
+    in the module docstring."""
     _check_inputs(valid, ctx, bit)
     if valid.device.type == "cpu":
         return encode_lanes_full_plain(valid, ctx, bit)
@@ -244,8 +246,8 @@ encode_lanes_full.launches = 0
 
 def encode_lanes_full_tiled(valid: torch.Tensor, ctx: torch.Tensor,
                             bit: torch.Tensor):
-    """Kernel 5: kernel 4 stepping 8-row tiles whose loads are issued
-    ahead of the 8 dependent steps.  Same contract and plain version."""
+    """Kernel 5: kernel 4's kernel with the TPU kernel's 8-row tiles (and
+    a deeper ring).  Same contract and plain version."""
     _check_inputs(valid, ctx, bit)
     if valid.device.type == "cpu":
         return encode_lanes_full_plain(valid, ctx, bit)

@@ -60,6 +60,32 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
      decodes it with kernel 2 on a canvas too large for shared memory:
      pixel-exact; kernel 5 equals kernel 4 on that encode's block, whose
      opening emissions pass 2^16.
+ 16. drives the colour main path: a 512x512 RGB made from boat (R = boat,
+     G = boat rolled 7 columns to the right, B = boat transposed),
+     converted with the port's ``rgb_to_ycbcr``, through ``compress_yuv``
+     and ``decompress_yuv`` at stages 4, filter A, 6 segments; uint16
+     unlimited and at 150,000 bytes, and uint8 (the planes // 3)
+     unlimited, must match tests/data/golden_color512.sha256 (streams and
+     decoded planes, made with the JAX package by
+     scripts/pin_color512.py); the unlimited decodes return Y, U and V
+     exactly; kernels 1 and 2 must have launched; kernel 1 on the uint8
+     path's shortest bucket and kernel 2 on its smallest unit (lsb0 6,
+     mag_bits 7) bit-equal to their plain versions; colour walls and
+     kernel times;
+ 17. a batch of 4 colour variants (seeded noise of +-6, seed 1234) through
+     ``compress_yuv_batch`` and ``decompress_yuv_batch``, unlimited and at
+     150,000 bytes: each stream equals ``compress_yuv`` of its image and
+     each decode ``decompress_yuv`` of its stream;
+ 18. four grayscale batches of 8 (phase 4's recipe) through
+     ``encode_batch(defer=True)`` and ``decompress_batch(defer=True)``
+     with K collectors open, each dispatch half under
+     ``torch.cuda.set_sync_debug_mode("error")``: streams and pixels equal
+     the synchronous calls; walls for K = 4 and K = 1 in turns;
+ 19. runs the CLI (``cli.main``) in a temporary directory on PNGs written
+     by the port's ``image_io``: the -G and -c round trips equal the API,
+     and batch-compress / batch-decompress of a mixed-geometry folder
+     (boat, its 256x256 centre, boat again; --batch-size 2) equal the
+     single-image path.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -74,15 +100,15 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import re
 import statistics
-import struct
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -117,52 +143,36 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def read_png_gray8(path: Path) -> np.ndarray:
-    """8-bit grayscale, non-interlaced PNG -> (h, w) uint8."""
-    data = path.read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path} is not a PNG file")
-    i, idat, hdr = 8, [], None
-    while i < len(data):
-        n, kind = struct.unpack(">I4s", data[i:i + 8])
-        body = data[i + 8:i + 8 + n]
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        i += 12 + n
-    w, h, depth, ctype, _c, _f, interlace = hdr
-    if (depth, ctype, interlace) != (8, 0, 0):
-        raise ValueError("only 8-bit grayscale non-interlaced PNGs")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, w + 1).astype(np.int32)
-    out = np.zeros((h, w), np.int32)
-    prev = np.zeros(w, np.int32)
-    for y in range(h):
-        f, line = raw[y, 0], raw[y, 1:]
-        if f == 0:
-            cur = line.copy()
-        elif f == 1:
-            cur = np.cumsum(line) & 255
-        elif f == 2:
-            cur = (line + prev) & 255
-        else:
-            cur = np.zeros(w, np.int32)
-            for x in range(w):
-                a = cur[x - 1] if x else 0
-                b = prev[x]
-                if f == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = prev[x - 1] if x else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (
-                        b if pb <= pc else c)
-                cur[x] = (line[x] + pred) & 255
-        out[y] = cur
-        prev = cur
-    return out.astype(np.uint8)
+def color_boat(boat: np.ndarray) -> np.ndarray:
+    """Phase 16's 512x512 RGB image, made from boat alone: R = boat, G =
+    boat rolled 7 columns to the right, B = boat transposed."""
+    return np.stack([boat, np.roll(boat, 7, axis=1), boat.T],
+                    axis=-1).astype(np.uint8)
+
+
+def color_planes(rgb: np.ndarray, dtype) -> tuple:
+    """(y, u, v) of ``rgb`` through the port's ``rgb_to_ycbcr``: uint16
+    planes, or for uint8 the planes // 3 (the JAX package's tests' recipe
+    against int8 overflow on the uint8 colour path)."""
+    from icer_compression_tpu_torch.utils.colorspace import rgb_to_ycbcr
+    planes = rgb_to_ycbcr(rgb)
+    if np.dtype(dtype) == np.uint8:
+        return tuple((c // 3).astype(np.uint8) for c in planes)
+    return tuple(c.astype(np.uint16) for c in planes)
+
+
+def planes_sha(planes) -> str:
+    """sha256 of decoded planes stacked and written as little-endian
+    uint16."""
+    return hashlib.sha256(np.ascontiguousarray(
+        np.stack(planes), "<u2").tobytes()).hexdigest()
+
+
+# (label, dtype, byte quota) of the colour pins in
+# tests/data/golden_color512.sha256, stages 4, filter A, 6 segments
+COLOR_PINS = (("u16 unlimited", np.uint16, None),
+              ("u16 quota 150000", np.uint16, 150000),
+              ("u8 unlimited", np.uint8, None))
 
 
 def gpu_line() -> str:
@@ -531,13 +541,12 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
 
     # ---- phase 10: quota classes ---------------------------------------
     full = T.make_encoder(w, h, cfg, np.uint16, dev)
-    table, mean = full.encode_batch(boat[None])[0]
-    table = {(0,) + k: v for k, v in table.items()}
+    results = full.encode_batch(boat[None])
     for q in (5000, 20000, 50000):
         qcfg = T.CodecConfig(4, 0, 6, q)
         stats = {}
         sq = T.compress_batch(boat[None], qcfg, device=dev, stats=stats)[0]
-        if sq != T._allocate_stream(table, mean, qcfg, w, h, 9):
+        if sq != T.allocate_streams(results, qcfg, full)[0]:
             raise AssertionError(f"quota {q}: class stream differs from the "
                                  "full encode")
         log(f"quota {q}: {len(sq)} B == full encode then allocate; class "
@@ -817,6 +826,332 @@ def decode_phases(dev, card, boat, st, units, small):
     return {"retire_err": retire_err, "place_err": place_err}
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Inside the block, any host synchronisation that PyTorch makes (an
+    ``.item()``, a ``bool`` of a tensor, a blocking copy) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def color_phases(dev, card, boat, pins):
+    """Phases 16-17: the colour main path against its pins from the JAX
+    package (uint16 at two quotas, uint8), kernels 1 and 2 against their
+    plain versions on the uint8 colour path's smallest launches, the
+    colour walls and kernel times, and a colour batch."""
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+
+    rgb = color_boat(boat)
+    h, w = boat.shape
+    cfg = T.CodecConfig(4, 0, 6, None)
+    res = {}
+
+    def equal_planes(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    # ---- phase 16: the colour main path ---------------------------------
+    streams = {}
+    for i, (label, dtype, quota) in enumerate(COLOR_PINS):
+        planes = color_planes(rgb, dtype)
+        qcfg = T.CodecConfig(4, 0, 6, quota)
+        if i == 0:
+            ES.encode_lanes_slim.launches = 0
+            PDc.decode_planes.launches = 0
+        s = TC.compress_yuv(*planes, qcfg, device=dev)
+        d = TC.decompress_yuv(s, qcfg, dtype, device=dev)
+        if i == 0:
+            res["launches"] = {"slim_encode": ES.encode_lanes_slim.launches,
+                               "plane_decode": PDc.decode_planes.launches}
+            if min(res["launches"].values()) <= 0:
+                raise AssertionError(f"colour path: a kernel did not "
+                                     f"launch: {res['launches']}")
+        got = [hashlib.sha256(s).hexdigest(), planes_sha(d)]
+        if got != pins[2 * i:2 * i + 2]:
+            raise AssertionError(f"colour {label}: {got} != pins "
+                                 f"{pins[2 * i:2 * i + 2]}")
+        if quota is None and not equal_planes(d, planes):
+            raise AssertionError(f"colour {label}: decode differs from the "
+                                 "Y, U and V planes")
+        streams[label] = s
+        log(f"colour boat 512 {label}: {len(s)} B stream and decoded planes "
+            f"match the pins from the JAX package"
+            + (", decode returns Y, U and V exactly" if quota is None
+               else ""))
+    log(f"colour main path launches {res['launches']}")
+
+    # kernels 1 and 2 against their plain versions on the uint8 path
+    y8 = color_planes(rgb, np.uint8)
+    enc8 = T.make_encoder(w, h, cfg, np.uint8, dev)
+    x8 = torch.as_tensor(np.stack(y8).astype(np.int32), device=dev)
+    img8 = enc8.transform(x8)[0]
+    em8 = [enc8.emit(g, img8) for g in enc8.groups]
+    wshort = enc8.bucket_words(enc8.buckets[-1], em8).t().contiguous()
+    p1, k1_plain_s = sync_time(lambda: ES.encode_lanes_slim_plain(wshort))
+    res["k1_err"] = 0
+    for nm, a, b in zip(("rec", "fstate", "misc", "ev"),
+                        ES.encode_lanes_slim(wshort), p1):
+        res["k1_err"] = max(res["k1_err"], assert_equal(
+            f"K1 uint8 colour shortest bucket {nm}", a, b))
+    res["k1_plain_ms"] = 1e3 * k1_plain_s
+    res["k1_shape"] = tuple(wshort.shape)
+    _w, _h, _ll, blob8, units8 = D.plan_batch([streams["u8 unlimited"]], cfg,
+                                              np.uint8, nchan=3)
+    st8 = torch.as_tensor(blob8, device=dev)
+    small = min(range(len(units8)),
+                key=lambda i: units8[i]["hmax"] * units8[i]["wmax"])
+    u8 = units8[small]
+    a8 = D.unit_inputs([u8], dev)[0]
+    p2, k2_plain_s = sync_time(lambda: PDc.decode_planes_plain(
+        st8, *a8, 6, 7))
+    res["k2_err"] = 0
+    for nm, a, b in zip(("out", "err", "pos"),
+                        PDc.decode_planes(st8, *a8, 6, 7), p2):
+        res["k2_err"] = max(res["k2_err"], assert_equal(
+            f"K2 uint8 colour smallest unit {nm}", a, b))
+    res["k2_plain_ms"] = 1e3 * k2_plain_s
+    res["k2_shape"] = (u8["offs"].shape[1], u8["hmax"], u8["wmax"],
+                       u8["offs"].shape[0])
+    log(f"uint8 colour: K1 shortest bucket {res['k1_shape']} and K2 smallest "
+        f"unit ({res['k2_shape'][0]} lanes, canvas {u8['hmax']}x"
+        f"{u8['wmax']}, {res['k2_shape'][3]} rounds, lsb0 6, mag_bits 7) "
+        f"bit-equal to plain (tolerance 0); plain {k1_plain_s:.1f} s / "
+        f"{k2_plain_s:.1f} s")
+
+    # walls and kernel times on the uint16 colour main path
+    yuv = color_planes(rgb, np.uint16)
+    s16 = streams["u16 unlimited"]
+    enc_t, dec_t = [], []
+    for _ in range(3):
+        enc_t.append(sync_time(lambda: TC.compress_yuv(*yuv, cfg,
+                                                       device=dev))[1])
+        dec_t.append(sync_time(lambda: TC.decompress_yuv(
+            s16, cfg, np.uint16, device=dev))[1])
+    res["enc_ms"] = 1e3 * statistics.median(enc_t)
+    res["dec_ms"] = 1e3 * statistics.median(dec_t)
+    enc16 = T.make_encoder(w, h, cfg, np.uint16, dev)
+    x16 = torch.as_tensor(np.stack(yuv).astype(np.int32), device=dev)
+    img16 = enc16.transform(x16)[0]
+    em16 = [enc16.emit(g, img16) for g in enc16.groups]
+    k1_ms, k1_b = 0.0, 0.0
+    for b in enc16.buckets:
+        bw = enc16.bucket_words(b, em16).t().contiguous()
+        k1_ms += event_ms(lambda bw=bw: ES.encode_lanes_slim(bw))
+        k1_b += k1_bound(bw, ES.encode_lanes_slim(bw)[2])[0]
+    _w, _h, _ll, blob, units = D.plan_batch([s16], cfg, np.uint16, nchan=3)
+    st = torch.as_tensor(blob, device=dev)
+    inputs = D.unit_inputs(units, dev)
+    k2_ms = event_ms(lambda: D.decode_units(st, inputs, 8, 15))
+    k2_b = sum(k2_bound(u, PDc.decode_planes(st, *a, 8, 15)[2])[0]
+               for u, a in zip(units, inputs))
+    res.update(k1_ms=k1_ms, k1_bound_ms=k1_b, k2_ms=k2_ms, k2_bound_ms=k2_b,
+               k1_launches=len(enc16.buckets), k2_launches=len(units))
+    log(f"colour boat 512 lossless wall (median of 3): encode "
+        f"{res['enc_ms']:.1f} ms, decode {res['dec_ms']:.1f} ms, "
+        f"{h * w / (res['enc_ms'] + res['dec_ms']) * 1e-3:.4f} MP/s; per "
+        f"image K1 {k1_ms:.3f} ms over {len(enc16.buckets)} launches (bound "
+        f"{k1_b:.4f} ms), K2 {k2_ms:.3f} ms over {len(units)} units "
+        f"overlapped (bound {k2_b:.4f} ms; stage 1: "
+        f"{units[0]['offs'].shape[1]} lanes) | {card}")
+
+    # ---- phase 17: a colour batch ---------------------------------------
+    rng = np.random.default_rng(1234)
+    variants = [np.clip(rgb.astype(np.int32)
+                        + rng.integers(-6, 7, rgb.shape), 0, 255)
+                .astype(np.uint8) for _ in range(4)]
+    planes = [color_planes(c, np.uint16) for c in variants]
+    ys, us, vs = (list(c) for c in zip(*planes))
+    for quota in (None, 150000):
+        qcfg = T.CodecConfig(4, 0, 6, quota)
+        if quota is None:
+            ES.encode_lanes_slim.launches = 0
+            PDc.decode_planes.launches = 0
+        bs, enc_s = sync_time(lambda: TC.compress_yuv_batch(
+            ys, us, vs, qcfg, device=dev))
+        bd, dec_s = sync_time(lambda: D.decompress_yuv_batch(
+            bs, qcfg, np.uint16, device=dev))
+        if quota is None:
+            res["batch_launches"] = {
+                "slim_encode": ES.encode_lanes_slim.launches,
+                "plane_decode": PDc.decode_planes.launches}
+            res["batch_enc_ms"], res["batch_dec_ms"] = 1e3 * enc_s, \
+                1e3 * dec_s
+        for i in range(len(variants)):
+            if bs[i] != TC.compress_yuv(*planes[i], qcfg, device=dev):
+                raise AssertionError(f"colour batch quota {quota} image {i}: "
+                                     "stream differs from compress_yuv")
+            if not equal_planes(bd[i], TC.decompress_yuv(
+                    bs[i], qcfg, np.uint16, device=dev)):
+                raise AssertionError(f"colour batch quota {quota} image {i}: "
+                                     "decode differs from decompress_yuv")
+            if quota is None and not equal_planes(bd[i], planes[i]):
+                raise AssertionError(f"colour batch image {i}: lossless "
+                                     "decode differs from its planes")
+        log(f"colour batch of 4 (seed 1234, +-6) quota {quota}: streams == "
+            f"compress_yuv, decodes == decompress_yuv"
+            + (" == the planes" if quota is None else "")
+            + f"; {sum(map(len, bs))} B; encode {enc_s:.3f} s, decode "
+            f"{dec_s:.3f} s ({4 * h * w / (enc_s + dec_s) / 1e6:.3f} MP/s) "
+            f"| {card}")
+    log(f"colour batch launches {res['batch_launches']}")
+    return res
+
+
+def deferred_phase(dev, card, boat):
+    """Phase 18: four grayscale batches of 8 through ``encode_batch`` and
+    ``decompress_batch`` with ``defer``, K collectors open, each dispatch
+    half under ``no_host_sync``; streams and pixels equal to the
+    synchronous calls; walls for K = 4 and K = 1 in turns (4, 1, 1, 4,
+    4, 1, 1, 4)."""
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+
+    h, w = boat.shape
+    rng = np.random.default_rng(1234)
+    batches = [np.clip(boat[None].astype(np.int32)
+                       + rng.integers(-6, 7, (8, h, w)), 0, 255)
+               .astype(np.uint16) for _ in range(4)]
+    cfg = T.CodecConfig(4, 0, 6, None)
+    enc = T.make_encoder(w, h, cfg, np.uint16, dev)
+
+    def streams_of(results):
+        return T.allocate_streams(results, cfg, enc)
+
+    want_s = [streams_of(enc.encode_batch(b)) for b in batches]
+    want_px = [D.decompress_batch(s, cfg, np.uint16, device=dev)
+               for s in want_s]
+
+    def run(K):
+        """(streams, pixels, encode s, decode s) with K collectors open."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams, pending = [], []
+        for b in batches:
+            with no_host_sync():
+                pending.append(enc.encode_batch(b, defer=True))
+            if len(pending) >= K:
+                streams.append(streams_of(pending.pop(0)()))
+        streams += [streams_of(p()) for p in pending]
+        t1 = time.perf_counter()
+        pixels, pending = [], []
+        for s in streams:
+            with no_host_sync():
+                pending.append(D.decompress_batch(s, cfg, np.uint16,
+                                                  device=dev, defer=True))
+            if len(pending) >= K:
+                pixels.append(pending.pop(0)())
+        pixels += [p() for p in pending]
+        return streams, pixels, t1 - t0, time.perf_counter() - t1
+
+    ES.encode_lanes_slim.launches = 0
+    PDc.decode_planes.launches = 0
+    outs = [(4, run(4))]
+    launches = {"slim_encode": ES.encode_lanes_slim.launches,
+                "plane_decode": PDc.decode_planes.launches}
+    order = (4, 1, 1, 4, 4, 1, 1, 4)
+    outs += [(K, run(K)) for K in order[1:]]
+    for K, (streams, pixels, _e, _d) in outs:
+        if streams != want_s:
+            raise AssertionError(f"deferred encode (K={K}) streams differ "
+                                 "from the synchronous calls")
+        for i, (got, want, imgs) in enumerate(zip(pixels, want_px, batches)):
+            if not all(np.array_equal(a, b) and np.array_equal(a, c)
+                       for a, b, c in zip(got, want, imgs)):
+                raise AssertionError(f"deferred decode (K={K}) batch {i} "
+                                     "differs")
+    mp = 32 * h * w / 1e6
+    walls = {K: [(o[2], o[3]) for k, o in outs if k == K] for K in (4, 1)}
+    rates = {K: [mp / (e + d) for e, d in v] for K, v in walls.items()}
+    log(f"deferred batches (4 x 8 boat variants): streams and pixels equal "
+        f"the synchronous calls and the images, no host sync in any "
+        f"dispatch half; launches {launches}; runs in turns "
+        f"{', '.join(f'K={K}' for K in order)}: " + "; ".join(
+            f"K={K} encode {[round(1e3 * e, 1) for e, _d in walls[K]]} ms, "
+            f"decode {[round(1e3 * d, 1) for _e, d in walls[K]]} ms, "
+            f"{[round(r, 3) for r in rates[K]]} MP/s" for K in (4, 1))
+        + f" | {card}")
+    return {"launches": launches, "mps_k4": rates[4], "mps_k1": rates[1]}
+
+
+def cli_phase(dev, card, boat):
+    """Phase 19: the port's CLI on PNG files written by the port's
+    ``image_io``; its outputs must equal the API's."""
+    from icer_compression_tpu_torch import cli
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.utils.colorspace import ycbcr_to_rgb
+    from icer_compression_tpu_torch.utils.image_io import read_png, write_png
+
+    def run(*args):
+        if cli.main([str(a) for a in args] + ["--device", dev.type]) != 0:
+            raise AssertionError(f"cli {args[0]} failed")
+
+    def gray_want(img):
+        qcfg = T.CodecConfig(4, 0, 6, img.shape[0] * img.shape[1])
+        s = T.compress(img, qcfg, device=dev)
+        px = T.decompress(s, qcfg, np.uint16, device=dev)
+        return s, np.clip(px, 0, 255).astype(np.uint8)
+
+    h, w = boat.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_png(tmp / "boat.png", boat.astype(np.uint8))
+        write_png(tmp / "rgb.png", color_boat(boat))
+        ES.encode_lanes_slim.launches = 0
+        PDc.decode_planes.launches = 0
+        run("compress", tmp / "boat.png", tmp / "g.icer", "-G")
+        run("decompress", tmp / "g.icer", tmp / "g.png", "-G")
+        launches = {"slim_encode": ES.encode_lanes_slim.launches,
+                    "plane_decode": PDc.decode_planes.launches}
+        s, px = gray_want(boat)
+        if (tmp / "g.icer").read_bytes() != s:
+            raise AssertionError("cli -G stream differs from compress")
+        if not np.array_equal(read_png(tmp / "g.png"), px):
+            raise AssertionError("cli -G decode differs from decompress")
+
+        run("compress", tmp / "rgb.png", tmp / "c.icer", "-c")
+        run("decompress", tmp / "c.icer", tmp / "c.png", "-c")
+        planes = color_planes(read_png(tmp / "rgb.png"), np.uint16)
+        ccfg = T.CodecConfig(4, 0, 6, 3 * h * w)
+        s = TC.compress_yuv(*planes, ccfg, device=dev)
+        if (tmp / "c.icer").read_bytes() != s:
+            raise AssertionError("cli -c stream differs from compress_yuv")
+        rgb = ycbcr_to_rgb(*TC.decompress_yuv(s, ccfg, np.uint16,
+                                              device=dev))
+        if not np.array_equal(read_png(tmp / "c.png"), rgb):
+            raise AssertionError("cli -c decode differs from decompress_yuv")
+
+        imgs = {"boat": boat, "crop": boat[h // 4:3 * h // 4, w // 4:3 * w // 4],
+                "boat2": boat}
+        (tmp / "in").mkdir()
+        for name, img in imgs.items():
+            write_png(tmp / "in" / f"{name}.png", img.astype(np.uint8))
+        run("batch-compress", tmp / "in", tmp / "enc", "--batch-size", 2)
+        run("batch-decompress", tmp / "enc", tmp / "dec", "--batch-size", 2)
+        for name, img in imgs.items():
+            s, px = gray_want(np.ascontiguousarray(img))
+            if (tmp / "enc" / f"{name}.icer").read_bytes() != s:
+                raise AssertionError(f"cli batch stream {name} differs")
+            if not np.array_equal(read_png(tmp / "dec" / f"{name}.png"), px):
+                raise AssertionError(f"cli batch decode {name} differs")
+    log(f"cli: -G and -c round trips and batch-compress/-decompress of a "
+        f"mixed-geometry folder ({w}x{h} twice, {w // 2}x{h // 2}; "
+        f"--batch-size 2) "
+        f"equal the API's streams and decodes; launches of the -G round "
+        f"trip {launches} | {card}")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -826,6 +1161,7 @@ def main() -> int:
     from icer_compression_tpu_torch.models import grayscale as T
     from icer_compression_tpu_torch.ops import entropy_slim as ES
     from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.utils.image_io import read_png
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -848,7 +1184,7 @@ def main() -> int:
         raise AssertionError(f"kernels 4/5 use local memory: {k45}")
 
     data = REPO / "tests" / "data"
-    boat = read_png_gray8(data / "boat.512.png").astype(np.uint16)
+    boat = read_png(data / "boat.512.png").astype(np.uint16)
     golden = (data / "golden_boat512.sha256").read_text().split()[0]
     pins = [ln.split()[0] for ln in
             (data / "golden_boat512_q50000.sha256").read_text().splitlines()]
@@ -1036,6 +1372,18 @@ def main() -> int:
     new = later_phases(dev, card, boat, img, bucket_words, stream, golden,
                        pins, cfg, cfg50)
     dec = decode_phases(dev, card, boat, st, units, small)
+    col = color_phases(dev, card, boat, [
+        ln.split()[0] for ln in
+        (data / "golden_color512.sha256").read_text().splitlines()])
+    dfr = deferred_phase(dev, card, boat)
+    cl = cli_phase(dev, card, boat)
+    paths = {"slim_encode": {}, "plane_decode": {}}
+    for path, counts in (("grayscale", launches), ("color", col["launches"]),
+                         ("color_batch", col["batch_launches"]),
+                         ("deferred", dfr["launches"]),
+                         ("cli", cl["launches"])):
+        for k, n in counts.items():
+            paths[k][path] = n
 
     kern = [
         {"name": "slim_encode", "route": "cuda",
@@ -1049,7 +1397,16 @@ def main() -> int:
          "library_ms": None, "ms_per_image": sum(k1_ms),
          "bound_ms_per_image": sum(b[0] for b in k1_bounds),
          "ns_per_step": 1e6 * k1_ms[0] / w1.shape[0],
-         "step": "one emission slot of a stage-1 lane"},
+         "step": "one emission slot of a stage-1 lane",
+         "launches_by_path": paths["slim_encode"],
+         "color_launches_per_image": col["k1_launches"],
+         "color_ms_per_image": col["k1_ms"],
+         "color_bound_ms_per_image": col["k1_bound_ms"],
+         "color_plain_check": {"shape": f"L={col['k1_shape'][0]} lanes="
+                                        f"{col['k1_shape'][1]} (uint8 colour "
+                                        "shortest bucket)",
+                               "max_abs_err": col["k1_err"],
+                               "plain_ms": col["k1_plain_ms"]}},
         {"name": "plane_decode", "route": "cuda",
          "source": "icer_compression_tpu_torch/csrc/plane_decode.cu",
          "replaces": "icer_compression_tpu/ops/pallas_decode.py:99",
@@ -1068,10 +1425,23 @@ def main() -> int:
          "step": "one pixel of a stage-1 lane's critical path: one "
                  "round's pixels plus two rows per later round",
          "retirement_max_abs_err": dec["retire_err"],
-         "device_placement_max_abs_err": dec["place_err"]},
+         "device_placement_max_abs_err": dec["place_err"],
+         "launches_by_path": paths["plane_decode"],
+         "color_launches_per_image": col["k2_launches"],
+         "color_units_overlapped_ms": col["k2_ms"],
+         "color_bound_ms_per_image": col["k2_bound_ms"],
+         "color_plain_check": {"shape": "lanes={} canvas={}x{} rounds={} "
+                                        "lsb0=6 mag_bits=7 (uint8 colour "
+                                        "smallest unit)".format(
+                                            *col["k2_shape"]),
+                               "max_abs_err": col["k2_err"],
+                               "plain_ms": col["k2_plain_ms"]}},
     ] + new
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
-        f"decode_ms {1e3 * dec_med:.2f}")
+        f"decode_ms {1e3 * dec_med:.2f}; color_encode_ms "
+        f"{col['enc_ms']:.2f}; color_decode_ms {col['dec_ms']:.2f}; "
+        f"deferred_mps_k4 {max(dfr['mps_k4']):.3f}; deferred_mps_k1 "
+        f"{max(dfr['mps_k1']):.3f}")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,188 @@
+"""Colour (YUV) ICER codec entry points.
+
+Counterpart: ``icer_compression_tpu/models/color.py`` (``_yuv_quota_classes``,
+``compress_yuv_jax``, ``compress_yuv_batch``, ``decompress_yuv``), itself the
+reference's ``icer_compress_image_yuv_uint8/uint16`` and decoders
+(lib_icer/src/icer_color.c).  The three planes encode as channel canvases
+of one batch through the grayscale encoder (ops/encode, kernel 1), with one
+rate allocation over the three-channel packet list (Y packets get the
+cumulative priority doubling of icer_color.c:404), the channel id in the
+header's lsb_chan nibble and the format's rearrangement order (uint8
+ascending, icer_color.c:186-203; uint16 descending, icer_color.c:510-527).
+The decode runs the lane-batched decoder over 3 canvases per stream
+(models/decode, kernel 2).  Streams are byte-identical and decodes
+pixel-identical to the JAX package's.
+
+Every entry point takes ``device=None``, which means ``"cuda"``; without a
+CUDA device the caller must pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.packets import (build_packets_color, rearrange_order_color_uint8,
+                            rearrange_order_color_uint16, sort_packets)
+from ..core.status import IcerError, IcerStatus
+from ..device import resolve_device
+from .grayscale import (PLANE_MASS, CodecConfig, _bitplanes, _cached_encoder,
+                        _mag_bits, allocate_from_table, assemble_stream)
+
+_YUV_QUOTA_CLASSES: dict[tuple, list] = {}
+
+
+def yuv_quota_classes(w: int, h: int, stages: int, bitplanes: int):
+    """Priority-prefix classes for quota-aware colour encoding: [(model
+    fraction, cuts)], as ``grayscale.quota_classes`` but over the colour
+    packet order (Y-priority doubling included).  The three channels share
+    one batched encode, so a class's cut per stage group is the lowest lsb
+    that any channel's prefix packet needs (a superset for U and V, which
+    only costs planes that are encoded and not allocated)."""
+    cached = _YUV_QUOTA_CLASSES.get((w, h, stages, bitplanes))
+    if cached is not None:
+        return cached
+    packets = sort_packets(build_packets_color(w, h, stages, [0, 0, 0],
+                                               bitplanes))
+    npk = len(packets)
+    mass = PLANE_MASS[:bitplanes]
+    mass = [m / sum(mass) for m in mass]
+    per_lsb_packets = max(1, npk // bitplanes)
+    classes, seen = [], set()
+    cum = 0.0
+    bounds = [1 / 16, 1 / 8, 1 / 4, 1 / 2, 1.0]
+    bi = 0
+    cuts = [bitplanes] * stages
+    for i, p in enumerate(packets):
+        cum += mass[p.lsb] / per_lsb_packets
+        cuts[p.decomp_level - 1] = min(cuts[p.decomp_level - 1], p.lsb)
+        last = i + 1 == npk
+        if bi < len(bounds) and (cum >= bounds[bi] or last):
+            while bi < len(bounds) and cum >= bounds[bi]:
+                bi += 1
+            t = tuple(cuts)
+            if t not in seen:
+                seen.add(t)
+                classes.append((min(cum, 1.0), t))
+    if classes[-1][1] != (0,) * stages:
+        classes.append((1.0, (0,) * stages))
+    _YUV_QUOTA_CLASSES[(w, h, stages, bitplanes)] = classes
+    return classes
+
+
+def _check_planes(y, u, v):
+    """(y, u, v) as arrays of one shape and dtype, and their mag_bits."""
+    y, u, v = (np.asarray(c) for c in (y, u, v))
+    if not (y.shape == u.shape == v.shape and y.dtype == u.dtype == v.dtype):
+        raise IcerError(IcerStatus.INVALID_INPUT, "channel mismatch")
+    return y, u, v, _mag_bits(y.dtype)
+
+
+def _rearrange_order(mag_bits: int, bitplanes: int):
+    return (rearrange_order_color_uint8(bitplanes) if mag_bits == 7
+            else rearrange_order_color_uint16(bitplanes))
+
+
+def _allocate_yuv(results, config, w, h, bitplanes, order) -> bytes:
+    """One image's stream from its three channels' (payload_table,
+    ll_mean); raises KeyError when the quota admits a packet the tables
+    lack."""
+    ll_means = [mean for _table, mean in results]
+    table = {(c,) + k: val for c, (t, _mean) in enumerate(results)
+             for k, val in t.items()}
+    packets = sort_packets(build_packets_color(w, h, config.stages, ll_means,
+                                               bitplanes))
+    nsegs = {(p.decomp_level, p.subband_type): config.segments
+             for p in packets}
+    encoded = allocate_from_table(packets, table, config.byte_quota, nsegs,
+                                  w, h)
+    return assemble_stream(encoded, order)
+
+
+def compress_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                 config: CodecConfig, device=None) -> bytes:
+    """Compress three equally sized channel planes (uint8 or uint16) into
+    one stream.  The planes encode as one (3, h, w) batch, only the
+    priority-prefix bitplanes of the quota's class; when the allocation
+    needs a plane outside it, the encode widens to the next class and
+    codes only the planes that adds."""
+    y, u, v, mag_bits = _check_planes(y, u, v)
+    if y.ndim != 2:
+        raise IcerError(IcerStatus.INVALID_INPUT, "expected (h, w) planes")
+    dev = resolve_device(device)
+    bitplanes = _bitplanes(mag_bits)
+    h, w = y.shape
+    classes = yuv_quota_classes(w, h, config.stages, bitplanes)
+    quota = config.byte_quota
+    if quota is None:
+        ci = len(classes) - 1
+    else:
+        # byte coverage needed: the quota as a fraction of a lossless
+        # stream of three channels (~0.65 x raw each), 1.7x headroom
+        want = min(1.0, 1.7 * quota / max(1, 3 * 0.65 * h * w))
+        ci = next((i for i, (frac, _) in enumerate(classes)
+                   if frac >= want), len(classes) - 1)
+    order = _rearrange_order(mag_bits, bitplanes)
+    stacked = np.stack([y, u, v])
+    tables, means = [{}, {}, {}], [0, 0, 0]
+    prev = (bitplanes,) * config.stages
+    while True:
+        cuts = classes[ci][1]
+        windows = tuple((lo, hi) for lo, hi in zip(cuts, prev))
+        if any(lo < hi for lo, hi in windows):
+            enc = _cached_encoder(w, h, config.stages, config.filt,
+                                  config.segments, mag_bits, "slim", dev,
+                                  windows)
+            for chan, (table, mean) in enumerate(enc.encode_batch(stacked)):
+                tables[chan].update(table)
+                means[chan] = mean
+            prev = tuple(min(a, b) for a, b in zip(cuts, prev))
+        try:
+            return _allocate_yuv(list(zip(tables, means)), config, w, h,
+                                 bitplanes, order)
+        except KeyError:
+            # the quota admits more than the encoded prefix: widen
+            if ci + 1 >= len(classes):
+                raise
+            ci += 1
+
+
+def compress_yuv_batch(ys, us, vs, config: CodecConfig, device=None,
+                       defer: bool = False):
+    """Compress B same-geometry colour images (``ys``, ``us``, ``vs``: B
+    planes each).  All 3B channel canvases encode in one batch, stacked
+    channel-major (every Y, then every U, then every V), with every
+    bitplane; rate allocation and stream assembly run per image.  Returns
+    one stream per image, each equal to ``compress_yuv`` of its planes;
+    with ``defer`` a zero-argument collector of that list (the encode's
+    dispatch half has run, the collector waits for the card)."""
+    ys, us, vs = (np.stack([np.asarray(p) for p in c]) for c in (ys, us, vs))
+    ys, us, vs, mag_bits = _check_planes(ys, us, vs)
+    if ys.ndim != 3:
+        raise IcerError(IcerStatus.INVALID_INPUT, "expected B (h, w) planes")
+    B, h, w = ys.shape
+    bitplanes = _bitplanes(mag_bits)
+    full = ((0, bitplanes),) * config.stages
+    enc = _cached_encoder(w, h, config.stages, config.filt, config.segments,
+                          mag_bits, "slim", resolve_device(device), full)
+    res = enc.encode_batch(np.concatenate([ys, us, vs]), defer=defer)
+    order = _rearrange_order(mag_bits, bitplanes)
+
+    def finish(results):
+        return [_allocate_yuv([results[c * B + i] for c in range(3)], config,
+                              w, h, bitplanes, order) for i in range(B)]
+
+    if defer:
+        return lambda: finish(res())
+    return finish(res)
+
+
+def decompress_yuv(data: bytes, config: CodecConfig, dtype=np.uint16,
+                   device=None, max_pixels: int | None = None):
+    """Decompress one colour stream into its (y, u, v) planes.
+    ``max_pixels`` (default ``models.decode.DEFAULT_MAX_PIXELS``) bounds the
+    canvas the untrusted header may ask for.  A channel whose every segment
+    the quota cut decodes to zeros with LL mean 0 (the reference leaves
+    that case undefined, icer_color.c:229/555)."""
+    from .decode import decompress_yuv_batch
+    return decompress_yuv_batch([data], config, dtype=dtype, device=device,
+                                max_pixels=max_pixels)[0]

@@ -1,15 +1,19 @@
-"""Lane-batched grayscale decode: host plan, kernel 2, device finalize.
+"""Lane-batched decode of grayscale and colour streams: host plan, kernel 2,
+device finalize.
 
 Counterpart: ``icer_compression_tpu/models/decode_jax.py`` (``_plan_lanes``,
-the per-round offset plan of ``_decode_batch``, the finalize of
-``_run_fused`` and ``decompress_lanes_batch``).  Segments are bucketed by
-subband geometry; each bucket's lanes (of every image of the batch)
-decode all their plane rounds in one kernel-2 launch that reads the
+``_decode_batch`` with its per-round offset plan over ``nchan`` channel
+canvases, the finalize of ``_run_fused``, ``decompress_lanes_batch`` and
+``decompress_yuv_lanes_batch``).  A batch of B streams of one geometry
+decodes as B * nchan channel canvases, canvas ``c = b * nchan + chan``.
+Segments are bucketed by subband geometry; each bucket's lanes (of every
+canvas) decode all their plane rounds in one kernel-2 launch that reads the
 concatenated streams in place, so no stream windows are gathered and no
-lane is re-decoded on the host.  The buckets' launches go to streams of
-their own, so they overlap on the card.  The finalize (canvas assembly,
-sign-magnitude, LL mean, inverse DWT, clamp) runs as PyTorch ops on the
-device.
+lane is re-decoded on the host (the JAX ``_finish`` hazard re-decode has
+nothing to do here).  The buckets' launches go to streams of their own, so
+they overlap on the card.  The finalize (canvas assembly, sign-magnitude,
+LL mean, inverse DWT, clamp) runs as PyTorch ops on the device for all
+canvases at once.
 """
 
 from __future__ import annotations
@@ -21,14 +25,15 @@ from ..core.header import scan_bytestream
 from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
 from ..core.subbands import decode_subband_order, dim_low, subband_view
-from ..device import resolve_device
+from ..device import Pending, resolve_device, to_device, to_host
 from ..ops import wavelet
 from ..ops.plane_decode import decode_planes
 from .grayscale import CodecConfig, _bitplanes, _mag_bits
 
 # Decode-side allocation guard: header dimensions come from the
-# (untrusted) stream; bound the canvas they can request.
-MAX_PIXELS = 1 << 28
+# (untrusted) stream; bound the canvas they can request (the JAX package's
+# ``grayscale.DEFAULT_MAX_PIXELS``).
+DEFAULT_MAX_PIXELS = 1 << 28
 
 
 def _plan_lanes(w, h, config):
@@ -47,18 +52,20 @@ def _plan_lanes(w, h, config):
     return list(buckets.values())
 
 
-def plan_batch(streams, config: CodecConfig, dtype):
+def plan_batch(streams, config: CodecConfig, dtype, nchan: int = 1,
+               max_pixels: int = DEFAULT_MAX_PIXELS):
     """Host side of a batched decode: scan every stream and lay out each
     bucket's kernel-2 inputs.  Returns (w, h, ll_means, blob, units) with
-    units = [{lanes, n1, offs (R, n), ebits (R, n), lane_end (n,),
-    geom (3, n), hmax, wmax}] (numpy int32), lane j of a unit being
-    segment lanes[j % n1] of image j // n1."""
+    ll_means one per canvas and units = [{lanes, n1, offs (R, n), ebits
+    (R, n), lane_end (n,), geom (3, n), hmax, wmax}] (numpy int32), lane j
+    of a unit being segment lanes[j % n1] of canvas j // n1."""
     bitplanes = _bitplanes(_mag_bits(dtype))
     B = len(streams)
     if B == 0:
         raise IcerError(IcerStatus.INVALID_INPUT, "no streams")
+    NC = B * nchan
     tables = []
-    ll_means = [0] * B
+    ll_means = [0] * NC
     w = h = 0
     for b, data in enumerate(streams):
         found = scan_bytestream(data, with_offsets=True, with_payload=False)
@@ -67,40 +74,45 @@ def plan_batch(streams, config: CodecConfig, dtype):
                             "no valid segments")
         t: dict = {}
         for hdr, _p, off in found:
-            # the channel nibble is ignored, as in the reference's
-            # grayscale decoder: last in stream wins on duplicates
-            t[(hdr.decomp_level, hdr.subband_type, hdr.segment_number,
+            # grayscale ignores the channel nibble, as the reference's
+            # grayscale decoder does (last in stream wins on duplicates);
+            # colour keys by it
+            chan = hdr.channel if nchan > 1 else 0
+            t[(chan, hdr.decomp_level, hdr.subband_type, hdr.segment_number,
                hdr.lsb)] = (off, hdr.data_length)
             wi, hi = hdr.image_w, hdr.image_h
-            ll_means[b] = hdr.ll_mean_val
+            if chan < nchan:
+                ll_means[b * nchan + chan] = hdr.ll_mean_val
         if w == 0:
             w, h = wi, hi
         elif (w, h) != (wi, hi):
             raise IcerError(IcerStatus.INVALID_INPUT,
                             "batched streams must share geometry")
         tables.append(t)
-    if w <= 0 or h <= 0 or w * h > MAX_PIXELS:
-        raise IcerError(IcerStatus.INVALID_INPUT,
-                        f"header dimensions {w}x{h} exceed {MAX_PIXELS} px")
+    if w <= 0 or h <= 0 or w * h > max_pixels:
+        raise IcerError(
+            IcerStatus.INVALID_INPUT,
+            f"header dimensions {w}x{h} exceed max_pixels={max_pixels}")
     blob = np.frombuffer(b"".join(streams), np.uint8).copy()
     bases = np.cumsum([0] + [len(s) for s in streams])
 
     units = []
     for lanes in _plan_lanes(w, h, config):
         n1 = len(lanes)
-        n = n1 * B
+        n = n1 * NC
+        keys = [(t["stage"], t["subband"], t["seg"]) for t in lanes]
         offs_r, ebits_r = [], []
         for rnd in range(bitplanes):
             lsb = bitplanes - 1 - rnd
             offs = np.full(n, -1, np.int64)
             ebits = np.zeros(n, np.int64)
-            for b in range(B):
-                for i, t in enumerate(lanes):
-                    ent = tables[b].get((t["stage"], t["subband"], t["seg"],
-                                         lsb))
+            for c in range(NC):
+                b, chan = divmod(c, nchan)
+                for i, k in enumerate(keys):
+                    ent = tables[b].get((chan,) + k + (lsb,))
                     if ent is not None:
-                        offs[b * n1 + i] = bases[b] + ent[0]
-                        ebits[b * n1 + i] = ent[1]
+                        offs[c * n1 + i] = bases[b] + ent[0]
+                        ebits[c * n1 + i] = ent[1]
             if not (offs >= 0).any():
                 # every lane retires at its first missing plane
                 break
@@ -114,8 +126,10 @@ def plan_batch(streams, config: CodecConfig, dtype):
             "lanes": lanes, "n1": n1,
             "offs": np.stack(offs_r).astype(np.int32),
             "ebits": np.stack(ebits_r).astype(np.int32),
-            "lane_end": np.repeat(bases[1:], n1).astype(np.int32),
-            "geom": np.tile(geom, (1, B)),
+            # a lane reads up to its image's end, shared by its channels
+            "lane_end": np.repeat(np.repeat(bases[1:], nchan),
+                                  n1).astype(np.int32),
+            "geom": np.tile(geom, (1, NC)),
             "hmax": max(t["h"] for t in lanes),
             "wmax": max(t["w"] for t in lanes),
         })
@@ -125,7 +139,7 @@ def plan_batch(streams, config: CodecConfig, dtype):
 def unit_inputs(units, device):
     """Each unit's kernel-2 inputs as tensors on ``device``: a list of
     (offs, ebits, lane_end, geom, hmax, wmax)."""
-    return [tuple(torch.as_tensor(u[k], device=device)
+    return [tuple(to_device(u[k], device)
                   for k in ("offs", "ebits", "lane_end", "geom"))
             + (u["hmax"], u["wmax"]) for u in units]
 
@@ -155,50 +169,118 @@ def decode_units(stream_t, inputs, lsb0: int, mag_bits: int):
     return results
 
 
-def _canvas_index(units, B, w, h):
+def _canvas_index(units, NC, w, h):
     """Gather index from the concatenated unit outputs (+ one trailing
-    zero) into the (B, h, w) sign-magnitude canvas."""
-    total = sum(u["hmax"] * u["wmax"] * u["n1"] * B for u in units)
-    gidx = np.full((B, h, w), total, np.int64)
+    zero) into the (NC, h, w) sign-magnitude canvases, as two (h, w)
+    planes: canvas c's index is ``first + c * step``.  Int32 unless the
+    outputs outgrow it."""
+    total = sum(u["hmax"] * u["wmax"] * u["n1"] * NC for u in units)
+    dt = np.int32 if total < 2 ** 31 else np.int64
+    first = np.full((h, w), total, dt)
+    step = np.zeros((h, w), dt)
     base = 0
     for u in units:
-        n = u["n1"] * B
-        wmax = u["wmax"]
-        for j in range(n):
-            b, i = divmod(j, u["n1"])
-            t = u["lanes"][i]
+        n1, wmax = u["n1"], u["wmax"]
+        n = n1 * NC
+        for i, t in enumerate(u["lanes"]):
             rr = np.arange(t["h"])[:, None]
             cc = np.arange(t["w"])[None, :]
-            gidx[b, t["row"]:t["row"] + t["h"], t["col"]:t["col"] + t["w"]] \
-                = base + (rr * wmax + cc) * n + j
+            rows = slice(t["row"], t["row"] + t["h"])
+            cols = slice(t["col"], t["col"] + t["w"])
+            first[rows, cols] = base + (rr * wmax + cc) * n + i
+            step[rows, cols] = n1
         base += u["hmax"] * wmax * n
-    return gidx
+    return first, step
 
 
-def decompress_batch(streams, config: CodecConfig, dtype=np.uint16,
-                     device=None):
-    """Decode B same-geometry grayscale streams; returns a list of (h, w)
-    arrays of ``dtype``, each pixel-identical to the JAX package's
-    ``decompress`` of its stream."""
+def _decode(streams, config: CodecConfig, dtype, nchan: int, device,
+            defer: bool, max_pixels, pack8):
+    """Decode B same-geometry streams as B * nchan canvases; returns the
+    list of (h, w) canvases of ``dtype``, or with ``defer`` a collector of
+    it.  The dispatch half uploads the plan from pinned buffers, launches
+    kernel 2 and the finalize, and starts the copy back into a pinned
+    buffer; only the collector waits for the card."""
     dev = resolve_device(device)
     mag_bits = _mag_bits(dtype)
     bitplanes = _bitplanes(mag_bits)
-    w, h, ll_means, blob, units = plan_batch(streams, config, dtype)
-    B = len(streams)
-    stream_t = torch.as_tensor(blob, device=dev)
+    if max_pixels is None:
+        max_pixels = DEFAULT_MAX_PIXELS
+    w, h, ll_means, blob, units = plan_batch(streams, config, dtype, nchan,
+                                             max_pixels)
+    NC = len(streams) * nchan
+    stream_t = to_device(blob, dev)
+    inputs = unit_inputs(units, dev)
     outs = [out.reshape(-1) for out, _err, _pos in decode_units(
-        stream_t, unit_inputs(units, dev), bitplanes - 1, mag_bits)]
+        stream_t, inputs, bitplanes - 1, mag_bits)]
     outs.append(torch.zeros(1, dtype=torch.int32, device=dev))
-    gidx = torch.as_tensor(_canvas_index(units, B, w, h), device=dev)
-    canvas = torch.cat(outs)[gidx]
+    first, step = (to_device(a, dev) for a in _canvas_index(units, NC, w, h))
+    gidx = first + torch.arange(NC, dtype=first.dtype,
+                                device=dev)[:, None, None] * step
+    canvas = torch.cat(outs).index_select(0, gidx.reshape(-1)) \
+        .reshape(NC, h, w)
 
     img = wavelet.from_sign_magnitude(canvas, mag_bits)
     ll_w = dim_low(w, config.stages)
     ll_h = dim_low(h, config.stages)
-    llv = torch.as_tensor(np.asarray(ll_means, np.int32), device=dev)
+    llv = to_device(np.asarray(ll_means, np.int32), dev)
     img[:, :ll_h, :ll_w] = wavelet._wrap(
         img[:, :ll_h, :ll_w] + llv[:, None, None], mag_bits)
     img, _ov = wavelet.inverse_stages(img, config.stages, config.filt,
                                       mag_bits)
-    px = torch.clamp(img, min=0).cpu().numpy()
-    return [px[b].astype(dtype) for b in range(B)]
+    px = torch.clamp(img, min=0)
+    if pack8 is None:
+        # uint8-path pixels always fit a byte after the clamp; the uint16
+        # path stays wide unless the caller opts in
+        pack8 = np.dtype(dtype) == np.uint8
+    if pack8:
+        fetched = to_host((px <= 255).all()), to_host(px.to(torch.uint8))
+    else:
+        fetched = None, to_host(px)
+    pending = Pending(dev, keep=(stream_t, inputs, outs, first, step, gidx,
+                                  llv, canvas, px))
+
+    def collect():
+        pending.wait()
+        fits, pix = fetched
+        if fits is not None and not bool(fits):
+            # a pixel exceeds a byte: copy the exact wide result instead
+            pix = px.cpu()
+        pix = pix.numpy()
+        return [pix[c].astype(dtype) for c in range(NC)]
+
+    return collect if defer else collect()
+
+
+def decompress_batch(streams, config: CodecConfig, dtype=np.uint16,
+                     device=None, defer: bool = False,
+                     max_pixels: int | None = None,
+                     pack8: bool | None = None):
+    """Decode B same-geometry grayscale streams; returns a list of (h, w)
+    arrays of ``dtype``, each pixel-identical to the JAX package's
+    ``decompress`` of its stream.
+
+    ``defer`` returns a zero-argument collector right after the dispatch.
+    ``max_pixels`` (default ``DEFAULT_MAX_PIXELS``) bounds the canvas the
+    untrusted header dimensions may ask for.  ``pack8`` copies the pixels
+    back one byte each when every pixel fits a byte and the exact wide
+    result otherwise; default on for uint8, off for uint16."""
+    return _decode(streams, config, dtype, 1, device, defer, max_pixels,
+                   pack8)
+
+
+def decompress_yuv_batch(streams, config: CodecConfig, dtype=np.uint16,
+                         device=None, defer: bool = False,
+                         max_pixels: int | None = None,
+                         pack8: bool | None = None):
+    """Decode B same-geometry colour (YUV) streams, all 3B channel
+    canvases at once; returns a list of (y, u, v) tuples, each
+    pixel-identical to the JAX package's ``decompress_yuv`` of its stream.
+    ``defer``, ``max_pixels`` and ``pack8`` as in ``decompress_batch``."""
+    def group(flat):
+        return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+    res = _decode(streams, config, dtype, 3, device, defer, max_pixels,
+                  pack8)
+    if defer:
+        return lambda: group(res())
+    return group(res)

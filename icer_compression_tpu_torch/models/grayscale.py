@@ -228,12 +228,11 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
             # of the window tables equals the wider class's table
             enc = _window_encoder(encoder, windows)
             for i, (table, ll_mean) in enumerate(enc.encode_batch(images)):
-                tables[i].update({(0,) + k: v for k, v in table.items()})
+                tables[i].update(table)
                 means[i] = ll_mean
             prev = tuple(min(a, b) for a, b in zip(cuts, prev))
         try:
-            out = [_allocate_stream(tables[i], means[i], config, w, h,
-                                    bitplanes) for i in range(B)]
+            out = allocate_streams(zip(tables, means), config, encoder)
             break
         except KeyError:
             # the quota admits more than the encoded prefix: widen
@@ -247,9 +246,20 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
     return out
 
 
+def allocate_streams(results, config: CodecConfig, encoder) -> list[bytes]:
+    """The streams of ``encoder.encode_batch``'s (payload_table, ll_mean)
+    results under ``config``'s quota; raises KeyError when the quota admits
+    a packet outside the encoder's plane windows."""
+    return [_allocate_stream({(0,) + k: v for k, v in table.items()},
+                             ll_mean, config, encoder.w, encoder.h,
+                             encoder.bitplanes)
+            for table, ll_mean in results]
+
+
 def _allocate_stream(table, ll_mean, config, w, h, bitplanes) -> bytes:
-    """One image's stream from its payload table; raises KeyError when
-    the quota admits a packet the table lacks."""
+    """One image's stream from its payload table, keyed (chan, stage,
+    subband, lsb, seg); raises KeyError when the quota admits a packet the
+    table lacks."""
     packets = sort_packets(build_packets_grayscale(
         w, h, config.stages, ll_mean, bitplanes))
     nsegs = {(p.decomp_level, p.subband_type): config.segments
@@ -268,7 +278,11 @@ def compress(image: np.ndarray, config: CodecConfig, device=None) -> bytes:
 
 
 def decompress(data: bytes, config: CodecConfig, dtype=np.uint16,
-               device=None) -> np.ndarray:
-    """Decompress one grayscale ICER stream."""
+               device=None, max_pixels: int | None = None,
+               pack8: bool | None = None) -> np.ndarray:
+    """Decompress one grayscale ICER stream.  ``max_pixels`` (default
+    ``models.decode.DEFAULT_MAX_PIXELS``) bounds the canvas the untrusted
+    header may ask for; ``pack8`` as in ``models.decode.decompress_batch``."""
     from .decode import decompress_batch
-    return decompress_batch([data], config, dtype=dtype, device=device)[0]
+    return decompress_batch([data], config, dtype=dtype, device=device,
+                            max_pixels=max_pixels, pack8=pack8)[0]

@@ -22,6 +22,9 @@ the device:
              plain PyTorch (ops/entropy_sorted).
 
 Rate allocation and stream assembly stay on the host (models/grayscale).
+``encode_batch`` uploads from pinned host memory and copies its results
+back the same way, so its dispatch half never waits for the card
+(``defer`` returns the collector instead of collecting).
 Lanes that a backend flags (kernel 1's eviction side buffer overflow, a
 reorder-window flush that kernel 4 and the sorted coder leave to the host,
 more valid emissions than the compacted length, a payload past its cap)
@@ -42,6 +45,7 @@ from ..core import constants as C
 from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
 from ..core.subbands import dim_low, subband_view
+from ..device import Pending, to_device, to_host
 from . import entropy_full as EF
 from . import entropy_slim as ES
 from . import entropy_sorted as SO
@@ -49,6 +53,13 @@ from . import wavelet
 from .context_model import plane_emissions_words
 
 ENTROPY_BACKENDS = ("slim", "pallas", "sorted")
+
+# Coder words (int32) one device pass of ``encode_batch`` codes at most.
+# The coders' tails hold about 110 bytes of intermediates per word at
+# their peak (the slim coder's ran 168 canvases of 512x512, 6.0e8 words,
+# out of an 80 GB H100 with 64.6 GB allocated), so a pass of 2^27 words
+# peaks near 15 GB.
+PASS_WORDS = 1 << 27
 
 
 @dataclass(frozen=True)
@@ -187,6 +198,13 @@ class TorchGrayscaleEncoder:
                       "sorted": self._code_sorted}[entropy]
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
+        # images per device pass: the largest bucket's coder words of one
+        # image, against PASS_WORDS
+        per_image = max(bucket_sizes(b["L"])[0] * sum(
+            max(0, hi - lo) * len(self.groups[gi]["lanes"])
+            for gi in b["groups"]
+            for lo, hi in [self.plane_cuts[gi]]) for b in self.buckets)
+        self.pass_images = max(1, PASS_WORDS // max(1, per_image))
         # per group: gather index of every lane rectangle into the padded
         # flattened image (out-of-rect reads are masked by pix_valid)
         self._wp = image_w + max(g["mw"] for g in self.groups)
@@ -284,34 +302,81 @@ class TorchGrayscaleEncoder:
         return payload, total, flag | over
 
     # ---- host orchestration --------------------------------------------
-    def encode_batch(self, images: np.ndarray):
+    def _upload(self, images: np.ndarray) -> torch.Tensor:
+        """(B, h, w) host images -> int32 tensor on the device.  Batches
+        whose values fit 8 bits go up as uint8, uint16 as its int16 bit
+        pattern; both widen on the device, so the streams are the same."""
+        up = images
+        if up.dtype.kind == "u" and up.dtype.itemsize > 1 \
+                and up.max() < 256:
+            up = up.astype(np.uint8)
+        if up.dtype == np.uint8:
+            return to_device(up, self.device).to(torch.int32)
+        if up.dtype == np.uint16:
+            return to_device(up.view(np.int16), self.device).to(
+                torch.int32) & 0xFFFF
+        return to_device(up.astype(np.int32), self.device)
+
+    def encode_batch(self, images: np.ndarray, defer: bool = False):
         """(B, h, w) same-geometry images -> list of (payload_table,
         ll_mean); payload_table maps (stage, subband, lsb, seg) ->
-        (payload bytes, bit length) for the lanes of the plane window."""
-        B = images.shape[0]
-        x = torch.as_tensor(np.ascontiguousarray(images).astype(np.int32),
-                            device=self.device)
+        (payload bytes, bit length) for the lanes of the plane window.
+
+        The call uploads the batch, queues every device stage and kernel
+        launch, and starts non-blocking copies of the results into pinned
+        host buffers; nothing on that path waits for the card.  With
+        ``defer`` it then returns a zero-argument collector, which waits
+        for the copies and runs the overflow and LL-mean checks, the table
+        loop and the exact host re-encodes (so a pipelined caller can
+        overlap this batch's device work with other host work); without,
+        it collects at once.
+
+        A batch of more than ``pass_images`` images runs as several device
+        passes, queued one after the other, so that the coder's
+        intermediates stay within ``PASS_WORDS`` coder words."""
+        x = self._upload(np.asarray(images))
+        P = self.pass_images
+        passes = [self._dispatch(x[i:i + P]) for i in range(0, len(x), P)]
+        pending = Pending(self.device, keep=(x, [p[-1] for p in passes]))
+
+        def collect():
+            pending.wait()
+            return [r for B, checks, fetched, _keep in passes
+                    for r in self._collect(B, checks, fetched)]
+
+        return collect if defer else collect()
+
+    def _dispatch(self, x: torch.Tensor):
+        """One device pass over the (B, h, w) images ``x``: queue the
+        transform, emission and coder, and start the copies back.  Returns
+        (B, checks, fetched, the device tensors the pass uses)."""
         img, ll_mean, overflow = self.transform(x)
         emitted = [self.emit(g, img) for g in self.groups]
-        results = []
+        coded = []
         for b in self.buckets:
             gis = [gi for gi in b["groups"] if emitted[gi] is not None]
-            if not gis:
-                continue
-            words = self.bucket_words(b, emitted)
-            results.append((gis, words) + self._code(b, words))
+            if gis:
+                words = self.bucket_words(b, emitted)
+                coded.append((gis, words) + self._code(b, words))
+        fetched = [(gis, words) + tuple(to_host(t) for t in rest)
+                   for gis, words, *rest in coded]
+        checks = to_host(overflow), to_host(ll_mean)
+        return x.shape[0], checks, fetched, (img, coded)
 
+    def _collect(self, B, checks, fetched):
+        """The host half of one pass, after its copies are done."""
+        overflow, ll_mean = checks
         if bool(overflow):
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "wavelet transform")
-        means = ll_mean.cpu().numpy()
+        means = ll_mean.numpy()
         if (means > (1 << self.mag_bits) - 1).any():
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "ll mean")
 
         tables: list[dict] = [{} for _ in range(B)]
-        for gis, words, payload, total, flag in results:
-            payload = payload.cpu().numpy()
-            total = total.cpu().numpy()
-            flag = flag.cpu().numpy()
+        for gis, words, payload, total, flag in fetched:
+            payload = payload.numpy()
+            total = total.numpy()
+            flag = flag.numpy()
             r = 0
             for gi in gis:
                 lanes = self.groups[gi]["lanes"]

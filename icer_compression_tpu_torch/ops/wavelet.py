@@ -16,6 +16,8 @@ from the stored high[1], and the skewed uint8 odd-length interleave.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -167,8 +169,14 @@ def inverse_1d(x: torch.Tensor, filt: int, mag_bits: int):
         y = torch.cat([even, tail, odd], dim=-1)
     else:
         y = torch.cat([even, odd], dim=-1)
-    perm = torch.as_tensor(_interleave_perm(N, mag_bits), device=x.device)
-    return y[..., perm], overflow
+    return y[..., _interleave_perm_t(N, mag_bits, str(x.device))], overflow
+
+
+@functools.lru_cache(maxsize=None)
+def _interleave_perm_t(N: int, mag_bits: int, device: str) -> torch.Tensor:
+    """``_interleave_perm`` on ``device``, uploaded once: a per-call upload
+    from host memory would make every decode wait for the copy."""
+    return torch.as_tensor(_interleave_perm(N, mag_bits), device=device)
 
 
 def _interleave_perm(N: int, mag_bits: int) -> np.ndarray:

@@ -238,9 +238,8 @@ def test_quota_classes_match_compress_jax(quota, escalates):
     assert stats["first_class"] < stats["classes"] - 1
     # the full encode, then allocation, gives the same stream
     enc = T.make_encoder(64, 64, cfg, np.uint8, "cpu")
-    table, mean = enc.encode_batch(img[None])[0]
-    assert out == T._allocate_stream({(0,) + k: v for k, v in table.items()},
-                                     mean, cfg, 64, 64, 7)
+    assert out == T.allocate_streams(enc.encode_batch(img[None]), cfg,
+                                     enc)[0]
 
 
 def test_plane_window_encoder_returns_only_its_lanes():

@@ -11,7 +11,9 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
   1. holds kernel 1 (slim encode coder) bit-equal to its plain PyTorch
      version on boat 512's stage-1 emission words, on a noisy block that
      overflows the eviction side buffer and on a block whose lanes need
-     the reorder-window eviction;
+     the reorder-window eviction; its two-word instance on that eviction
+     block and on a block of 33,024 steps whose allocation ordinals pass
+     2^15 (the wrapper picks that mode there itself);
   2. holds kernel 2 (multi-round plane decoder) bit-equal to its plain
      version on a crop of boat, lossless and at a truncating quota;
   3. drives the main path: boat 512 lossless (stages 4, filter A, 6
@@ -36,8 +38,9 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
      or payload cap;
   8. drives the ``sorted`` coder backend: the same golden sha and pins;
   9. encodes a 256x256 crop at one stage and one segment (lanes of 32,768
-     slots): the slim encoder must refuse it, ``pallas`` and ``sorted``
-     must agree, and the stream must decode pixel-exact;
+     slots, kernel 1's two-word mode): ``slim``, ``pallas`` and
+     ``sorted`` must give one stream, equal to its pin in
+     tests/data/golden_long_lanes.sha256, and it must decode pixel-exact;
  10. holds the quota-class encode (quotas 5,000, 20,000, 50,000) equal to
      the full encode then allocation;
  11. continues each unit of boat's decode plan with kernel 3 (seeded
@@ -85,12 +88,28 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
      by the port's ``image_io``: the -G and -c round trips equal the API,
      and batch-compress / batch-decompress of a mixed-geometry folder
      (boat, its 256x256 centre, boat again; --batch-size 2) equal the
-     single-image path.
+     single-image path;
+ 20. the long-lane geometries at the CLI's defaults (stages 4, filter A,
+     6 segments), whose stage-1 lanes run kernel 1's two-word instance:
+     boat tiled to 1024x1024 with seeded noise and its 999x601 crop
+     through ``compress``/``decompress`` (lossless and quota 200,000) and
+     7 variants through ``compress_batch``/``decompress_batch`` (also
+     decoded in passes under a lowered blob cap, and one by one), and
+     1024x1024 colour through ``compress_yuv``/``decompress_yuv``: every
+     stream and decode equals its pin (tests/data/golden_long_lanes
+     .sha256, made with the JAX package by scripts/pin_long_lanes.py);
+     kernel 2's canvas placement on the 1024x1024 stage-1 unit (held
+     equal to device memory), kernel 1's two-word stage-1 launch time,
+     and the peak device memory per coder word of an encode pass in each
+     record mode;
+ 21. the CLI's batch-compress and batch-decompress at their defaults
+     (``--batch-size 56 --pipeline 4``) on 8 colour 1024x1024 PNGs: the
+     outputs equal the API's; peak device memory of each.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
-(LDL/STL) in its SASS (``cuobjdump -sass``): kernels 4 and 5 must have
-none.
+(LDL/STL) in its SASS (``cuobjdump -sass``): kernels 4 and 5 and kernel
+1's two-word instance must have none.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object {"kernels": [...]}; the last line is
@@ -175,6 +194,32 @@ COLOR_PINS = (("u16 unlimited", np.uint16, None),
               ("u8 unlimited", np.uint8, None))
 
 
+# phase 20: stages 4, filter A, 6 segments (the CLI's defaults) at these
+# byte quotas, pinned in tests/data/golden_long_lanes.sha256
+LONG_LANE_QUOTAS = (None, 200000)
+LONG_LANE_BATCH = 7
+
+
+def long_lane_images(boat: np.ndarray) -> dict:
+    """Phase 20's images: ``LONG_LANE_BATCH`` variants of boat tiled 2x2
+    to 1024x1024 with noise of +-6 from ``default_rng(0)`` (the JAX
+    package's geometry sweep, scripts/bench_geometry.py:42-50), their
+    999x601 top-left crops, and ``color_boat`` of the tiled boat."""
+    big = np.tile(boat, (2, 2)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    gray = np.stack([np.clip(big + rng.integers(-6, 7, big.shape), 0, 255)
+                     for _ in range(LONG_LANE_BATCH)]).astype(np.uint16)
+    return {"gray1024": gray,
+            "gray999x601": np.ascontiguousarray(gray[:, :601, :999]),
+            "color1024": color_boat(big.astype(np.uint8))}
+
+
+def pixels_sha(px: np.ndarray) -> str:
+    """sha256 of decoded pixels written as little-endian uint16."""
+    return hashlib.sha256(np.ascontiguousarray(px, "<u2").tobytes()) \
+        .hexdigest()
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -245,11 +290,13 @@ def bound(nbytes: int, ops: int):
                                        else "operations")
 
 
-def k1_bound(words, misc):
-    """Kernel 1: words in, records out, state rows out; ops from this
-    run's valid emissions and allocations."""
+def k1_bound(words, misc, two_word=False):
+    """Kernel 1: words in, records out (one word per step, two in the
+    two-word mode), state rows out; ops from this run's valid emissions
+    and allocations."""
     L, lanes = words.shape
-    nbytes = 4 * (2 * L * lanes + (17 + 8 + 32) * lanes)
+    nrec, nev = (2, 64) if two_word else (1, 32)
+    nbytes = 4 * ((1 + nrec) * L * lanes + (17 + 8 + nev) * lanes)
     ops = (K1_OPS_PER_VALID * int((words & 1).sum())
            + K1_OPS_PER_ALLOC * int(misc[1].sum()))
     return bound(nbytes, ops)
@@ -286,6 +333,31 @@ def k3_bound(unit, pos, active):
     area = unit["geom"][0].astype(np.int64) * unit["geom"][1]
     ops = K2_OPS_PER_PIXEL * int((active.cpu().numpy() * area).sum())
     return bound(nbytes, ops)
+
+
+def long_ordinal_words(rng, L=33024):
+    """Kernel 1's emission words for three lanes whose allocation ordinals
+    pass 2^15: uncoded emissions (each one allocates a codeword); lanes 1
+    and 2 also feed a zero every 150 (400) steps to one (one of two)
+    contexts, which skew into golomb bins whose runs stay open until the
+    reorder window evicts them."""
+    t = np.arange(L)[:, None]
+    feed = np.array([[L + 1, 150, 400]])
+    fed = t % feed == 0
+    ctx = np.where(fed, (t // feed) % np.array([[1, 1, 2]]), 17)
+    bit = np.where(fed, 0, rng.integers(0, 2, (L, 3)))
+    return torch.from_numpy((1 | (ctx << 1) | (bit << 6)).astype(np.int32))
+
+
+TWO_WORD_OUTS = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2")
+
+
+def top_ordinal(out) -> int:
+    """Largest allocation ordinal that kernel 1's two-word outputs write:
+    over the completed records and the evictions."""
+    rec1, rec2, _fs, _misc, ev1, ev2 = out
+    return max(int(torch.where(rec1 != 0, rec2, 0).max()),
+               int(torch.where(ev1 != 0, ev2, 0).max()))
 
 
 def eviction_lanes(rng, L=2432, lanes=128):
@@ -350,7 +422,7 @@ def kernel_resources(kernels):
         if not m:
             return mangled
         targs = m.group(2) or ""
-        ints = re.findall(r"Li(\d+)E", targs)
+        ints = re.findall(r"L[ib](\d+)E", targs)
         return m.group(1) + (f"<{','.join(ints)}>" if ints else targs)
 
     for name in kernels.KERNELS:
@@ -395,39 +467,48 @@ def eviction_words(rng):
                                          dtype=torch.int32)])
 
 
-def long_lane_phase(dev, crop):
+def long_lane_phase(dev, crop, pins):
     """Phase 9: one stage, one segment: lanes of 2 * (side / 2)^2 slots,
-    32,768 for a 256x256 crop (past the slim coder's fused-key limit)."""
-    from icer_compression_tpu_torch.core.status import IcerError
+    32,768 for a 256x256 crop, past the slim coder's fused-key limit (its
+    two-word mode).  ``slim``, ``pallas`` and ``sorted`` must give one
+    stream, equal to its pin; the decode is pixel-exact."""
     from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
     h, w = crop.shape
     lcfg = T.CodecConfig(1, 0, 1, None)
-    try:
-        T.make_encoder(w, h, lcfg, np.uint16, dev)
-    except IcerError:
-        pass
-    else:
-        raise AssertionError("slim encoder took lanes past its limit")
     lenc = {e: T.make_encoder(w, h, lcfg, np.uint16, dev, entropy=e)
-            for e in ("pallas", "sorted")}
-    lp, ls = (T.compress_batch(crop[None], lcfg, encoder=lenc[e])[0]
-              for e in ("pallas", "sorted"))
-    if lp != ls:
-        raise AssertionError("long lanes: pallas and sorted streams differ")
-    if not np.array_equal(T.decompress(lp, lcfg, np.uint16, dev), crop):
+            for e in ("slim", "pallas", "sorted")}
+    ES.encode_lanes_slim_two_word.launches = 0
+    streams = {e: T.compress_batch(crop[None], lcfg, encoder=enc)[0]
+               for e, enc in lenc.items()}
+    launches = ES.encode_lanes_slim_two_word.launches
+    if len(set(streams.values())) != 1:
+        raise AssertionError("long lanes: slim, pallas and sorted streams "
+                             "differ")
+    s = streams["slim"]
+    if hashlib.sha256(s).hexdigest() != \
+            pins["crop256 s1 g1 unlimited stream"]:
+        raise AssertionError("long lanes: stream differs from its pin")
+    if launches <= 0:
+        raise AssertionError("long lanes: the two-word instance of kernel 1 "
+                             "did not launch")
+    d = T.decompress(s, lcfg, np.uint16, dev)
+    if not np.array_equal(d, crop) or \
+            pixels_sha(d) != pins["crop256 s1 g1 unlimited decoded"]:
         raise AssertionError("long lanes: decode differs from the crop")
     log(f"long lanes ({w}x{h}, 1 stage, 1 segment: "
-        f"{lenc['pallas'].buckets[0]['L']} slots): slim refuses, pallas == "
-        f"sorted ({len(lp)} B, host re-encode lanes "
-        f"{lenc['pallas'].fallback_lanes} / {lenc['sorted'].fallback_lanes}"
-        f"), decode pixel-exact")
-    return lp
+        f"{lenc['slim'].buckets[0]['L']} slots): slim (two-word K1, "
+        f"{launches} launch(es)) == pallas == sorted == pin ({len(s)} B; "
+        f"host re-encode lanes slim {lenc['slim'].fallback_lanes}, pallas "
+        f"{lenc['pallas'].fallback_lanes}, sorted "
+        f"{lenc['sorted'].fallback_lanes}), decode pixel-exact")
+    return {"launches": launches}
 
 
 def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
-                 cfg, cfg50):
-    """Phases 6-12 (this slice's paths); returns the kernels-line entries
-    of kernels 3, 4 and 5."""
+                 cfg, cfg50, long_pins):
+    """Phases 6-12; returns phase 9's launches of kernel 1's two-word
+    instance and the kernels-line entries of kernels 3, 4 and 5."""
     from icer_compression_tpu_torch.models import decode as D
     from icer_compression_tpu_torch.models import grayscale as T
     from icer_compression_tpu_torch.ops import encode as E
@@ -537,7 +618,8 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
         f"{sorted_s:.3f} s | {card}")
 
     # ---- phase 9: a long-lane geometry ---------------------------------
-    long_lane_phase(dev, np.ascontiguousarray(boat[128:384, 128:384]))
+    crop_res = long_lane_phase(dev, np.ascontiguousarray(
+        boat[128:384, 128:384]), long_pins)
 
     # ---- phase 10: quota classes ---------------------------------------
     full = T.make_encoder(w, h, cfg, np.uint16, dev)
@@ -632,7 +714,7 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
     log(f"K3 stage-1 LSB round: {k3_ms[big]:.3f} ms | {card}")
 
     src = "icer_compression_tpu_torch/csrc/"
-    return [
+    return crop_res["launches"], [
         {"name": "full_encode", "route": "cuda", "source": src + "full_encode.cu",
          "replaces": "icer_compression_tpu/ops/pallas_entropy.py:188",
          "launches": k4_launches, "max_abs_err": k45_err,
@@ -1152,6 +1234,310 @@ def cli_phase(dev, card, boat):
     return {"launches": launches}
 
 
+def coder_bytes_per_word(enc, imgs):
+    """(peak device bytes of ``enc.encode_batch(imgs)`` above what was
+    allocated before it, coder words of the pass's largest bucket): the
+    quantity behind ``ops.encode.PASS_WORDS``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    enc.encode_batch(imgs)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, \
+        len(imgs) * enc.words_per_image
+
+
+def long_lane_phases(dev, card, boat, pins, batch8):
+    """Phase 20: the long-lane geometries at the CLI's defaults (stages 4,
+    filter A, 6 segments), whose stage-1 lanes run kernel 1's two-word
+    instance: 1024x1024 and its 999x601 crop through ``compress`` and
+    ``decompress`` (lossless and quota 200,000) and the 7 variants through
+    ``compress_batch`` and ``decompress_batch`` (once more with the blob
+    cap lowered so that the batch decodes in passes), 1024x1024 colour
+    through ``compress_yuv`` and ``decompress_yuv``; every stream and
+    decode against its pin from the JAX package.  Also kernel 2's canvas
+    placement on the 1024x1024 stage-1 unit (both held equal), kernel 1's
+    two-word stage-1 launch time, and peak device memory per coder word
+    of one encode pass in each record mode."""
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+
+    images = long_lane_images(boat)
+    res = {"launches": {}, "walls": {}}
+
+    def reset():
+        ES.encode_lanes_slim.launches = 0
+        ES.encode_lanes_slim_two_word.launches = 0
+        PDc.decode_planes.launches = 0
+
+    def counts():
+        return {"slim_encode": ES.encode_lanes_slim.launches,
+                "slim_encode_two_word": ES.encode_lanes_slim_two_word
+                .launches, "plane_decode": PDc.decode_planes.launches}
+
+    def tag(q):
+        return "unlimited" if q is None else f"quota {q}"
+
+    def check_pin(label, digest):
+        if digest != pins[label]:
+            raise AssertionError(f"{label}: {digest} != pin {pins[label]}")
+
+    def timed(fn, reps=3):
+        """(result of the first call, median wall of ``reps`` calls)."""
+        runs = [sync_time(fn) for _ in range(reps)]
+        return runs[0][0], statistics.median(t for _o, t in runs)
+
+    for key in ("gray1024", "gray999x601"):
+        imgs = images[key]
+        h, w = imgs.shape[1:]
+        for q in LONG_LANE_QUOTAS:
+            cfg = T.CodecConfig(4, 0, 6, q)
+            reset()
+            s = T.compress(imgs[0], cfg, device=dev)
+            d = T.decompress(s, cfg, np.uint16, device=dev)
+            c = counts()
+            check_pin(f"{key} v0 {tag(q)} stream",
+                      hashlib.sha256(s).hexdigest())
+            check_pin(f"{key} v0 {tag(q)} decoded", pixels_sha(d))
+            if q is None and not np.array_equal(d, imgs[0]):
+                raise AssertionError(f"{key}: lossless decode differs")
+            if min(c.values()) <= 0:
+                raise AssertionError(f"{key} {tag(q)}: a kernel did not "
+                                     f"launch: {c}")
+            res["launches"][f"{key} {tag(q)}"] = c
+            walls = ""
+            if q is None:
+                _s, enc_s = timed(lambda: T.compress(imgs[0], cfg,
+                                                     device=dev))
+                _d, dec_s = timed(lambda: T.decompress(s, cfg, np.uint16,
+                                                       device=dev))
+                res["walls"][key] = (1e3 * enc_s, 1e3 * dec_s)
+                walls = (f"; wall (median of 3) encode {1e3 * enc_s:.1f} ms,"
+                         f" decode {1e3 * dec_s:.1f} ms, "
+                         f"{h * w / (enc_s + dec_s) / 1e6:.4f} MP/s")
+            log(f"{key} ({w}x{h}) {tag(q)}: {len(s)} B stream and decoded "
+                f"pixels match the pins"
+                + (", decode returns the image" if q is None else "")
+                + f"; launches {c}{walls} | {card}")
+
+        cfg = T.CodecConfig(4, 0, 6, None)
+        reset()
+        bs, benc_s = sync_time(lambda: T.compress_batch(imgs, cfg,
+                                                        device=dev))
+        bd, bdec_s = sync_time(lambda: D.decompress_batch(
+            bs, cfg, np.uint16, device=dev))
+        c = counts()
+        for i, st_i in enumerate(bs):
+            check_pin(f"{key} v{i} unlimited stream",
+                      hashlib.sha256(st_i).hexdigest())
+            one = T.decompress(st_i, cfg, np.uint16, device=dev)
+            if not (np.array_equal(bd[i], one)
+                    and np.array_equal(one, imgs[i])):
+                raise AssertionError(f"{key} batch image {i}: decode "
+                                     "differs from the single call")
+        res["launches"][f"{key} batch"] = c
+        split = ""
+        if key == "gray1024":
+            cap, low = D.PASS_BYTES, max(sum(map(len, bs)) // 3,
+                                         max(map(len, bs)) + 1)
+            D.PASS_BYTES = low
+            try:
+                npass = len(D._passes(bs))
+                sd = D.decompress_batch(bs, cfg, np.uint16, device=dev)
+            finally:
+                D.PASS_BYTES = cap
+            if npass < 2 or not all(np.array_equal(a, b)
+                                    for a, b in zip(sd, bd)):
+                raise AssertionError(f"decode in {npass} passes differs "
+                                     "from the unsplit batch")
+            res["split_passes"] = npass
+            split = (f"; with the blob cap lowered to {low} B the batch "
+                     f"decodes in {npass} passes, equal")
+        mps = len(imgs) * h * w / (benc_s + bdec_s) / 1e6
+        log(f"{key} batch of {len(imgs)}: streams match the pins, "
+            f"decompress_batch == single decompress == the images; "
+            f"{sum(map(len, bs))} B; encode {benc_s:.3f} s, decode "
+            f"{bdec_s:.3f} s ({mps:.3f} MP/s); launches {c}{split} | "
+            f"{card}")
+
+    # colour
+    planes = color_planes(images["color1024"], np.uint16)
+    for q in LONG_LANE_QUOTAS:
+        cfg = T.CodecConfig(4, 0, 6, q)
+        reset()
+        s = TC.compress_yuv(*planes, cfg, device=dev)
+        d = TC.decompress_yuv(s, cfg, np.uint16, device=dev)
+        c = counts()
+        check_pin(f"color1024 {tag(q)} stream", hashlib.sha256(s).hexdigest())
+        check_pin(f"color1024 {tag(q)} decoded", planes_sha(d))
+        if q is None and not all(np.array_equal(a, b)
+                                 for a, b in zip(d, planes)):
+            raise AssertionError("color1024: lossless decode differs")
+        if min(c.values()) <= 0:
+            raise AssertionError(f"color1024 {tag(q)}: a kernel did not "
+                                 f"launch: {c}")
+        res["launches"][f"color1024 {tag(q)}"] = c
+        walls = ""
+        if q is None:
+            _s, enc_s = timed(lambda: TC.compress_yuv(*planes, cfg,
+                                                      device=dev))
+            _d, dec_s = timed(lambda: TC.decompress_yuv(s, cfg, np.uint16,
+                                                        device=dev))
+            res["walls"]["color1024"] = (1e3 * enc_s, 1e3 * dec_s)
+            walls = (f"; wall (median of 3) encode {1e3 * enc_s:.1f} ms, "
+                     f"decode {1e3 * dec_s:.1f} ms")
+        log(f"color1024 {tag(q)}: {len(s)} B stream and decoded planes "
+            f"match the pins"
+            + (", decode returns Y, U and V" if q is None else "")
+            + f"; launches {c}{walls} | {card}")
+
+    # kernel 2's placement on the 1024x1024 stage-1 unit
+    cfg = T.CodecConfig(4, 0, 6, None)
+    s0 = T.compress(images["gray1024"][0], cfg, device=dev)
+    _w, _h, _ll, blob, units = D.plan_batch([s0], cfg, np.uint16)
+    st = torch.as_tensor(blob, device=dev)
+    big = max(range(len(units)),
+              key=lambda i: units[i]["hmax"] * units[i]["wmax"])
+    a = D.unit_inputs(units, dev)[big]
+    auto = PDc.decode_planes(st, *a, 8, 15)
+    res["placement"] = PDc.decode_planes.placement
+    forced = PDc.decode_planes(st, *a, 8, 15, _placement="device")
+    for nm, x, y in zip(("out", "err", "pos"), auto, forced):
+        assert_equal(f"K2 1024x1024 stage-1 {res['placement']} vs device "
+                     f"placement {nm}", x, y)
+    ub = units[big]
+    log(f"K2 1024x1024 stage-1 unit ({ub['offs'].shape[1]} lanes, canvas "
+        f"{ub['hmax']}x{ub['wmax']} = {4 * ub['hmax'] * ub['wmax']} B of "
+        f"int32): auto placement ran {res['placement']!r}, bit-equal to the "
+        f"device-memory placement")
+
+    # kernel 1's two-word instance on the 1024x1024 stage-1 bucket,
+    # against its plain version at that shape
+    h, w = images["gray1024"].shape[1:]
+    enc = T.make_encoder(w, h, cfg, np.uint16, dev)
+    x = torch.as_tensor(images["gray1024"][:1].astype(np.int32), device=dev)
+    img = enc.transform(x)[0]
+    em = [enc.emit(g, img) for g in enc.groups]
+    bw = enc.bucket_words(enc.buckets[0], em).t().contiguous()
+    if ES.fused_key_ok(bw.shape[0]):
+        raise AssertionError("1024x1024 stage 1 fits fused keys")
+    kw = ES.encode_lanes_slim_two_word(bw)
+    pw, plain_s = sync_time(
+        lambda: ES.encode_lanes_slim_plain(bw, two_word=True))
+    res["k1w_err"] = max(
+        assert_equal(f"K1 two-word 1024x1024 stage-1 {nm}", a, b)
+        for nm, a, b in zip(TWO_WORD_OUTS, kw, pw))
+    res["k1w_plain_ms"] = 1e3 * plain_s
+    res["k1w_top"] = top_ordinal(kw)
+    res["k1w_ms"] = event_ms(lambda: ES.encode_lanes_slim_two_word(bw))
+    res["k1w_bound"] = k1_bound(bw, kw[3], two_word=True)
+    res["k1w_shape"] = tuple(bw.shape)
+    log(f"K1 two-word instance, 1024x1024 stage-1 launch {tuple(bw.shape)}: "
+        f"rec1/rec2/fstate/misc/ev1/ev2 bit-equal to plain (tolerance 0); "
+        f"largest ordinal written {res['k1w_top']}, most allocations in a "
+        f"lane {int(kw[3][1].max())}, evictions max {int(kw[3][2].max())}, "
+        f"lanes flagged {int((kw[3][0] != 0).sum())}; kernel "
+        f"{res['k1w_ms']:.3f} ms (bound {res['k1w_bound'][0]:.4f} ms, "
+        f"{res['k1w_bound'][1]}; {1e6 * res['k1w_ms'] / bw.shape[0]:.1f} ns "
+        f"per step), plain {plain_s:.1f} s | {card}")
+    del x, img, em, bw, kw, pw
+
+    # device memory of one encode pass per coder word, in each mode
+    per_word = {}
+    for mode, e, imgs in (("two-word", enc, images["gray1024"][:4]),
+                          ("fused", T.make_encoder(
+                              batch8.shape[2], batch8.shape[1], cfg,
+                              np.uint16, dev),
+                           np.concatenate([batch8] * 4))):
+        peak, words = coder_bytes_per_word(e, imgs)
+        per_word[mode] = peak / words
+        log(f"encode pass, {mode} records ({len(imgs)} images of "
+            f"{imgs.shape[2]}x{imgs.shape[1]}, largest bucket {words} coder "
+            f"words): peak {peak / 1e9:.2f} GB above the baseline, "
+            f"{peak / words:.1f} B per coder word | {card}")
+    res["bytes_per_word"] = per_word
+    return res
+
+
+def cli_defaults_phase(dev, card, boat):
+    """Phase 21: the CLI's batch operations at their defaults
+    (``--batch-size 56 --pipeline 4``) on a folder of 8 colour 1024x1024
+    PNGs (variants of ``color_boat`` of boat tiled 2x2, noise of +-6 from
+    seed 1234), ``-c``: every stream equals ``compress_yuv`` at the CLI's
+    default quota and every decode ``decompress_yuv``; peak device
+    memory of each operation."""
+    from icer_compression_tpu_torch import cli
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.utils.colorspace import ycbcr_to_rgb
+    from icer_compression_tpu_torch.utils.image_io import read_png, write_png
+
+    rgb = color_boat(np.tile(boat, (2, 2)).astype(np.uint8))
+    rng = np.random.default_rng(1234)
+    h, w = rgb.shape[:2]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "in").mkdir()
+        for i in range(8):
+            write_png(tmp / "in" / f"c{i}.png", np.clip(
+                rgb.astype(np.int32) + rng.integers(-6, 7, rgb.shape), 0,
+                255).astype(np.uint8))
+        for op, src, dst in (("batch-compress", "in", "enc"),
+                             ("batch-decompress", "enc", "dec")):
+            ES.encode_lanes_slim.launches = 0
+            ES.encode_lanes_slim_two_word.launches = 0
+            PDc.decode_planes.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if cli.main([op, str(tmp / src), str(tmp / dst), "-c",
+                         "--batch-size", "56", "--pipeline", "4", "--device",
+                         dev.type]) != 0:
+                raise AssertionError(f"cli {op} failed")
+            torch.cuda.synchronize()
+            res[op] = {
+                "wall_s": time.perf_counter() - t0,
+                "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                "launches": {
+                    "slim_encode": ES.encode_lanes_slim.launches,
+                    "slim_encode_two_word":
+                        ES.encode_lanes_slim_two_word.launches,
+                    "plane_decode": PDc.decode_planes.launches}}
+        ccfg = T.CodecConfig(4, 0, 6, 3 * h * w)
+        for i in range(8):
+            planes = color_planes(read_png(tmp / "in" / f"c{i}.png"),
+                                  np.uint16)
+            s = TC.compress_yuv(*planes, ccfg, device=dev)
+            if (tmp / "enc" / f"c{i}.icer").read_bytes() != s:
+                raise AssertionError(f"cli defaults stream c{i} differs "
+                                     "from compress_yuv")
+            back = ycbcr_to_rgb(*TC.decompress_yuv(s, ccfg, np.uint16,
+                                                   device=dev))
+            if not np.array_equal(read_png(tmp / "dec" / f"c{i}.png"), back):
+                raise AssertionError(f"cli defaults decode c{i} differs "
+                                     "from decompress_yuv")
+    if res["batch-compress"]["launches"]["slim_encode_two_word"] <= 0:
+        raise AssertionError("cli defaults: the two-word instance of kernel "
+                             "1 did not launch")
+    for op, r in res.items():
+        log(f"cli {op} -c at its defaults (--batch-size 56 --pipeline 4), 8 "
+            f"colour {w}x{h} PNGs: wall {r['wall_s']:.3f} s "
+            f"({8 * h * w / r['wall_s'] / 1e6:.3f} MP/s), device peak "
+            f"allocated {r['peak_allocated_gb']:.2f} GB, reserved "
+            f"{r['peak_reserved_gb']:.2f} GB; launches {r['launches']} | "
+            f"{card}")
+    log("cli defaults: streams equal compress_yuv and decodes equal "
+        "decompress_yuv for all 8 images")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1182,6 +1568,11 @@ def main() -> int:
     if len(k45) != 2 or any(r.get("ldl_stl") or r.get("spill_st")
                             or r.get("spill_ld") for r in k45.values()):
         raise AssertionError(f"kernels 4/5 use local memory: {k45}")
+    k1w_res = res.get("slim_encode_kernel<1>")
+    if not k1w_res or k1w_res.get("ldl_stl") or k1w_res.get("spill_st") \
+            or k1w_res.get("spill_ld"):
+        raise AssertionError(f"kernel 1's two-word instance is missing or "
+                             f"uses local memory: {k1w_res}")
 
     data = REPO / "tests" / "data"
     boat = read_png(data / "boat.512.png").astype(np.uint16)
@@ -1229,6 +1620,62 @@ def main() -> int:
     log(f"K1 eviction block {tuple(ew.shape)}: bit-equal to plain; lanes "
         f"evicting {int((ke[2][2] > 0).sum())}, evictions max "
         f"{int(ke[2][2].max())}")
+
+    # kernel 1's two-word instance against its plain version: on the
+    # eviction block, on a block whose ordinals pass 2^15, and on one
+    # whose ordinals pass 2^16
+    two_word_outs = TWO_WORD_OUTS
+    k1w_err = 0
+    pw, k1w_short_plain_s = sync_time(
+        lambda: ES.encode_lanes_slim_plain(ew, two_word=True))
+    for nm, a, b in zip(two_word_outs, ES.encode_lanes_slim_two_word(ew),
+                        pw):
+        k1w_err = max(k1w_err, assert_equal(f"K1 two-word eviction {nm}",
+                                            a, b))
+    if not bool((pw[3][2] > 0).any()):
+        raise AssertionError("two-word eviction block evicted in no lane")
+    log(f"K1 two-word instance, eviction block {tuple(ew.shape)}: "
+        f"rec1/rec2/fstate/misc/ev1/ev2 bit-equal to plain (tolerance 0); "
+        f"evictions max {int(pw[3][2].max())}, plain "
+        f"{k1w_short_plain_s:.1f} s")
+    lw = long_ordinal_words(np.random.default_rng(3)).to(dev)
+    kl = ES.encode_lanes_slim_two_word(lw)
+    pl, k1w_plain_s = sync_time(
+        lambda: ES.encode_lanes_slim_plain(lw, two_word=True))
+    for nm, a, b in zip(two_word_outs, kl, pl):
+        k1w_err = max(k1w_err, assert_equal(f"K1 two-word long {nm}", a, b))
+    top = int(torch.where(kl[0] != 0, kl[1], 0).max())
+    if not (top >= 1 << 15 and int(kl[3][1].min()) > 1 << 15
+            and bool((kl[3][2][1:] > 0).all())):
+        raise AssertionError(f"long block: ordinals reach {top}, "
+                             f"allocations {kl[3][1].tolist()}, evictions "
+                             f"{kl[3][2].tolist()}")
+    k1w_long_ms = event_ms(lambda: ES.encode_lanes_slim_two_word(lw))
+    k1w_long_b = k1_bound(lw, kl[3], two_word=True)
+    log(f"K1 two-word instance, block {tuple(lw.shape)} with allocation "
+        f"ordinals up to {top} (allocations {kl[3][1].tolist()}, evictions "
+        f"{kl[3][2].tolist()}): bit-equal to plain (tolerance 0); kernel "
+        f"{k1w_long_ms:.3f} ms (bound {k1w_long_b[0]:.5f} ms, "
+        f"{k1w_long_b[1]}), plain {k1w_plain_s:.1f} s | {card}")
+    # the longest lanes kernel 1 takes (the bin state's 17-bit ordinal
+    # field); the plain version, a loop of small per-step ops, runs on the
+    # host CPU, where they cost less than as launches on the card
+    hw = long_ordinal_words(np.random.default_rng(4),
+                            L=ES.MAX_L - ES.CHUNK).to(dev)
+    kh = ES.encode_lanes_slim_two_word(hw)
+    ph, k1w_huge_plain_s = sync_time(
+        lambda: ES.encode_lanes_slim_plain(hw.cpu(), two_word=True))
+    for nm, a, b in zip(two_word_outs, kh, ph):
+        k1w_err = max(k1w_err, assert_equal(f"K1 two-word longest {nm}",
+                                            a.cpu(), b))
+    top_h = top_ordinal(kh)
+    if top_h < 1 << 16:
+        raise AssertionError(f"longest block: ordinals reach only {top_h}")
+    log(f"K1 two-word instance, block {tuple(hw.shape)} with allocation "
+        f"ordinals up to {top_h} (allocations {kh[3][1].tolist()}, "
+        f"evictions {kh[3][2].tolist()}, flagged {kh[3][0].tolist()}): "
+        f"bit-equal to plain on the host CPU (tolerance 0), plain "
+        f"{k1w_huge_plain_s:.1f} s")
 
     # ---- phase 2: kernel 2 vs its plain version ------------------------
     crop = np.ascontiguousarray(boat[200:296, 180:276])
@@ -1369,19 +1816,30 @@ def main() -> int:
             f"(bound {k1_bounds[i][0]:.4f} ms, {k1_bounds[i][1]}; "
             f"{1e6 * k1_ms[i] / bw.shape[0]:.1f} ns per step)")
 
-    new = later_phases(dev, card, boat, img, bucket_words, stream, golden,
-                       pins, cfg, cfg50)
+    long_pins = dict(ln.split(None, 1)[::-1] for ln in
+                     (data / "golden_long_lanes.sha256").read_text()
+                     .splitlines())
+    crop_launches, new = later_phases(dev, card, boat, img, bucket_words,
+                                      stream, golden, pins, cfg, cfg50,
+                                      long_pins)
     dec = decode_phases(dev, card, boat, st, units, small)
     col = color_phases(dev, card, boat, [
         ln.split()[0] for ln in
         (data / "golden_color512.sha256").read_text().splitlines()])
     dfr = deferred_phase(dev, card, boat)
     cl = cli_phase(dev, card, boat)
-    paths = {"slim_encode": {}, "plane_decode": {}}
-    for path, counts in (("grayscale", launches), ("color", col["launches"]),
-                         ("color_batch", col["batch_launches"]),
-                         ("deferred", dfr["launches"]),
-                         ("cli", cl["launches"])):
+    lng = long_lane_phases(dev, card, boat, long_pins, batch)
+    cld = cli_defaults_phase(dev, card, boat)
+    paths = {"slim_encode": {}, "slim_encode_two_word": {},
+             "plane_decode": {}}
+    for path, counts in (
+            [("grayscale", launches), ("color", col["launches"]),
+             ("color_batch", col["batch_launches"]),
+             ("deferred", dfr["launches"]), ("cli", cl["launches"]),
+             ("crop256 s1 g1", {"slim_encode_two_word": crop_launches})]
+            + list(lng["launches"].items())
+            + [(f"cli defaults {op}", r["launches"])
+               for op, r in cld.items()]):
         for k, n in counts.items():
             paths[k][path] = n
 
@@ -1436,12 +1894,48 @@ def main() -> int:
                                             *col["k2_shape"]),
                                "max_abs_err": col["k2_err"],
                                "plain_ms": col["k2_plain_ms"]}},
+        {"name": "slim_encode_two_word", "route": "cuda",
+         "source": "icer_compression_tpu_torch/csrc/slim_encode.cu",
+         "replaces": "icer_compression_tpu/ops/pallas_entropy.py:744",
+         "mode": "two-word records (fused_key=False, call :845)",
+         "launches": lng["launches"]["gray1024 unlimited"][
+             "slim_encode_two_word"],
+         "max_abs_err": max(k1w_err, lng["k1w_err"]), "equal_to_plain": True,
+         "shape": "L={} lanes={} (1024x1024 stage 1)".format(
+             *lng["k1w_shape"]),
+         "ms": lng["k1w_ms"], "plain_ms": lng["k1w_plain_ms"],
+         "bound_ms": lng["k1w_bound"][0], "bound_by": lng["k1w_bound"][1],
+         "library_ms": None, "top_ordinal": lng["k1w_top"],
+         "ns_per_step": 1e6 * lng["k1w_ms"] / lng["k1w_shape"][0],
+         "step": "one emission slot of a 1024x1024 stage-1 lane",
+         "launches_by_path": paths["slim_encode_two_word"],
+         "eviction_plain_check": {
+             "shape": f"L={ew.shape[0]} lanes={ew.shape[1]}",
+             "plain_ms": 1e3 * k1w_short_plain_s},
+         "long_plain_check": {
+             "shape": f"L={lw.shape[0]} lanes={lw.shape[1]} (ordinals past "
+                      "2^15)",
+             "ms": k1w_long_ms, "plain_ms": 1e3 * k1w_plain_s,
+             "bound_ms": k1w_long_b[0], "top_ordinal": top},
+         "longest_plain_check": {
+             "shape": f"L={hw.shape[0]} lanes={hw.shape[1]} (ordinals past "
+                      "2^16)",
+             "plain_cpu_ms": 1e3 * k1w_huge_plain_s, "top_ordinal": top_h},
+         "path": "compress of a 1024x1024 image at the CLI's defaults: the "
+                 "stage-1 bucket"},
     ] + new
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
         f"decode_ms {1e3 * dec_med:.2f}; color_encode_ms "
         f"{col['enc_ms']:.2f}; color_decode_ms {col['dec_ms']:.2f}; "
         f"deferred_mps_k4 {max(dfr['mps_k4']):.3f}; deferred_mps_k1 "
-        f"{max(dfr['mps_k1']):.3f}")
+        f"{max(dfr['mps_k1']):.3f}; long-lane walls (encode, decode ms) "
+        + "; ".join(f"{k} {e:.2f}, {d:.2f}"
+                    for k, (e, d) in lng["walls"].items())
+        + "; coder bytes per word "
+        + ", ".join(f"{k} {v:.1f}" for k, v in lng["bytes_per_word"].items())
+        + "; cli defaults peak allocated GB "
+        + ", ".join(f"{op} {r['peak_allocated_gb']:.2f}"
+                    for op, r in cld.items()))
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

@@ -69,8 +69,8 @@ constexpr int kRescaleCap = 500;        // CONTEXT_RESCALING_CAP
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 
-// LUT layout, shared with ops/entropy_full.py (its first 2337 entries are
-// kernel 1's LUT from ops/entropy_slim.py)
+// LUT layout: kernel 1's LUT (ops/entropy_slim.py), which ops/entropy_full.py
+// passes as it is
 constexpr int kLutCut = 0;
 constexpr int kLutGm = 16;
 constexpr int kLutCinb = 33;

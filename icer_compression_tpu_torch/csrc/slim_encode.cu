@@ -1,9 +1,15 @@
 // Kernel 1 of the ICER port: the slim interleaved entropy coder.
 //
-// Replaces the TPU kernel make_encode_lanes_slim (fused-key mode) of
-// icer_compression_tpu/ops/pallas_entropy.py:744 (step _slim_step :513).
-// Same I/O contract and record layout (pallas_entropy.py:496-510); the
-// plain PyTorch version is encode_lanes_slim_plain in ops/entropy_slim.py.
+// Replaces the TPU kernel make_encode_lanes_slim of
+// icer_compression_tpu/ops/pallas_entropy.py:744 (step _slim_step :513) in
+// both its record modes, as two instances of one template:
+// slim_encode_kernel<false> writes one fused-key record per step
+// (pallas_entropy.py:496-510) and serves lanes whose allocation ordinals
+// stay below 2^15; slim_encode_kernel<true> writes the two-word records
+// (pallas_entropy.py:732-741) for lanes up to 2^17 steps, and builds each
+// codeword that the reorder window evicts (_evict_flush_code :444).  Same
+// I/O contract as the TPU kernel; the plain PyTorch version is
+// encode_lanes_slim_plain in ops/entropy_slim.py.
 //
 // Bound on this card: the data moved is small (one int32 word in and one
 // record out per emission step: about 19 MB each way for a 512x512 image,
@@ -25,10 +31,12 @@
 // waits on device memory: the block's 32 threads stream the lane's words
 // through a ring of kStages tiles of kTile steps in shared memory with
 // cp.async, kStages - 1 tiles ahead of the chain; the chain reads each
-// word a step ahead and writes the step's record over it, and the block
-// then stores the tile's records to `rec`.  An empty step (padding, an
-// absent sign slot) costs a shared load and store.  The 17 counters and
-// 17 bin states sit in shared memory, the 16 bin cutoffs in registers.
+// word a step ahead and writes the step's record over it (the two-word
+// instance writes its second word, the ordinal, to a ring of its own), and
+// the block then stores the tile's records to `rec` (and `rec2`).  An empty
+// step (padding, an absent sign slot) costs a shared load and store.  The
+// 17 counters and 17 bin states sit in shared memory, the 16 bin cutoffs in
+// registers.
 // The reorder-window check scans the 17 bin states only when the
 // allocation count has passed a lower bound of the oldest open ordinal by
 // CIRC_BUF_SIZE: open ordinals only grow, so the bound from the last scan
@@ -51,6 +59,7 @@ constexpr int kCircBuf = 2048;          // CIRC_BUF_SIZE
 constexpr int kRescaleCap = 500;        // CONTEXT_RESCALING_CAP
 constexpr int kBig = 1 << 30;
 constexpr int32_t kBigPk = 0x7FFF << 16;
+constexpr int kMaxL = 1 << 17;          // ordinals are 17-bit fields of bs
 constexpr int kTile = 64;               // steps per tile (divides 256)
 constexpr int kStages = 3;              // tiles in the ring
 
@@ -59,26 +68,69 @@ constexpr int kLutCut = 0;
 constexpr int kLutGm = 16;
 constexpr int kLutCinb = 33;
 constexpr int kLutFlv = 289;
-constexpr int kLutSize = 2337;
+constexpr int kLutFused = 2337;         // the tables the fused instance reads
+constexpr int kLutGl = 2337;
+constexpr int kLutGi = 2354;
+constexpr int kLutCout = 2371;
+constexpr int kLutCobits = 2627;
+constexpr int kLutSize = 2883;
 
+// The codeword that flushes the open codeword (k, nb) of bin b, as the
+// two-word records carry it: 1 | code << 1 | nbits << 17 | 1 << 22.  A
+// golomb bin sends its partial run (bit-reversed), or '1' for the full run
+// at k = m - 1; a custom bin extends its prefix by the flush bits and sends
+// the output code of the result (icer_encoding.c:141-189).
+__device__ __forceinline__ int32_t flush_record(const int32_t* lut, int b,
+                                                uint32_t k, uint32_t nb) {
+  uint32_t code, nbits;
+  if (b >= 8) {
+    const uint32_t m = (uint32_t)lut[kLutGm + b];
+    const uint32_t ii = (uint32_t)lut[kLutGi + b];
+    if (k == m - 1) {
+      code = 1u;
+      nbits = 1u;
+    } else {
+      const uint32_t adj = k < ii ? k : k + ii;
+      nbits = (uint32_t)lut[kLutGl + b] + (k >= ii ? 1u : 0u);
+      code = __brev(adj) >> (32 - nbits);
+    }
+  } else {
+    const uint32_t fv =
+        (uint32_t)lut[kLutFlv + (b * 8 + (nb & 7)) * 32 + (k & 31)];
+    const uint32_t fin = (k | (fv << nb)) & 31;
+    code = (uint32_t)lut[kLutCout + b * 32 + fin];
+    nbits = (uint32_t)lut[kLutCobits + b * 32 + fin];
+  }
+  return (int32_t)(1u | (code << 1) | (nbits << 17) | (1u << 22));
+}
+
+// kTwoWord: the two-word records (rec, rec2, ev_out, ev2_out), else the
+// fused-key ones (rec, ev_out; rec2 and ev2_out unused).
+template <bool kTwoWord>
 __global__ void __launch_bounds__(32)
 slim_encode_kernel(const int32_t* __restrict__ words,
-                   int32_t* __restrict__ rec, int32_t* __restrict__ fstate,
-                   int32_t* __restrict__ misc, int32_t* __restrict__ ev_out,
+                   int32_t* __restrict__ rec, int32_t* __restrict__ rec2,
+                   int32_t* __restrict__ fstate, int32_t* __restrict__ misc,
+                   int32_t* __restrict__ ev_out,
+                   int32_t* __restrict__ ev2_out,
                    const int32_t* __restrict__ luts, int L, int lanes) {
-  __shared__ int32_t lut[kLutSize];
+  constexpr int kLutUsed = kTwoWord ? kLutSize : kLutFused;
+  __shared__ int32_t lut[kLutUsed];
   __shared__ int32_t ring[kStages][kTile];
+  __shared__ int32_t ring2[kTwoWord ? kStages : 1][kTile];
   __shared__ uint32_t zt[17];   // total | zero << 16
   __shared__ uint32_t bs[17];   // (open_alloc + 1) | k << 17 | nb << 27
   const int tid = threadIdx.x;
   const int lane = blockIdx.x;
-  for (int i = tid; i < kLutSize; i += 32) lut[i] = luts[i];
+  for (int i = tid; i < kLutUsed; i += 32) lut[i] = luts[i];
   if (tid < 17) {
     zt[tid] = 4u | (2u << 16);
     bs[tid] = 0u;
   }
-  for (int e = tid; e < kNEV; e += 32)
-    ev_out[(size_t)e * lanes + lane] = kBigPk;
+  for (int e = tid; e < kNEV; e += 32) {
+    ev_out[(size_t)e * lanes + lane] = kTwoWord ? 0 : kBigPk;
+    if constexpr (kTwoWord) ev2_out[(size_t)e * lanes + lane] = kBig;
+  }
 
   const int T = L / kTile;
   auto load_tile = [&](int t) {
@@ -109,13 +161,15 @@ slim_encode_kernel(const int32_t* __restrict__ words,
     if (t + kStages - 1 < T) load_tile(t + kStages - 1);
     cp_async_commit();
     int32_t* const tile = ring[t % kStages];
+    int32_t* const tile2 = ring2[kTwoWord ? t % kStages : 0];
     if (tid == 0) {
       uint32_t wn = (uint32_t)tile[0];
       for (int i = 0; i < kTile; ++i) {
         // the next step's word is loaded a step ahead
         const uint32_t w = wn;
         if (i + 1 < kTile) wn = (uint32_t)tile[i + 1];
-        int32_t out = kBigPk;
+        int32_t out = kTwoWord ? 0 : kBigPk;
+        int32_t out2 = kBig;
         if (w & 1u) {
           const int c = (w >> 1) & 31;
           const uint32_t b = (w >> 6) & 1;
@@ -163,22 +217,30 @@ slim_encode_kernel(const int32_t* __restrict__ words,
                 const uint32_t erow = bs[ebin];
                 const uint32_t ek = (erow >> 17) & 1023;
                 const uint32_t enb = erow >> 27;
-                uint32_t pl;
-                if (ebin >= 8) {
-                  pl = ((uint32_t)ebin << 11) | (ek << 1)
-                       | (ek == (uint32_t)gm[ebin] - 1 ? 0u : 1u);
+                int32_t eo;
+                if constexpr (kTwoWord) {
+                  eo = flush_record(lut, ebin, ek, enb);
                 } else {
-                  const uint32_t fv = (uint32_t)
-                      flv[(ebin * 8 + (enb & 7)) * 32 + (ek & 31)];
-                  const uint32_t fin = (ek | (fv << enb)) & 31;
-                  pl = ((uint32_t)ebin << 11) | (fin << 6);
+                  uint32_t pl;
+                  if (ebin >= 8) {
+                    pl = ((uint32_t)ebin << 11) | (ek << 1)
+                         | (ek == (uint32_t)gm[ebin] - 1 ? 0u : 1u);
+                  } else {
+                    const uint32_t fv = (uint32_t)
+                        flv[(ebin * 8 + (enb & 7)) * 32 + (ek & 31)];
+                    const uint32_t fin = (ek | (fv << enb)) & 31;
+                    pl = ((uint32_t)ebin << 11) | (fin << 6);
+                  }
+                  eo = (int32_t)(((uint32_t)amin << 16) | pl);
                 }
                 bs[ebin] = 0u;
-                if (ec < kNEV)
-                  ev_out[(size_t)ec * lanes + lane] =
-                      (int32_t)(((uint32_t)amin << 16) | pl);
-                else
+                if (ec < kNEV) {
+                  ev_out[(size_t)ec * lanes + lane] = eo;
+                  if constexpr (kTwoWord)
+                    ev2_out[(size_t)ec * lanes + lane] = amin;
+                } else {
                   flg = 1;
+                }
                 ++ec;
               }
               lo = amin == kBig ? alloc : amin;
@@ -205,7 +267,11 @@ slim_encode_kernel(const int32_t* __restrict__ words,
           const uint32_t newk = isg ? kz : val;
           bs[bn] = complete ? 0u
                             : ((uint32_t)op1 | (newk << 17) | (nb2 << 27));
-          if (complete) {
+          if (kTwoWord && complete) {
+            out = (int32_t)(1u | ((uint32_t)bn << 1) | (k << 6) | (cb << 16)
+                            | ((nb & 7) << 17));
+            out2 = op1 - 1;
+          } else if (complete) {
             uint32_t pl;
             if (isg)
               pl = ((uint32_t)bn << 11) | (k << 1) | cb;
@@ -217,13 +283,16 @@ slim_encode_kernel(const int32_t* __restrict__ words,
           }
         }
         tile[i] = out;
+        if constexpr (kTwoWord) tile2[i] = out2;
       }
     }
     __syncthreads();
     // the tile's records
     const size_t row0 = (size_t)t * kTile;
-    for (int i = tid; i < kTile; i += 32)
+    for (int i = tid; i < kTile; i += 32) {
       rec[(row0 + i) * lanes + lane] = tile[i];
+      if constexpr (kTwoWord) rec2[(row0 + i) * lanes + lane] = tile2[i];
+    }
   }
   cp_async_wait<0>();
 
@@ -243,10 +312,27 @@ extern "C" int slim_encode_launch(const void* words, void* rec, void* fstate,
                                   void* misc, void* ev, const void* luts,
                                   int L, int lanes, int lut_size,
                                   void* stream) {
-  if (lut_size != kLutSize || L % kTile) return (int)cudaErrorInvalidValue;
+  if (lut_size != kLutSize || L % kTile || L + 17 + kNEV >= (1 << 15))
+    return (int)cudaErrorInvalidValue;
   if (lanes <= 0 || L <= 0) return (int)cudaSuccess;
-  slim_encode_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)words, (int32_t*)rec, (int32_t*)fstate,
-      (int32_t*)misc, (int32_t*)ev, (const int32_t*)luts, L, lanes);
+  slim_encode_kernel<false><<<lanes, 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, (int32_t*)rec, nullptr, (int32_t*)fstate,
+      (int32_t*)misc, (int32_t*)ev, nullptr, (const int32_t*)luts, L, lanes);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int slim_encode_two_word_launch(const void* words, void* rec1,
+                                           void* rec2, void* fstate,
+                                           void* misc, void* ev1, void* ev2,
+                                           const void* luts, int L,
+                                           int lanes, int lut_size,
+                                           void* stream) {
+  if (lut_size != kLutSize || L % kTile || L >= kMaxL)
+    return (int)cudaErrorInvalidValue;
+  if (lanes <= 0 || L <= 0) return (int)cudaSuccess;
+  slim_encode_kernel<true><<<lanes, 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)words, (int32_t*)rec1, (int32_t*)rec2,
+      (int32_t*)fstate, (int32_t*)misc, (int32_t*)ev1, (int32_t*)ev2,
+      (const int32_t*)luts, L, lanes);
   return (int)cudaGetLastError();
 }

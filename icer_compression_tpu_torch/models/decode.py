@@ -13,7 +13,8 @@ lane is re-decoded on the host (the JAX ``_finish`` hazard re-decode has
 nothing to do here).  The buckets' launches go to streams of their own, so
 they overlap on the card.  The finalize (canvas assembly, sign-magnitude,
 LL mean, inverse DWT, clamp) runs as PyTorch ops on the device for all
-canvases at once.
+canvases at once.  A batch whose streams join to more than kernel 2 can
+address decodes in passes of at most ``PASS_BYTES`` bytes each.
 """
 
 from __future__ import annotations
@@ -27,13 +28,17 @@ from ..core.status import IcerError, IcerStatus
 from ..core.subbands import decode_subband_order, dim_low, subband_view
 from ..device import Pending, resolve_device, to_device, to_host
 from ..ops import wavelet
-from ..ops.plane_decode import decode_planes
+from ..ops.plane_decode import MAX_STREAM_BYTES, decode_planes
 from .grayscale import CodecConfig, _bitplanes, _mag_bits
 
 # Decode-side allocation guard: header dimensions come from the
 # (untrusted) stream; bound the canvas they can request (the JAX package's
 # ``grayscale.DEFAULT_MAX_PIXELS``).
 DEFAULT_MAX_PIXELS = 1 << 28
+
+# Bytes of joined streams one decode pass reads at most: kernel 2 reads a
+# pass's streams as one blob and keeps its bit positions in 32 bits.
+PASS_BYTES = MAX_STREAM_BYTES
 
 
 def _plan_lanes(w, h, config):
@@ -193,18 +198,52 @@ def _canvas_index(units, NC, w, h):
     return first, step
 
 
+def _passes(streams):
+    """[start, end) ranges of consecutive streams whose joined bytes stay
+    below ``PASS_BYTES``; a single stream that reaches it raises."""
+    ranges, start, size = [], 0, 0
+    for i, s in enumerate(streams):
+        if len(s) >= PASS_BYTES:
+            raise IcerError(
+                IcerStatus.INVALID_INPUT,
+                f"a stream of {len(s)} bytes reaches the decoder's limit of "
+                f"{PASS_BYTES} bytes")
+        if size + len(s) >= PASS_BYTES:
+            ranges.append((start, i))
+            start, size = i, 0
+        size += len(s)
+    ranges.append((start, len(streams)))
+    return ranges
+
+
 def _decode(streams, config: CodecConfig, dtype, nchan: int, device,
             defer: bool, max_pixels, pack8):
     """Decode B same-geometry streams as B * nchan canvases; returns the
     list of (h, w) canvases of ``dtype``, or with ``defer`` a collector of
-    it.  The dispatch half uploads the plan from pinned buffers, launches
-    kernel 2 and the finalize, and starts the copy back into a pinned
-    buffer; only the collector waits for the card."""
+    it.  The streams decode in passes of at most ``PASS_BYTES`` bytes,
+    queued one after the other; only the collector waits for the card."""
     dev = resolve_device(device)
-    mag_bits = _mag_bits(dtype)
-    bitplanes = _bitplanes(mag_bits)
     if max_pixels is None:
         max_pixels = DEFAULT_MAX_PIXELS
+    passes = [_dispatch(streams[a:b], config, dtype, nchan, dev, max_pixels,
+                        pack8) for a, b in _passes(streams)]
+    if len({geom for geom, _collect in passes}) > 1:
+        raise IcerError(IcerStatus.INVALID_INPUT,
+                        "batched streams must share geometry")
+
+    def collect():
+        return [c for _geom, part in passes for c in part()]
+
+    return collect if defer else collect()
+
+
+def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
+              max_pixels, pack8):
+    """One decode pass: the host plan, then kernel 2 and the finalize
+    queued on the card, and the copy back started into a pinned buffer.
+    Returns ((w, h), the pass's collector)."""
+    mag_bits = _mag_bits(dtype)
+    bitplanes = _bitplanes(mag_bits)
     w, h, ll_means, blob, units = plan_batch(streams, config, dtype, nchan,
                                              max_pixels)
     NC = len(streams) * nchan
@@ -248,7 +287,7 @@ def _decode(streams, config: CodecConfig, dtype, nchan: int, device,
         pix = pix.numpy()
         return [pix[c].astype(dtype) for c in range(NC)]
 
-    return collect if defer else collect()
+    return (w, h), collect
 
 
 def decompress_batch(streams, config: CodecConfig, dtype=np.uint16,

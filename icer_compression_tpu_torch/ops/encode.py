@@ -14,8 +14,10 @@ into one padded lane batch and its emission words for every bitplane of
 the group's plane window, then per length bucket the coder backend, all on
 the device:
 
-  ``slim``   kernel 1 over the interleaved words, then the fused-key
-             sort/rebuild/pack tail (ops/entropy_slim);
+  ``slim``   kernel 1 over the interleaved words, then the sort/rebuild/
+             pack tail (ops/entropy_slim): fused-key records where a
+             bucket's allocation ordinals stay below 2^15, two-word records
+             for longer lanes (below 2^17 slots);
   ``pallas`` the valid-first compaction, kernel 4, then the record tail
              (ops/entropy_full);
   ``sorted`` the valid-first compaction, then the sort-centric coder in
@@ -54,11 +56,12 @@ from .context_model import plane_emissions_words
 
 ENTROPY_BACKENDS = ("slim", "pallas", "sorted")
 
-# Coder words (int32) one device pass of ``encode_batch`` codes at most.
-# The coders' tails hold about 110 bytes of intermediates per word at
-# their peak (the slim coder's ran 168 canvases of 512x512, 6.0e8 words,
-# out of an 80 GB H100 with 64.6 GB allocated), so a pass of 2^27 words
-# peaks near 15 GB.
+# Coder words (int32) of a pass's largest bucket that one device pass of
+# ``encode_batch`` codes at most.  A slim pass peaks at about 127 bytes per
+# such word with fused-key records and 140 with two-word records (an H100,
+# chip_smoke.py phase 20), so a pass of 2^27 words peaks near 17 or 19 GB;
+# one pass over 168 canvases of 512x512, 6.0e8 words, ran an 80 GB card
+# out of memory.
 PASS_WORDS = 1 << 27
 
 
@@ -187,24 +190,25 @@ class TorchGrayscaleEncoder:
         if entropy == "slim":
             for b in self.buckets:
                 Lk = bucket_sizes(b["L"])[0]
-                if not ES.fused_key_ok(Lk):
+                if Lk >= ES.MAX_L:
                     raise IcerError(
                         IcerStatus.INVALID_INPUT,
-                        f"segment lanes of {Lk} emission slots exceed the "
-                        "slim coder's fused-key limit (its two-word mode is "
-                        "not ported); use more segments or another "
-                        "entropy backend")
+                        f"segment lanes of {Lk} emission slots reach the "
+                        "slim coder's limit of 2^17 (its bin state holds "
+                        "17-bit allocation ordinals); use more segments or "
+                        "another entropy backend")
         self._code = {"slim": self._code_slim, "pallas": self._code_pallas,
                       "sorted": self._code_sorted}[entropy]
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
         # images per device pass: the largest bucket's coder words of one
         # image, against PASS_WORDS
-        per_image = max(bucket_sizes(b["L"])[0] * sum(
+        self.words_per_image = max(bucket_sizes(b["L"])[0] * sum(
             max(0, hi - lo) * len(self.groups[gi]["lanes"])
             for gi in b["groups"]
             for lo, hi in [self.plane_cuts[gi]]) for b in self.buckets)
-        self.pass_images = max(1, PASS_WORDS // max(1, per_image))
+        self.pass_images = max(1, PASS_WORDS
+                               // max(1, self.words_per_image))
         # per group: gather index of every lane rectangle into the padded
         # flattened image (out-of-rect reads are masked by pix_valid)
         self._wp = image_w + max(g["mw"] for g in self.groups)
@@ -279,10 +283,7 @@ class TorchGrayscaleEncoder:
     # ---- coder backends: words -> (payload, total bits, host flag) -------
     def _code_slim(self, b, words):
         _Lk, Lc, cap_bits = bucket_sizes(b["L"])
-        rec, fstate, misc, ev = ES.encode_lanes_slim(words.t().contiguous())
-        ops = ES.slim_sort_operand_packed(rec, fstate, ev)
-        payload, total, over = ES.order_and_pack_lanes(ops, cap_bits, Lc)
-        return payload, total, over | (misc[0] != 0)
+        return ES.code_lanes_slim(words.t().contiguous(), cap_bits, Lc)
 
     def _code_pallas(self, b, words):
         _Lk, Lc, cap_bits = bucket_sizes(b["L"])

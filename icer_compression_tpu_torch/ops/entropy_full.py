@@ -29,7 +29,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..core import constants as C
@@ -40,40 +39,15 @@ from .pack import bitrev16, pack_records
 
 BIG = 2 ** 30
 
-# LUT layout shared with csrc/full_encode.cu (int32 offsets).  The first
-# ES.LUT_SIZE entries are kernel 1's LUT (cutoffs, golomb m, custom input
-# lengths and the custom flush table), so both coders read one flush table.
-LUT_CUT = ES.LUT_CUT
-LUT_GM = ES.LUT_GM
-LUT_CINB = ES.LUT_CINB
-LUT_FLV = ES.LUT_FLV
-LUT_GL = ES.LUT_SIZE            # 17 golomb l per bin (1 below bin 8)
-LUT_GI = LUT_GL + 17            # 17 golomb i per bin (0 below bin 8)
-LUT_COUT = LUT_GI + 17          # 8 x 32 custom output codes, bin-major
-LUT_COBITS = LUT_COUT + 256     # 8 x 32 custom output lengths
-LUT_SIZE = LUT_COBITS + 256
-
-
-def _build_luts() -> np.ndarray:
-    gl = np.ones(17, np.int64)
-    gi = np.zeros(17, np.int64)
-    gl[8:], gi[8:] = C.GOLOMB_L[8:17], C.GOLOMB_I[8:17]
-    cout = np.zeros((8, 32), np.int64)
-    cobits = np.zeros((8, 32), np.int64)
-    for b in range(1, 8):
-        cout[b] = [int(C.CUSTOM_OUT_CODE[b, v]) for v in range(32)]
-        cobits[b] = [int(C.CUSTOM_OUT_BITS[b, v]) for v in range(32)]
-    extra = np.concatenate([gl, gi, cout.reshape(-1), cobits.reshape(-1)])
-    return np.concatenate([ES._LUT_NP, extra.astype(np.int32)])
-
-
-_LUT_NP = _build_luts()
-assert _LUT_NP.shape == (LUT_SIZE,)
-
-
-@functools.lru_cache(maxsize=None)
-def full_luts(device: str) -> torch.Tensor:
-    return torch.as_tensor(_LUT_NP, device=device)
+# LUT layout shared with csrc/full_encode.cu (int32 offsets): kernel 1's
+# LUT (ops/entropy_slim), which holds every table the full coder reads, so
+# both coders read one flush table.
+LUT_CUT, LUT_GM, LUT_CINB, LUT_FLV = (ES.LUT_CUT, ES.LUT_GM, ES.LUT_CINB,
+                                      ES.LUT_FLV)
+LUT_GL, LUT_GI, LUT_COUT, LUT_COBITS = (ES.LUT_GL, ES.LUT_GI, ES.LUT_COUT,
+                                        ES.LUT_COBITS)
+LUT_SIZE = ES.LUT_SIZE
+full_luts = ES.slim_luts
 
 
 def encode_lanes_full_plain(valid: torch.Tensor, ctx: torch.Tensor,

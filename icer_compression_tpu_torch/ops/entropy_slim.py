@@ -1,12 +1,16 @@
 """Slim interleaved coder: kernel 1 (``csrc/slim_encode.cu``) and its tail.
 
-Counterpart: ``icer_compression_tpu/ops/pallas_entropy.py``, slim part in
-fused-key mode: ``make_encode_lanes_slim`` (its ``_slim_step``),
-``slim_sort_operand_packed``, ``slim_decode_packed`` and
-``order_and_pack_lane_packed``.
+Counterpart: ``icer_compression_tpu/ops/pallas_entropy.py``, slim part:
+``make_encode_lanes_slim`` (its ``_slim_step``) in both record modes, and
+its tails ``slim_sort_operand_packed``, ``slim_decode_packed`` and
+``order_and_pack_lane_packed`` (fused key) and ``slim_sort_operands``,
+``slim_decode_op`` and ``order_and_pack_lane_slim`` (two words).
 
 Contract of kernel 1 (kept bit for bit from the TPU kernel):
-  in      words  (L, lanes) int32 emission words valid | ctx<<1 | bit<<6
+  in      words  (L, lanes) int32 emission words valid | ctx<<1 | bit<<6,
+                 L a multiple of CHUNK and below 2**17 (the bin state holds
+                 17-bit allocation ordinals)
+  fused-key mode, while L + 17 + NEV < 2**15 (``fused_key_ok``):
   out     rec    (L, lanes) one fused-key record per step:
                  [30:16] allocation ordinal (0x7FFF: no record), [15:11]
                  bin; golomb bins [10:1] k, [0] cb; custom bins [10:6]
@@ -17,10 +21,21 @@ Contract of kernel 1 (kept bit for bit from the TPU kernel):
           ev     (32, lanes) fused-key records of the codewords evicted by
                  the CIRC_BUF_SIZE reorder window (rows past the count are
                  0x7FFF << 16)
+  two-word mode, for longer lanes:
+  out     rec1   (L, lanes) 1 | bin<<1 | k<<6 | cb<<16 | (nb&7)<<17 when a
+                 codeword completes, else 0
+          rec2   (L, lanes) its allocation ordinal, else BIG
+          fstate, misc as above
+          ev1    (32, lanes) the evicted codewords, already built:
+                 1 | code<<1 | nbits<<17 | 1<<22 (rows past the count 0)
+          ev2    (32, lanes) their allocation ordinals (else BIG)
 Each lane is one segment-bitplane stream.  ``encode_lanes_slim`` runs the
-CUDA kernel on a CUDA tensor and the plain PyTorch version
-``encode_lanes_slim_plain`` on a CPU tensor; the sort, codeword rebuild
-and bit packing after it are PyTorch ops on either device.
+fused-key mode and ``encode_lanes_slim_two_word`` the two-word mode (at
+any L); ``code_lanes_slim`` picks the mode from L and runs the kernel and
+its tail.  The wrappers run the CUDA kernel on a CUDA tensor and the
+plain PyTorch version ``encode_lanes_slim_plain`` on a CPU tensor; the
+sort, codeword rebuild and bit packing after it are PyTorch ops on either
+device.
 """
 
 from __future__ import annotations
@@ -41,12 +56,19 @@ BIGPK = BIG15 << 16
 NEV = 32            # eviction side-buffer rows per lane
 CHUNK = 256         # stream lengths are padded to a multiple of this
 
-# LUT layout shared with csrc/slim_encode.cu (int32 offsets)
+# LUT layout shared with csrc/slim_encode.cu and csrc/full_encode.cu
+# (int32 offsets)
 LUT_CUT = 0         # 16 bin cutoffs
 LUT_GM = 16         # 17 golomb m per bin (1 for non-golomb bins)
 LUT_CINB = 33       # 8 x 32 custom input-pattern lengths, bin-major
 LUT_FLV = 289       # 8 x 8 x 32 custom flush bits, (bin, nb, prefix)
-LUT_SIZE = 2337
+LUT_FUSED = 2337    # the tables above: all the fused-key instance reads
+LUT_GL = 2337       # 17 golomb l per bin (1 below bin 8)
+LUT_GI = 2354       # 17 golomb i per bin (0 below bin 8)
+LUT_COUT = 2371     # 8 x 32 custom output codes, bin-major
+LUT_COBITS = 2627   # 8 x 32 custom output code lengths
+LUT_SIZE = 2883     # the two-word instance and kernels 4/5 read all of it
+MAX_L = 1 << 17     # allocation ordinals are 17-bit fields of the bin state
 
 
 def fused_key_ok(L: int) -> bool:
@@ -72,6 +94,17 @@ def _build_luts() -> np.ndarray:
             flv[b, pn, pv] = av
     lut[LUT_CINB:LUT_CINB + 256] = cinb.reshape(-1)
     lut[LUT_FLV:LUT_FLV + 2048] = flv.reshape(-1)
+    gl = np.ones(17, np.int64)
+    gi = np.zeros(17, np.int64)
+    gl[8:] = C.GOLOMB_L[8:17]
+    gi[8:] = C.GOLOMB_I[8:17]
+    lut[LUT_GL:LUT_GL + 17] = gl
+    lut[LUT_GI:LUT_GI + 17] = gi
+    for b in range(1, 8):
+        lut[LUT_COUT + 32 * b:LUT_COUT + 32 * b + 32] = [
+            int(C.CUSTOM_OUT_CODE[b, v]) for v in range(32)]
+        lut[LUT_COBITS + 32 * b:LUT_COBITS + 32 * b + 32] = [
+            int(C.CUSTOM_OUT_BITS[b, v]) for v in range(32)]
     return lut.astype(np.int32)
 
 
@@ -83,9 +116,11 @@ def slim_luts(device: str) -> torch.Tensor:
     return torch.as_tensor(_LUT_NP, device=device)
 
 
-def encode_lanes_slim_plain(words: torch.Tensor):
+def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
     """Plain PyTorch version of kernel 1: a loop over the L steps,
-    vectorised over lanes.  Same contract as ``encode_lanes_slim``."""
+    vectorised over lanes.  Returns the fused-key outputs (rec, fstate,
+    misc, ev), or with ``two_word`` (rec1, rec2, fstate, misc, ev1, ev2),
+    as described in the module docstring."""
     L, lanes = words.shape
     dev = words.device
     lut = slim_luts(str(dev)).to(torch.int64)
@@ -103,9 +138,12 @@ def encode_lanes_slim_plain(words: torch.Tensor):
     alloc = torch.zeros(lanes, dtype=torch.int64, device=dev)
     flg = torch.zeros(lanes, dtype=torch.int64, device=dev)
     ec = torch.zeros(lanes, dtype=torch.int64, device=dev)
-    evbuf = torch.full((NEV + 1, lanes), BIGPK, dtype=torch.int64,
-                       device=dev)
+    evbuf = torch.full((NEV + 1, lanes), 0 if two_word else BIGPK,
+                       dtype=torch.int64, device=dev)
+    evbuf2 = torch.full((NEV + 1, lanes), BIG, dtype=torch.int64,
+                        device=dev)
     rec = torch.empty((L, lanes), dtype=torch.int32, device=dev)
+    rec2 = torch.empty((L, lanes), dtype=torch.int32, device=dev)
     words = words.to(torch.int64)
 
     for i in range(L):
@@ -149,16 +187,23 @@ def encode_lanes_slim_plain(words: torch.Tensor):
             erow = bs[ebin, ar]
             ek = (erow >> 17) & 1023
             enb = (erow >> 27) & 31
-            gpl = ((ebin << 11) | (ek << 1)
-                   | (ek != gm[ebin] - 1).to(torch.int64))
-            fv = flv[(ebin.clamp(max=7) * 8 + (enb & 7)) * 32 + (ek & 31)]
-            fv = torch.where(ebin < 8, fv, 0)
-            final = (ek | (fv << torch.where(ebin < 8, enb, 0))) & 31
-            pl = torch.where(ebin >= 8, gpl, (ebin << 11) | (final << 6))
-            eo = (amin << 16) | pl
+            if two_word:
+                ecode, ebits = _flush_code(ebin, ek, enb)
+                eo = 1 | (ecode << 1) | (ebits << 17) | (1 << 22)
+            else:
+                gpl = ((ebin << 11) | (ek << 1)
+                       | (ek != gm[ebin] - 1).to(torch.int64))
+                fv = flv[(ebin.clamp(max=7) * 8 + (enb & 7)) * 32
+                         + (ek & 31)]
+                fv = torch.where(ebin < 8, fv, 0)
+                final = (ek | (fv << torch.where(ebin < 8, enb, 0))) & 31
+                pl = torch.where(ebin >= 8, gpl,
+                                 (ebin << 11) | (final << 6))
+                eo = (amin << 16) | pl
             bs[ebin, ar] = torch.where(ev, 0, erow)
             slot = torch.where(ev & (ec < NEV), ec, NEV)
             evbuf[slot, ar] = torch.where(ev, eo, evbuf[slot, ar])
+            evbuf2[slot, ar] = torch.where(ev, amin, evbuf2[slot, ar])
             flg = flg | (ev & (ec >= NEV)).to(torch.int64)
             ec = ec + ev.to(torch.int64)
         op1 = torch.where(newly, alloc + 1, op1)
@@ -180,18 +225,27 @@ def encode_lanes_slim_plain(words: torch.Tensor):
         newrow = torch.where(complete, 0,
                              op1 | (newk << 17) | ((nb2 & 31) << 27))
         bs[bn, ar] = torch.where(v, newrow, bsb)
-        pl = torch.where(
-            isg, (bn << 11) | (k << 1) | cb,
-            torch.where(isc, (bn << 11) | (k << 6) | ((nb & 7) << 3) | cb,
-                        cb))
-        rec[i] = torch.where(complete, ((op1 - 1) << 16) | pl,
-                             BIGPK).to(torch.int32)
+        if two_word:
+            rec[i] = torch.where(complete, 1 | (bn << 1) | (k << 6)
+                                 | (cb << 16) | ((nb & 7) << 17), 0)
+            rec2[i] = torch.where(complete, op1 - 1, BIG)
+        else:
+            pl = torch.where(
+                isg, (bn << 11) | (k << 1) | cb,
+                torch.where(isc,
+                            (bn << 11) | (k << 6) | ((nb & 7) << 3) | cb,
+                            cb))
+            rec[i] = torch.where(complete, ((op1 - 1) << 16) | pl, BIGPK)
 
     misc = torch.zeros((8, lanes), dtype=torch.int64, device=dev)
     misc[0] = flg
     misc[1] = alloc
     misc[2] = ec
-    return rec, _to_i32(bs), misc.to(torch.int32), evbuf[:NEV].to(torch.int32)
+    state = (_to_i32(bs), misc.to(torch.int32))
+    ev_rows = evbuf[:NEV].to(torch.int32)
+    if two_word:
+        return (rec, rec2) + state + (ev_rows, evbuf2[:NEV].to(torch.int32))
+    return (rec,) + state + (ev_rows,)
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -200,48 +254,101 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
+def _check_words(words: torch.Tensor) -> None:
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError("words must be a 2-D int32 tensor (L, lanes)")
+    L = words.shape[0]
+    if L % CHUNK:
+        raise ValueError(f"stream length {L} is not a multiple of {CHUNK}")
+    if L >= MAX_L:
+        raise ValueError(f"stream length {L} does not fit the 17-bit "
+                         "allocation ordinals of the bin state")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {words.device}")
+
+
+def _launch(words: torch.Tensor, two_word: bool):
+    """One launch of kernel 1's fused-key or two-word instance."""
+    words = words.contiguous()
+    L, lanes = words.shape
+    dev = words.device
+
+    def out(rows):
+        return torch.empty((rows, lanes), dtype=torch.int32, device=dev)
+
+    outs = ([out(L), out(L)] if two_word else [out(L)]) + [out(17), out(8)] \
+        + ([out(NEV), out(NEV)] if two_word else [out(NEV)])
+    luts = slim_luts(str(dev))
+    lib = kernels.load("slim_encode")
+    fn = (lib.slim_encode_two_word_launch if two_word
+          else lib.slim_encode_launch)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * (len(outs) + 2) \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(words.data_ptr(), *(t.data_ptr() for t in outs),
+                    luts.data_ptr(), L, lanes, LUT_SIZE, stream)
+    kernels.check(status, "slim_encode")
+    return tuple(outs)
+
+
 def encode_lanes_slim(words: torch.Tensor):
-    """Kernel 1: the slim coder over (L, lanes) int32 emission words.
+    """Kernel 1 in its fused-key mode: the slim coder over (L, lanes)
+    int32 emission words, L within ``fused_key_ok``.
 
     A CUDA tensor launches ``csrc/slim_encode.cu``; a CPU tensor runs the
     plain version.  Returns (rec, fstate, misc, ev) as described in the
     module docstring."""
-    if words.dtype != torch.int32 or words.dim() != 2:
-        raise ValueError("words must be a 2-D int32 tensor (L, lanes)")
-    L, lanes = words.shape
-    if L % CHUNK:
-        raise ValueError(f"stream length {L} is not a multiple of {CHUNK}")
-    if not fused_key_ok(L):
-        raise ValueError(
-            f"stream length {L} needs 15-bit-plus allocation keys; the "
-            "two-word record mode for such lanes is not ported")
+    _check_words(words)
+    if not fused_key_ok(words.shape[0]):
+        raise ValueError(f"stream length {words.shape[0]} is past the "
+                         "fused-key limit; use the two-word mode")
     if words.device.type == "cpu":
         return encode_lanes_slim_plain(words)
-    if words.device.type != "cuda":
-        raise ValueError(f"unsupported device {words.device}")
-    words = words.contiguous()
-    dev = words.device
-    rec = torch.empty((L, lanes), dtype=torch.int32, device=dev)
-    fstate = torch.empty((17, lanes), dtype=torch.int32, device=dev)
-    misc = torch.empty((8, lanes), dtype=torch.int32, device=dev)
-    ev = torch.empty((NEV, lanes), dtype=torch.int32, device=dev)
-    luts = slim_luts(str(dev))
-    lib = kernels.load("slim_encode")
-    fn = lib.slim_encode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(words.data_ptr(), rec.data_ptr(), fstate.data_ptr(),
-                    misc.data_ptr(), ev.data_ptr(), luts.data_ptr(), L,
-                    lanes, LUT_SIZE, stream)
-    kernels.check(status, "slim_encode")
+    res = _launch(words, two_word=False)
     encode_lanes_slim.launches += 1
-    return rec, fstate, misc, ev
+    return res
 
 
 encode_lanes_slim.launches = 0
+
+
+def encode_lanes_slim_two_word(words: torch.Tensor):
+    """Kernel 1 in its two-word mode, at any length below 2**17: returns
+    (rec1, rec2, fstate, misc, ev1, ev2).  A CUDA tensor launches the
+    two-word instance of ``csrc/slim_encode.cu``; a CPU tensor runs the
+    plain version."""
+    _check_words(words)
+    if words.device.type == "cpu":
+        return encode_lanes_slim_plain(words, two_word=True)
+    res = _launch(words, two_word=True)
+    encode_lanes_slim_two_word.launches += 1
+    return res
+
+
+encode_lanes_slim_two_word.launches = 0
+
+
+def code_lanes_slim(words: torch.Tensor, max_bits: int, slice_to: int):
+    """Kernel 1 and its tail over (L, lanes) emission words, in the
+    fused-key mode where ``fused_key_ok(L)`` and in the two-word mode
+    otherwise (as ``encode_jax.py`` picks it per bucket).  Returns per
+    lane (payload uint8 (lanes, max_bits // 8), total bits int64, flag
+    bool): the flag marks a lane past ``slice_to`` records, past
+    ``max_bits`` bits or past the eviction side buffer, which the caller
+    re-encodes on the host."""
+    _check_words(words)
+    if fused_key_ok(words.shape[0]):
+        rec, fstate, misc, ev = encode_lanes_slim(words)
+        payload, total, over = order_and_pack_lanes(
+            slim_sort_operand_packed(rec, fstate, ev), max_bits, slice_to)
+    else:
+        rec1, rec2, fstate, misc, ev1, ev2 = encode_lanes_slim_two_word(words)
+        payload, total, over = order_and_pack_lanes_two_word(
+            *slim_sort_operands(rec1, rec2, fstate, ev1, ev2), max_bits,
+            slice_to)
+    return payload, total, over | (misc[0] != 0)
 
 
 # ---- tail: ordering sort, codeword rebuild, packing ---------------------
@@ -263,7 +370,7 @@ for _b in range(1, 8):
 def _tail_tables(device: str):
     return tuple(torch.as_tensor(t, device=device)
                  for t in (_GOL_M, _GOL_L, _GOL_I, _COUT.reshape(-1),
-                           _COBITS.reshape(-1), _LUT_NP[LUT_FLV:]))
+                           _COBITS.reshape(-1), _LUT_NP[LUT_FLV:LUT_FUSED]))
 
 
 def slim_sort_operand_packed(rec: torch.Tensor, fstate: torch.Tensor,
@@ -289,17 +396,13 @@ def slim_sort_operand_packed(rec: torch.Tensor, fstate: torch.Tensor,
     return torch.cat([rec, tail.to(torch.int32), ev])
 
 
-def slim_decode_packed(w: torch.Tensor):
-    """Sorted fused-key records -> (code, nbits), int64.  Rows must be
-    masked by the caller's record-valid flags."""
-    gm, gl, gi, cout, cobits, _flv = _tail_tables(str(w.device))
-    w = w.to(torch.int64)
-    bn = (w >> 11) & 31
+def _codewords(bn, k, cb, nb):
+    """(code, nbits) of completed codewords from their (bin, k, cb, nb)
+    fields, int64: the golomb remainder or full run, the custom output
+    table of the prefix value, or the uncoded bit."""
+    gm, gl, gi, cout, cobits, _flv = _tail_tables(str(bn.device))
     isg = bn >= 8
     isc = (bn >= 1) & (bn <= 7)
-    k = torch.where(isg, (w >> 1) & 1023, (w >> 6) & 31)
-    cb = w & 1
-    nb = torch.where(isc, (w >> 3) & 7, 0)
     m_e, l_e, i_e = gm[bn], gl[bn], gi[bn]
     run_done = (cb == 0) & (k + 1 >= m_e)
     adj = torch.where(k < i_e, k, k + i_e)
@@ -311,6 +414,32 @@ def slim_decode_packed(w: torch.Tensor):
     nbits = torch.where(isg, g_bits,
                         torch.where(isc, cobits[bn * 32 + val], 1))
     return code, nbits
+
+
+def _flush_code(b, k, nb):
+    """(code, nbits) that flush the open codeword (k, nb) of bin ``b``
+    (1..16), int64: a golomb bin's partial run, or the full-run '1' at
+    k = m-1; a custom bin's prefix extended by its flush bits, through the
+    output table (icer_encoding.c:141-189)."""
+    _gm, _gl, _gi, _co, _cb, flv = _tail_tables(str(b.device))
+    cust = b <= 7
+    fv = torch.where(cust, flv[(b.clamp(max=7) * 8 + (nb & 7)) * 32
+                               + (k & 31)], 0)
+    final = (k | (fv << torch.where(cust, nb, 0))) & 31
+    return _codewords(b, torch.where(cust, final, k),
+                      torch.zeros_like(k), torch.zeros_like(k))
+
+
+def slim_decode_packed(w: torch.Tensor):
+    """Sorted fused-key records -> (code, nbits), int64.  Rows must be
+    masked by the caller's record-valid flags."""
+    w = w.to(torch.int64)
+    bn = (w >> 11) & 31
+    isg = bn >= 8
+    isc = (bn >= 1) & (bn <= 7)
+    k = torch.where(isg, (w >> 1) & 1023, (w >> 6) & 31)
+    nb = torch.where(isc, (w >> 3) & 7, 0)
+    return _codewords(bn, k, w & 1, nb)
 
 
 def order_and_pack_lanes(ops: torch.Tensor, max_bits: int, slice_to: int):
@@ -327,4 +456,53 @@ def order_and_pack_lanes(ops: torch.Tensor, max_bits: int, slice_to: int):
     rv = (s >> 16) != BIG15
     code, nbits = slim_decode_packed(s)
     payload, total, over2 = pack_records(code, nbits, rv, max_bits)
+    return payload, total, over | over2
+
+
+# ---- two-word tail (lanes past the fused-key limit) ---------------------
+
+def slim_sort_operands(rec1, rec2, fstate, ev1, ev2):
+    """Two-word kernel outputs -> (ops, keys), each (L + 17 + NEV, lanes)
+    int32: the records, then the 17 end-of-plane flush rows of the
+    still-open codewords, built from the final bin state and marked with
+    bit 22 (1 | code<<1 | nbits<<17 | 1<<22, key = their ordinal), then
+    the evictions, which arrive built from the kernel.  Keys are
+    allocation ordinals, BIG for rows without a codeword."""
+    f = fstate.to(torch.int64)
+    fop1 = f & 0x1FFFF
+    b = torch.arange(17, device=f.device)[:, None].expand_as(f)
+    code, nbits = _flush_code(b, (f >> 17) & 1023, (f >> 27) & 31)
+    is_open = fop1 > 0
+    tail_op = torch.where(is_open,
+                          1 | (code << 1) | (nbits << 17) | (1 << 22), 0)
+    tail_key = torch.where(is_open, fop1 - 1, BIG)
+    return (torch.cat([rec1, tail_op.to(torch.int32), ev1]),
+            torch.cat([rec2, tail_key.to(torch.int32), ev2]))
+
+
+def slim_decode_op(p2: torch.Tensor):
+    """Sorted two-word records -> (code, nbits), int64: regular records
+    rebuild their codeword from (bin, k, cb, nb); bit-22 rows carry it
+    inline.  Rows must be masked by the caller's record-valid flags."""
+    p2 = p2.to(torch.int64)
+    code, nbits = _codewords((p2 >> 1) & 31, (p2 >> 6) & 1023,
+                             (p2 >> 16) & 1, (p2 >> 17) & 7)
+    tail = ((p2 >> 22) & 1) != 0
+    return (torch.where(tail, (p2 >> 1) & 0xFFFF, code),
+            torch.where(tail, (p2 >> 17) & 31, nbits))
+
+
+def order_and_pack_lanes_two_word(ops: torch.Tensor, keys: torch.Tensor,
+                                  max_bits: int, slice_to: int):
+    """(rows, lanes) two-word sort operands -> per lane (payload uint8
+    (lanes, max_bits // 8), total bits int64, overflow bool), as
+    ``order_and_pack_lanes``: the records in allocation order (keys are
+    unique but for BIG), cut to ``slice_to``."""
+    skey, order = torch.sort(keys.t(), dim=-1)
+    over = torch.zeros(skey.shape[0], dtype=torch.bool, device=skey.device)
+    if slice_to < skey.shape[-1]:
+        over = skey[:, slice_to] != BIG
+        skey, order = skey[:, :slice_to], order[:, :slice_to]
+    code, nbits = slim_decode_op(torch.gather(ops.t(), -1, order))
+    payload, total, over2 = pack_records(code, nbits, skey != BIG, max_bits)
     return payload, total, over | over2

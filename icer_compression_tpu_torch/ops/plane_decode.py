@@ -59,6 +59,7 @@ LUT_SPRED = 930      # 5 x 5 SIGN_PREDICTION_TABLE
 LUT_SIZE = 955
 
 MAX_ROUNDS = 16      # kernel 2 runs one warp per round
+MAX_STREAM_BYTES = 1 << 28   # bit positions into the stream are 32-bit
 _PLACEMENTS = {1: "shared", 2: "device"}
 
 
@@ -334,7 +335,7 @@ def _decode_plane_plain(seg, st: _Lanes, h, w, is_hl, is_hh, lsb, mag_bits,
 def _check_inputs(stream, offs, ebits, lane_end, geom, hmax, wmax):
     if stream.dtype != torch.uint8 or stream.dim() != 1:
         raise ValueError("stream must be a 1-D uint8 tensor")
-    if stream.numel() >= (1 << 28):
+    if stream.numel() >= MAX_STREAM_BYTES:
         raise ValueError("stream too long for 32-bit bit positions")
     R, n = offs.shape
     for name, t, shape in (("offs", offs, (R, n)), ("ebits", ebits, (R, n)),

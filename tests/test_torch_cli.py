@@ -118,6 +118,23 @@ def test_cli_color_roundtrip(tmp_path):
     assert np.abs(out.astype(int) - rgb.astype(int)).max() <= 4
 
 
+def test_cli_compress_long_lanes_equals_the_api(tmp_path):
+    """A 256x256 PNG at one stage and one segment (lanes of 32,768
+    emission slots, past the slim coder's fused-key limit): the CLI's
+    stream at its default quota (the raw byte count) equals the API's,
+    here the JAX package's ``compress`` on the uint16 path the CLI takes
+    (the port's ``compress`` equals that stream at this geometry, in
+    test_torch_codec.py)."""
+    img = make_test_image(256, 256, np.random.default_rng(7),
+                          dtype=np.uint8, amplitude=180, noise=30)
+    src, comp = tmp_path / "in.png", tmp_path / "out.icer"
+    IO.write_png(src, img)
+    assert port(["compress", str(src), str(comp), "-s", "1", "-g", "1",
+                 "-G"]) == 0
+    assert comp.read_bytes() == G.compress(
+        img.astype(np.uint16), G.CodecConfig(1, 0, 1, 256 * 256))
+
+
 def test_cli_decompress_requires_mode(tmp_path, gray_png):
     src, _ = gray_png
     comp = tmp_path / "out.icer"

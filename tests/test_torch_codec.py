@@ -69,23 +69,33 @@ def test_corrupted_stream_decodes_like_jax_package():
     assert not np.array_equal(out, img)
 
 
-@pytest.mark.parametrize("h,w,st,g,f,seed", [(56, 88, 3, 2, 2, 0),
-                                             (69, 63, 3, 2, 4, 0),
-                                             (94, 82, 4, 3, 5, 0)])
-def test_overread_streams_decode_like_jax_package(h, w, st, g, f, seed):
-    """The JAX package's round-5 over-read configs (the reference's frozen
-    bounds let a plane's decode read the following packets' bytes), as
-    grayscale decodes of their streams: the kernel-2 lanes read the whole
-    stream in place, so the over-read needs no window or re-decode."""
+# the JAX package's round-5 over-read configs
+# (tests/test_decode_jax_model.py::test_overread_hazard_color_regression)
+OVERREAD = [(56, 88, 3, 2, 2, 0), (94, 93, 3, 2, 5, 2), (69, 63, 3, 2, 4, 0),
+            (94, 82, 4, 3, 5, 0)]
+
+
+def _overread_stream(h, w, st, g, f, seed):
+    """(colour stream from the JAX package, its quota) of an over-read
+    config, with the fuzz repro's draw order."""
     from icer_compression_tpu.models.color import compress_yuv
-    from icer_compression_tpu_torch.ops import plane_decode as TPD
     rng = np.random.default_rng(seed)
     _ = [rng.integers(0, 100, (h, w)) + rng.integers(0, 26, (h, w))
          for _ in range(3)]
     planes = [rng.integers(0, 256, (h, w)).astype(np.uint16)
               for _ in range(3)]
     quota = max(256, int(h * w * 6 * 0.15))
-    stream = compress_yuv(*planes, G.CodecConfig(st, f, g, quota))
+    return compress_yuv(*planes, G.CodecConfig(st, f, g, quota)), quota
+
+
+@pytest.mark.parametrize("h,w,st,g,f,seed", OVERREAD)
+def test_overread_streams_decode_like_jax_package(h, w, st, g, f, seed):
+    """The over-read configs (the reference's frozen bounds let a plane's
+    decode read the following packets' bytes), as grayscale decodes of
+    their streams: the kernel-2 lanes read the whole stream in place, so
+    the over-read needs no window or re-decode."""
+    from icer_compression_tpu_torch.ops import plane_decode as TPD
+    stream, quota = _overread_stream(h, w, st, g, f, seed)
     ref = G.decompress(stream, G.CodecConfig(st, f, g, quota))
     cfg = T.CodecConfig(st, f, g, quota)
     assert np.array_equal(T.decompress(stream, cfg, device="cpu"), ref)
@@ -100,6 +110,23 @@ def test_overread_streams_decode_like_jax_package(h, w, st, g, f, seed):
     assert over > 0       # some plane decode read past its data_length
 
 
+@pytest.mark.parametrize("h,w,st,g,f,seed", OVERREAD)
+def test_overread_streams_decode_as_colour_like_jax_package(h, w, st, g, f,
+                                                            seed):
+    """The over-read configs through the colour decoder: the port's
+    ``decompress_yuv`` equals the JAX package's, plane for plane."""
+    from icer_compression_tpu.models.color import decompress_yuv
+    from icer_compression_tpu_torch.models import color as TC
+    stream, quota = _overread_stream(h, w, st, g, f, seed)
+    ref = decompress_yuv(stream, G.CodecConfig(st, f, g, quota),
+                         dtype=np.uint16)
+    out = TC.decompress_yuv(stream, T.CodecConfig(st, f, g, quota),
+                            np.uint16, device="cpu")
+    assert len(out) == len(ref) == 3
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_batch_entry_points_match_single_calls():
     imgs = np.stack([_image(48, 40, np.uint8, s) for s in (1, 2, 3)])
     cfg = T.CodecConfig(2, 0, 6, None)
@@ -109,6 +136,26 @@ def test_batch_entry_points_match_single_calls():
     decs = TD.decompress_batch(streams, cfg, np.uint8, device="cpu")
     for i in range(3):
         assert np.array_equal(decs[i], imgs[i])
+
+
+def test_decode_batch_splits_at_the_blob_cap(monkeypatch):
+    """Kernel 2 reads a pass's joined streams as one blob of fewer than
+    ``PASS_BYTES`` bytes: a batch past it decodes in passes, equal to the
+    single calls; a single stream that reaches it raises IcerError."""
+    from icer_compression_tpu_torch.core.status import IcerError, IcerStatus
+    imgs = [_image(48, 40, np.uint8, s) for s in (1, 2, 3)]
+    cfg = T.CodecConfig(2, 0, 6, None)
+    streams = [G.compress(im, G.CodecConfig(2, 0, 6, None)) for im in imgs]
+    want = [T.decompress(s, cfg, np.uint8, device="cpu") for s in streams]
+    monkeypatch.setattr(TD, "PASS_BYTES", max(map(len, streams)) + 1)
+    assert len(TD._passes(streams)) >= 2
+    decs = TD.decompress_batch(streams, cfg, np.uint8, device="cpu")
+    for got, w, im in zip(decs, want, imgs):
+        assert np.array_equal(got, w) and np.array_equal(got, im)
+    monkeypatch.setattr(TD, "PASS_BYTES", len(streams[1]))
+    with pytest.raises(IcerError) as e:
+        TD.decompress_batch(streams, cfg, np.uint8, device="cpu")
+    assert e.value.status == IcerStatus.INVALID_INPUT
 
 
 def test_flagged_lanes_reencode_exactly_on_host(monkeypatch):
@@ -257,19 +304,67 @@ def test_plane_window_encoder_returns_only_its_lanes():
     assert all(part[k] == full[k] for k in part)
 
 
+def _boat():
+    from PIL import Image
+    return np.asarray(Image.open(os.path.join(DATA, "boat.512.png"))
+                      .convert("L")).astype(np.uint16)
+
+
+def test_long_lane_pins_cover_lossless_decodes():
+    """The unlimited decode pins of chip_smoke.py's long-lane phase are its
+    input images."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    with open(os.path.join(DATA, "golden_long_lanes.sha256")) as f:
+        pins = dict(ln.split(None, 1)[::-1] for ln in f.read().splitlines())
+    images = chip_smoke.long_lane_images(_boat())
+    for key in ("gray1024", "gray999x601"):
+        assert pins[f"{key} v0 unlimited decoded"] \
+            == chip_smoke.pixels_sha(images[key][0])
+    assert pins["color1024 unlimited decoded"] == chip_smoke.planes_sha(
+        chip_smoke.color_planes(images["color1024"], np.uint16))
+    assert images["gray1024"].shape == (chip_smoke.LONG_LANE_BATCH, 1024,
+                                        1024)
+    assert images["gray999x601"].shape[1:] == (601, 999)
+
+
 @pytest.mark.parametrize("entropy", ["slim", "pallas", "sorted"])
 def test_long_lanes_need_a_backend_without_the_fused_key_limit(entropy):
     """A 256x256 image at one stage and one segment has lanes of 32,768
-    emission slots: past the slim coder's fused-key limit, fine for the
-    other two backends (construction only)."""
+    emission slots, past the slim coder's fused-key limit: ``slim`` codes
+    them in its two-word mode (boat's centre crop, byte for byte the JAX
+    package's stream), the other two backends take them as they are
+    (construction only).  Lanes of 2**17 slots (512x512 at one stage and
+    one segment) are past both slim modes, as in the JAX package: that
+    encoder raises."""
     from icer_compression_tpu_torch.core.status import IcerError
     cfg = T.CodecConfig(1, 0, 1, None)
+    enc = T.make_encoder(256, 256, cfg, np.uint16, "cpu", entropy=entropy)
+    assert enc.buckets[0]["L"] == 2 * 128 * 128
     if entropy == "slim":
-        with pytest.raises(IcerError, match="fused-key"):
-            T.make_encoder(256, 256, cfg, np.uint16, "cpu", entropy=entropy)
-    else:
-        enc = T.make_encoder(256, 256, cfg, np.uint16, "cpu", entropy=entropy)
-        assert enc.buckets[0]["L"] == 2 * 128 * 128
+        crop = np.ascontiguousarray(_boat()[128:384, 128:384])
+        assert T.compress(crop, cfg, device="cpu") \
+            == G.compress(crop, G.CodecConfig(1, 0, 1, None))
+        with pytest.raises(IcerError, match="2\\^17"):
+            T.make_encoder(512, 512, cfg, np.uint16, "cpu", entropy=entropy)
+
+
+def test_pinned_long_lane_references():
+    """The 256x256 one-stage, one-segment entry of the pins chip_smoke.py
+    holds the long-lane geometries to, recomputed with the JAX package's
+    host codec."""
+    with open(os.path.join(DATA, "golden_long_lanes.sha256")) as f:
+        pins = dict(ln.split(None, 1)[::-1] for ln in f.read().splitlines())
+    crop = np.ascontiguousarray(_boat()[128:384, 128:384])
+    cfg = G.CodecConfig(1, 0, 1, None)
+    stream = G.compress(crop, cfg)
+    px = G.decompress(stream, cfg, dtype=np.uint16)
+    assert np.array_equal(px, crop)
+    assert pins["crop256 s1 g1 unlimited stream"] \
+        == hashlib.sha256(stream).hexdigest()
+    assert pins["crop256 s1 g1 unlimited decoded"] \
+        == hashlib.sha256(np.ascontiguousarray(px, "<u2").tobytes()) \
+        .hexdigest()
 
 
 def test_unknown_entropy_backend_raises():

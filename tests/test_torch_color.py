@@ -182,6 +182,16 @@ def test_colour_pins_cover_a_lossless_decode():
             assert chip_smoke.planes_sha(planes) == pins[2 * i + 1]
 
 
+def test_compress_yuv_long_lanes_match_jax_package():
+    """256x256 planes at one stage and one segment: every channel's lanes
+    have 32,768 emission slots, past the fused-key limit, so kernel 1 runs
+    in its two-word mode; the stream equals the JAX package's."""
+    y, u, v = (c.astype(np.uint16) for c in _planes(h=256, w=256))
+    assert TC.compress_yuv(y, u, v, T.CodecConfig(1, 0, 1, None),
+                           device="cpu") \
+        == CL.compress_yuv(y, u, v, CodecConfig(1, 0, 1, None))
+
+
 def test_colour_entry_points_need_cuda_or_an_explicit_cpu():
     import torch
     if torch.cuda.is_available():

@@ -69,6 +69,16 @@ def test_kernel_luts_match_the_jax_tables():
             assert flv[b, pn, pv] == av
         assert (flv[b] != 0).sum() == sum(
             1 for (_p, (av, _a)) in JC.CUSTOM_FLUSH_BITS[b].items() if av)
+    # the tables kernel 1's two-word instance and kernels 4/5 build
+    # codewords from: golomb l and i, custom output codes and lengths
+    for off, k in ((TES.LUT_GL, 1), (TES.LUT_GI, 2)):
+        assert lut[off + 8:off + 17].tolist() == \
+            [JPE._GOL[b][k] for b in range(8, 17)]
+    for off, ref in ((TES.LUT_COUT, JC.CUSTOM_OUT_CODE),
+                     (TES.LUT_COBITS, JC.CUSTOM_OUT_BITS)):
+        table = lut[off:off + 256].reshape(8, 32)
+        assert all(table[b].tolist() == [int(ref[b, v]) for v in range(32)]
+                   for b in range(1, 8))
 
 
 @pytest.mark.parametrize("w,h", [(64, 64), (96, 80), (33, 47), (512, 512),

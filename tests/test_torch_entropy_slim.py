@@ -1,6 +1,9 @@
 """Plain kernel 1 (slim coder) vs the Pallas kernel in interpret mode, and
 its packed payloads vs the sequential reference coder (exact)."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,8 @@ from icer_compression_tpu.backend import sequential as JS  # noqa: E402
 from icer_compression_tpu.ops import pallas_entropy as PE  # noqa: E402
 from icer_compression_tpu_torch.backend import sequential as TS  # noqa: E402
 from icer_compression_tpu_torch.ops import entropy_slim as ES  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,9 +79,17 @@ def _noisy_overflow_lanes(rng, L, lanes, warm=3072, feed=144):
             bit.astype(np.int32))
 
 
-@pytest.mark.parametrize("case,L,chunk", [
-    ("random", 256, 64), ("eviction", 2432, 128)])
-def test_plain_kernel_matches_pallas_and_sequential(case, L, chunk):
+@pytest.mark.parametrize("case,L,chunk,two_word", [
+    pytest.param("random", 256, 64, False, id="random-256-64"),
+    pytest.param("eviction", 2432, 128, False, id="eviction-2432-128"),
+    pytest.param("random", 256, 64, True, id="random-256-64-two_word"),
+    pytest.param("eviction", 2432, 128, True,
+                 id="eviction-2432-128-two_word")])
+def test_plain_kernel_matches_pallas_and_sequential(case, L, chunk,
+                                                    two_word):
+    """Both record modes: the plain version output for output against the
+    Pallas kernel (``fused_key`` as the mode), its sort operands against
+    the JAX package's, its packed lanes against the sequential coder."""
     rng = np.random.default_rng(11)
     lanes = 128
     make = _random_lanes if case == "random" else _eviction_lanes
@@ -84,28 +97,46 @@ def test_plain_kernel_matches_pallas_and_sequential(case, L, chunk):
     words = PE.pack_emissions(valid, ctx, bit, np).astype(np.int32)
 
     run = PE.make_encode_lanes_slim(L, chunk=chunk, interpret=True,
-                                    lanes=lanes, fused_key=True)
+                                    lanes=lanes, fused_key=not two_word)
     with jax.default_device(jax.devices("cpu")[0]):
         ref = [np.asarray(x) for x in run(jnp.asarray(words))]
-        ref_ops = np.asarray(PE.slim_sort_operand_packed(
-            jnp.asarray(ref[0]), jnp.asarray(ref[1]), jnp.asarray(ref[3]),
-            jnp))
-    out = ES.encode_lanes_slim_plain(torch.from_numpy(words))
-    for name, a, b in zip(("rec", "fstate", "misc", "ev"), out, ref):
+        j = [jnp.asarray(x) for x in ref]
+        if two_word:
+            ref_ops = [np.asarray(x) for x in PE.slim_sort_operands(
+                *j[:3], jnp, j[4], j[5])]
+        else:
+            ref_ops = [np.asarray(PE.slim_sort_operand_packed(
+                j[0], j[1], j[3], jnp))]
+    out = ES.encode_lanes_slim_plain(torch.from_numpy(words),
+                                     two_word=two_word)
+    names = (("rec1", "rec2", "fstate", "misc", "ev1", "ev2") if two_word
+             else ("rec", "fstate", "misc", "ev"))
+    assert len(out) == len(ref) == len(names)
+    for name, a, b in zip(names, out, ref):
         assert np.array_equal(a.numpy(), b), name
-    ops = ES.slim_sort_operand_packed(*out[:2], out[3])
-    assert np.array_equal(ops.numpy(), ref_ops)
+    misc = out[names.index("misc")]
+    if two_word:
+        ops = ES.slim_sort_operands(*out[:3], out[4], out[5])
+    else:
+        ops = (ES.slim_sort_operand_packed(*out[:2], out[3]),)
+    for a, b in zip(ops, ref_ops):
+        assert np.array_equal(a.numpy(), b)
     if case == "eviction":
-        assert ref[2][2].max() >= 1 and not ref[2][0].any()
+        assert misc[2].max() >= 1 and not misc[0].any()
 
     mb = ((3 * L // 2 + 170 + 255) // 256) * 256
-    payload, total, over = ES.order_and_pack_lanes(ops, mb, ops.shape[0])
+    if two_word:
+        payload, total, over = ES.order_and_pack_lanes_two_word(
+            *ops, mb, ops[0].shape[0])
+    else:
+        payload, total, over = ES.order_and_pack_lanes(ops[0], mb,
+                                                       ops[0].shape[0])
     for lane in range(lanes):
         seq = TS.encode_emissions(valid[:, lane] != 0, ctx[:, lane],
                                   bit[:, lane])
         assert seq == JS.encode_emissions(valid[:, lane] != 0, ctx[:, lane],
                                           bit[:, lane])
-        assert int(out[2][2, lane]) == seq[2]
+        assert int(misc[2, lane]) == seq[2]
         assert not bool(over[lane])
         nb = int(total[lane])
         assert (bytes(payload[lane, :(nb + 7) // 8].numpy()), nb) \
@@ -128,11 +159,53 @@ def test_side_buffer_overflow_flags_fallback():
         assert flagged[lane] == (nflush > ES.NEV)
 
 
+def test_two_word_lanes_past_the_fused_key_limit():
+    """L = 33,024 (past the fused-key limit), in the two-word mode.
+    chip_smoke.py's long block (allocation ordinals past
+    2**15, evictions in two of its three lanes) and a noisy lane past the
+    side buffer's 32 rows: the long lanes' packed payloads equal the
+    sequential coder's, and the noisy lane is flagged for the host."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    L = 33024
+    assert not ES.fused_key_ok(L)
+    noisy = _noisy_overflow_lanes(np.random.default_rng(3), L, 1)
+    words = torch.cat([chip_smoke.long_ordinal_words(
+        np.random.default_rng(3), L), torch.from_numpy(
+            PE.pack_emissions(*noisy, np).astype(np.int32))], dim=1)
+    valid, ctx, bit = (((words >> s) & m).numpy()
+                       for s, m in ((0, 1), (1, 31), (6, 1)))
+    rec1, rec2, fstate, misc, ev1, ev2 = ES.encode_lanes_slim_two_word(words)
+    ops, keys = ES.slim_sort_operands(rec1, rec2, fstate, ev1, ev2)
+    payload, total, over = ES.order_and_pack_lanes_two_word(
+        ops, keys, ((2 * L + 170 + 255) // 256) * 256, ops.shape[0])
+    for lane in range(4):
+        seq = TS.encode_emissions(valid[:, lane] != 0, ctx[:, lane],
+                                  bit[:, lane])
+        assert int(misc[2, lane]) == seq[2]
+        assert bool(misc[0, lane]) == (seq[2] > ES.NEV) == (lane == 3)
+        if lane == 3:
+            continue
+        assert int(misc[1, lane]) > 1 << 15
+        assert lane == 0 or seq[2] > 0
+        assert int(torch.where(rec1[:, lane] != 0, rec2[:, lane], 0).max()) \
+            > 1 << 15
+        assert not bool(over[lane])
+        nb = int(total[lane])
+        assert (bytes(payload[lane, :(nb + 7) // 8].numpy()), nb) \
+            == seq[:2], lane
+
+
 def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         ES.encode_lanes_slim(torch.zeros((100, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
         ES.encode_lanes_slim(torch.zeros((1 << 15, 1), dtype=torch.int32))
+    past = torch.zeros((1 << 17, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ES.encode_lanes_slim_two_word(past)
+    with pytest.raises(ValueError):
+        ES.code_lanes_slim(past, 1 << 20, 1 << 17)
 
 
 @pytest.mark.parametrize("words", [

@@ -3,6 +3,10 @@ named by its source and by the shared headers under ``csrc/``, so an edited
 header rebuilds every source instead of loading a stale library.  No
 compiler is needed: only the names are computed."""
 
+import re
+
+import pytest
+
 from icer_compression_tpu_torch import kernels
 
 
@@ -39,3 +43,23 @@ def test_every_kernel_source_is_named():
         src = (kernels.CSRC / f"{name}.cu").read_text()
         assert '#include "coder_common.cuh"' in src
         assert "int bin_of(" not in src
+
+
+@pytest.mark.parametrize("source,module", [
+    ("slim_encode", "entropy_slim"), ("full_encode", "entropy_full"),
+    ("plane_decode", "plane_decode")])
+def test_lut_layouts_match_the_cuda_sources(source, module):
+    """Every ``constexpr int kLut<Name> = <offset>;`` of a kernel source
+    equals the wrapper's ``LUT_<NAME>`` (the launch refuses a LUT of
+    another size, and a shifted table is read wrong without a word)."""
+    import importlib
+    mod = importlib.import_module(f"icer_compression_tpu_torch.ops.{module}")
+    consts = re.findall(r"constexpr int kLut(\w+) = (\d+);",
+                        (kernels.CSRC / f"{source}.cu").read_text())
+    assert ("Size", str(mod.LUT_SIZE)) in consts
+    for name, value in consts:
+        attr = "LUT_" + name.upper()
+        if hasattr(mod, attr):
+            assert getattr(mod, attr) == int(value), attr
+    assert len(mod._LUT_NP if hasattr(mod, "_LUT_NP")
+               else mod.full_luts("cpu")) == mod.LUT_SIZE

@@ -6,7 +6,12 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel, into ``build/``), then:
+``nvcc`` per source, in parallel, into ``build/``; each fresh library
+passes its first-use check, every kernel it holds against its plain
+version, before it takes its final name) and prints each check's seconds
+and instances; removes one library and loads it again, which must rerun
+the check and pass it; builds the native host runtime
+(``backend/native/icer_runtime.cpp``, ``g++``, into ``build/``); then:
 
   1. holds kernel 1 (slim encode coder) bit-equal to its plain PyTorch
      version on boat 512's stage-1 emission words, on a noisy block that
@@ -35,12 +40,15 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
   7. drives the ``pallas`` coder backend (kernel 4): boat lossless golden
      sha and the quota-50,000 pins; its host re-encode lanes must be the
      lanes where kernel 1 evicts or a lane overflows its compacted length
-     or payload cap;
-  8. drives the ``sorted`` coder backend: the same golden sha and pins;
+     or payload cap, and each lane's payload from the native runtime must
+     equal the sequential coder's on the same words;
+  8. drives the ``sorted`` coder backend: the same golden sha, pins and
+     native payloads;
   9. encodes a 256x256 crop at one stage and one segment (lanes of 32,768
      slots, kernel 1's two-word mode): ``slim``, ``pallas`` and
      ``sorted`` must give one stream, equal to its pin in
-     tests/data/golden_long_lanes.sha256, and it must decode pixel-exact;
+     tests/data/golden_long_lanes.sha256, with native payloads equal to
+     the sequential coder's, and it must decode pixel-exact;
  10. holds the quota-class encode (quotas 5,000, 20,000, 50,000) equal to
      the full encode then allocation;
  11. continues each unit of boat's decode plan with kernel 3 (seeded
@@ -104,7 +112,17 @@ It builds every CUDA kernel from ``icer_compression_tpu_torch/csrc`` (one
      record mode;
  21. the CLI's batch-compress and batch-decompress at their defaults
      (``--batch-size 56 --pipeline 4``) on 8 colour 1024x1024 PNGs: the
-     outputs equal the API's; peak device memory of each.
+     outputs equal the API's; peak device memory of each;
+ 22. faulted streams through kernel 2: boat's golden stream truncated,
+     randomly corrupted, with segments dropped and with a header's and a
+     payload's bytes flipped (``fault_cases``, the port's
+     ``utils/faults.py``), decoded one by one and as one
+     ``decompress_batch``, and phase 16's colour stream corrupted through
+     ``decompress_yuv``: each equals its pin in
+     tests/data/golden_faults.sha256 (made with the JAX package by
+     scripts/pin_faults.py); the same faults on a 64x64 crop equal their
+     pins, and kernel 2 on their joint plan equals its plain version run
+     on the host CPU.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -212,6 +230,41 @@ def long_lane_images(boat: np.ndarray) -> dict:
     return {"gray1024": gray,
             "gray999x601": np.ascontiguousarray(gray[:, :601, :999]),
             "color1024": color_boat(big.astype(np.uint8))}
+
+
+# phase 22: boat's 64x64 centre crop, whose faulted streams kernel 2 also
+# decodes against its plain version (on the host CPU), and the colour
+# fault (corrupt_random's n and seed) on phase 16's unlimited uint16 stream
+FAULT_CROP = (slice(224, 288), slice(224, 288))
+COLOR_FAULT = 16
+
+
+def fault_cases(stream: bytes, faults) -> list:
+    """Phase 22's faulted copies of ``stream``: [(label, bytes)], made with
+    ``faults`` (the port's ``utils.faults``, or the JAX package's in
+    scripts/pin_faults.py): progressive prefixes, random byte flips, a
+    dropped segment, every stage-1 packet at lsb 0 dropped, one header's
+    bytes and one payload byte flipped."""
+    census = faults.segment_census(stream)
+    sizes = np.array([28 + c[5] for c in census])   # header + payload bytes
+    starts = np.cumsum(sizes) - sizes
+    hk = len(census) // 3
+    pk = next(k for k in range(len(census) // 2, len(census))
+              if census[k][5] > 0)
+    return ([(f"truncate {f}", faults.truncate(stream, f))
+             for f in (0.2, 0.5, 0.9)]
+            + [(f"corrupt_random {n}", faults.corrupt_random(stream, n,
+                                                              seed=n))
+               for n in (1, 4, 16, 64)]
+            + [("drop finest HH segment 0", faults.drop_segments(
+                stream, lambda h: h.decomp_level == 1
+                and h.subband_type == 3 and h.segment_number == 0)),
+               ("drop stage 1 lsb 0", faults.drop_segments(
+                   stream, lambda h: h.decomp_level == 1 and h.lsb == 0)),
+               (f"flip header {hk}", faults.flip_bytes(
+                   stream, range(starts[hk], starts[hk] + 28))),
+               (f"flip payload {pk}", faults.flip_bytes(
+                   stream, [starts[pk] + 28 + census[pk][5] // 2]))])
 
 
 def pixels_sha(px: np.ndarray) -> str:
@@ -467,7 +520,46 @@ def eviction_words(rng):
                                          dtype=torch.int32)])
 
 
-def long_lane_phase(dev, crop, pins):
+def watch_host_lanes(enc) -> list:
+    """Record every batch of ``enc``'s exact host re-encodes: (the pass's
+    bucket words, the (bucket, row) list, the native results).  Only
+    references are kept, so the encode's wall is not perturbed."""
+    seen = []
+    real = enc._host_encode
+
+    def host_encode(words, rows):
+        res = real(words, rows)
+        seen.append((words, rows, res))
+        return res
+
+    enc._host_encode = host_encode
+    return seen
+
+
+def check_host_lanes(name, seen) -> int:
+    """Each native payload recorded by ``watch_host_lanes`` equals the
+    sequential coder's (``backend/sequential.encode_emissions``, the
+    encoder's host path before the native runtime) on the same words;
+    returns (lanes checked, seconds of the sequential coder)."""
+    from icer_compression_tpu_torch.backend import sequential
+    n, secs = 0, 0.0
+    for words, rows, res in seen:
+        for (bi, r), got in zip(rows, res):
+            w = words[bi][r].cpu().numpy()
+            t0 = time.perf_counter()
+            pl, nb, _ = sequential.encode_emissions(w & 1, (w >> 1) & 31,
+                                                    (w >> 6) & 1)
+            secs += time.perf_counter() - t0
+            if got != (pl, nb):
+                raise AssertionError(
+                    f"{name}: native host re-encode of bucket {bi} row {r} "
+                    f"differs from the sequential coder ({got[1]} against "
+                    f"{nb} bits)")
+            n += 1
+    return n, secs
+
+
+def long_lane_phase(dev, card, crop, pins):
     """Phase 9: one stage, one segment: lanes of 2 * (side / 2)^2 slots,
     32,768 for a 256x256 crop, past the slim coder's fused-key limit (its
     two-word mode).  ``slim``, ``pallas`` and ``sorted`` must give one
@@ -478,9 +570,13 @@ def long_lane_phase(dev, crop, pins):
     lcfg = T.CodecConfig(1, 0, 1, None)
     lenc = {e: T.make_encoder(w, h, lcfg, np.uint16, dev, entropy=e)
             for e in ("slim", "pallas", "sorted")}
+    seen = {e: watch_host_lanes(enc) for e, enc in lenc.items()}
     ES.encode_lanes_slim_two_word.launches = 0
-    streams = {e: T.compress_batch(crop[None], lcfg, encoder=enc)[0]
-               for e, enc in lenc.items()}
+    streams, walls = {}, {}
+    for e, enc in lenc.items():
+        streams[e], walls[e] = sync_time(
+            lambda enc=enc: T.compress_batch(crop[None], lcfg,
+                                             encoder=enc)[0])
     launches = ES.encode_lanes_slim_two_word.launches
     if len(set(streams.values())) != 1:
         raise AssertionError("long lanes: slim, pallas and sorted streams "
@@ -496,13 +592,21 @@ def long_lane_phase(dev, crop, pins):
     if not np.array_equal(d, crop) or \
             pixels_sha(d) != pins["crop256 s1 g1 unlimited decoded"]:
         raise AssertionError("long lanes: decode differs from the crop")
+    checked = {e: check_host_lanes(f"long lanes {e}", seen[e]) for e in seen}
     log(f"long lanes ({w}x{h}, 1 stage, 1 segment: "
         f"{lenc['slim'].buckets[0]['L']} slots): slim (two-word K1, "
-        f"{launches} launch(es)) == pallas == sorted == pin ({len(s)} B; "
-        f"host re-encode lanes slim {lenc['slim'].fallback_lanes}, pallas "
-        f"{lenc['pallas'].fallback_lanes}, sorted "
-        f"{lenc['sorted'].fallback_lanes}), decode pixel-exact")
-    return {"launches": launches}
+        f"{launches} launch(es)) == pallas == sorted == pin ({len(s)} B), "
+        "decode pixel-exact; "
+        + "; ".join(f"{e}: encode wall (run once) {walls[e]:.3f} s, host "
+                    f"re-encode lanes {enc.fallback_lanes} in "
+                    f"{enc.fallback_seconds:.4f} s ({checked[e][0]} native "
+                    "payloads == sequential, which took "
+                    f"{checked[e][1]:.3f} s)"
+                    for e, enc in lenc.items()) + f" | {card}")
+    return {"launches": launches,
+            "walls": {e: (walls[e], lenc[e].fallback_lanes,
+                          lenc[e].fallback_seconds, checked[e][1])
+                      for e in lenc}}
 
 
 def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
@@ -572,6 +676,7 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
         f"stage 1: L={k4_in[0][0].shape[0]}, {k4_in[0][0].shape[1]} lanes)")
 
     # ---- phase 7: the pallas backend -----------------------------------
+    pseen = watch_host_lanes(penc)
     EF.encode_lanes_full.launches = 0
     sp, pallas_s = sync_time(
         lambda: T.compress_batch(boat[None], cfg, encoder=penc)[0])
@@ -592,10 +697,14 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
     if host != expect:
         raise AssertionError(f"pallas backend: {host} host re-encode lanes, "
                              f"{expect} lanes evict or overflow")
+    pchecked, pseq_s = check_host_lanes("pallas backend", pseen)
+    pallas_host_s = penc.fallback_seconds
     log(f"pallas backend boat 512 lossless: sha == golden; kernel 4 "
         f"launches {k4_launches}; host re-encode lanes {host} == lanes "
-        f"where K1 evicts or Lc/cap overflows, {penc.fallback_seconds:.3f} s "
-        f"on the host; encode wall (run once) {pallas_s:.3f} s | {card}")
+        f"where K1 evicts or Lc/cap overflows, in {len(pseen)} native "
+        f"batch(es), {pallas_host_s:.4f} s on the host; {pchecked} "
+        f"payloads == sequential, which took {pseq_s:.3f} s; encode wall "
+        f"(run once) {pallas_s:.3f} s | {card}")
     s50 = T.compress_batch(boat[None], cfg50, encoder=penc)[0]
     d50 = T.decompress(s50, cfg50, dtype=np.uint16, device=dev)
     if [sha(s50), pixel_sha(d50)] != pins:
@@ -604,21 +713,25 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
 
     # ---- phase 8: the sorted backend -----------------------------------
     senc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted")
+    sseen = watch_host_lanes(senc)
     ss, sorted_s = sync_time(
         lambda: T.compress_batch(boat[None], cfg, encoder=senc)[0])
     if sha(ss) != golden:
         raise AssertionError("sorted backend: boat lossless sha differs")
+    schecked, sseq_s = check_host_lanes("sorted backend", sseen)
+    sorted_host = senc.fallback_lanes, senc.fallback_seconds
     s50 = T.compress_batch(boat[None], cfg50, encoder=senc)[0]
     d50 = T.decompress(s50, cfg50, dtype=np.uint16, device=dev)
     if [sha(s50), pixel_sha(d50)] != pins:
         raise AssertionError("sorted backend: quota 50000 misses the pins")
     log(f"sorted backend boat 512: lossless sha == golden, quota 50000 "
-        f"matches the pins; host re-encode lanes {senc.fallback_lanes}, "
-        f"{senc.fallback_seconds:.3f} s on the host; encode wall (run once) "
-        f"{sorted_s:.3f} s | {card}")
+        f"matches the pins; host re-encode lanes {sorted_host[0]} in "
+        f"{len(sseen)} native batch(es), {sorted_host[1]:.4f} s on the "
+        f"host; {schecked} payloads == sequential, which took "
+        f"{sseq_s:.3f} s; encode wall (run once) {sorted_s:.3f} s | {card}")
 
     # ---- phase 9: a long-lane geometry ---------------------------------
-    crop_res = long_lane_phase(dev, np.ascontiguousarray(
+    crop_res = long_lane_phase(dev, card, np.ascontiguousarray(
         boat[128:384, 128:384]), long_pins)
 
     # ---- phase 10: quota classes ---------------------------------------
@@ -714,7 +827,11 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
     log(f"K3 stage-1 LSB round: {k3_ms[big]:.3f} ms | {card}")
 
     src = "icer_compression_tpu_torch/csrc/"
-    return crop_res["launches"], [
+    host_lanes = {"pallas": (pallas_s, host, pallas_host_s, pseq_s),
+                  "sorted": (sorted_s,) + sorted_host + (sseq_s,)}
+    host_lanes.update({f"crop256 {e}": v
+                       for e, v in crop_res["walls"].items()})
+    return {"crop_launches": crop_res["launches"], "host": host_lanes}, [
         {"name": "full_encode", "route": "cuda", "source": src + "full_encode.cu",
          "replaces": "icer_compression_tpu/ops/pallas_entropy.py:188",
          "launches": k4_launches, "max_abs_err": k45_err,
@@ -1538,6 +1655,139 @@ def cli_defaults_phase(dev, card, boat):
     return res
 
 
+def guard_rerun(kernels, name):
+    """Remove library ``name`` from build/ and load it again: the rebuild
+    must run the first-use check, pass it and leave the library under its
+    final name."""
+    from icer_compression_tpu_torch import kernel_check
+    path = kernels.lib_path(name)
+    path.unlink()
+    kernels._LIBS.pop(name, None)
+    kernels.GUARD.pop(name, None)
+    t0 = time.perf_counter()
+    kernels.load(name)
+    load_s = time.perf_counter() - t0
+    g = kernels.GUARD.get(name)
+    want = tuple(i.label for i in kernel_check.CHECKS[name])
+    if not g or g["instances"] != want or not path.exists() \
+            or kernels._LIBS.get(name) is None:
+        raise AssertionError(f"first-use check of a rebuilt {name}: {g}")
+    log(f"first-use check on a rebuild of {name}: ran and passed "
+        f"({g['seconds']:.2f} s, instances {', '.join(g['instances'])}; "
+        f"rebuild and check {load_s:.2f} s), library back under "
+        f"{path.name}")
+    return {name: g}
+
+
+def fault_phase(dev, card, boat, stream, cfg, pins):
+    """Phase 22: faulted streams through kernel 2.  The faults of
+    ``fault_cases`` on boat's lossless golden stream, decoded one by one
+    with ``decompress`` and all at once with one ``decompress_batch``, and
+    ``corrupt_random`` on phase 16's colour stream through
+    ``decompress_yuv``: each decode equals its pin in
+    tests/data/golden_faults.sha256 (from the JAX package).  The same
+    faults on boat's 64x64 centre crop: decoded equal to their pins, and
+    kernel 2 on every unit of their joint plan held equal to its plain
+    version (run on the host CPU)."""
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.utils import faults
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    def check(label, got, want):
+        if got != want:
+            raise AssertionError(f"faults: {label} differs from its pin")
+
+    cases = fault_cases(stream, faults)
+    for label, bad in cases:
+        check(f"boat {label} stream", sha(bad), pins[f"boat {label} stream"])
+    PDc.decode_planes.launches = 0
+    walls = {}
+    for label, bad in cases:
+        px, walls[label] = sync_time(
+            lambda bad=bad: T.decompress(bad, cfg, np.uint16, dev))
+        check(f"boat {label} decoded", pixels_sha(px),
+              pins[f"boat {label} decoded"])
+    single = PDc.decode_planes.launches
+    PDc.decode_planes.launches = 0
+    decs, batch_s = sync_time(lambda: D.decompress_batch(
+        [b for _l, b in cases], cfg, np.uint16, device=dev))
+    batch = PDc.decode_planes.launches
+    for (label, _b), px in zip(cases, decs):
+        check(f"boat {label} batch decoded", pixels_sha(px),
+              pins[f"boat {label} decoded"])
+    units = D.plan_batch([b for _l, b in cases], cfg, np.uint16)[4]
+    if batch != len(units):
+        raise AssertionError(f"faults: the batch took {batch} kernel-2 "
+                             f"launches for {len(units)} units")
+
+    ccfg = T.CodecConfig(4, 0, 6, None)
+    y, u, v = color_planes(color_boat(boat.astype(np.uint8)), np.uint16)
+    cbad = faults.corrupt_random(TC.compress_yuv(y, u, v, ccfg, device=dev),
+                                 COLOR_FAULT, seed=COLOR_FAULT)
+    clabel = f"colour corrupt_random {COLOR_FAULT}"
+    check(f"{clabel} stream", sha(cbad), pins[f"{clabel} stream"])
+    PDc.decode_planes.launches = 0
+    planes, color_s = sync_time(
+        lambda: TC.decompress_yuv(cbad, ccfg, np.uint16, device=dev))
+    color = PDc.decode_planes.launches
+    check(f"{clabel} decoded planes", planes_sha(planes),
+          pins[f"{clabel} decoded planes"])
+
+    crop = np.ascontiguousarray(boat[FAULT_CROP])
+    ccases = fault_cases(T.compress(crop, ccfg, device=dev), faults)
+    for label, bad in ccases:
+        check(f"crop64 {label} stream", sha(bad),
+              pins[f"crop64 {label} stream"])
+    PDc.decode_planes.launches = 0
+    for (label, _b), px in zip(ccases, D.decompress_batch(
+            [b for _l, b in ccases], ccfg, np.uint16, device=dev)):
+        check(f"crop64 {label} decoded", pixels_sha(px),
+              pins[f"crop64 {label} decoded"])
+    crop_launches = PDc.decode_planes.launches
+    _w, _h, _ll, blob, cunits = D.plan_batch([b for _l, b in ccases], ccfg,
+                                             np.uint16)
+    st = torch.as_tensor(blob)
+    err, retired, over, plain_s = 0, 0, 0, 0.0
+    for i, cu in enumerate(cunits):
+        args = [torch.as_tensor(cu[k])
+                for k in ("offs", "ebits", "lane_end", "geom")]
+        ko = PDc.decode_planes(st.to(dev), *(a.to(dev) for a in args),
+                               cu["hmax"], cu["wmax"], 8, 15)
+        po, t = sync_time(lambda: PDc.decode_planes_plain(
+            st, *args, cu["hmax"], cu["wmax"], 8, 15))
+        plain_s += t
+        for nm, a, b in zip(("out", "err", "pos"), ko, po):
+            err = max(err, assert_equal(f"K2 faulted crop unit {i} {nm}",
+                                        a.cpu(), b))
+        retired += int(po[1].sum())
+        over += int((po[2].numpy() > cu["ebits"]).sum())
+    if not retired:
+        raise AssertionError("faults: no crop lane retired")
+    launches = single + batch + color + crop_launches
+    if not (single and batch and color and crop_launches):
+        raise AssertionError("faults: kernel 2 did not launch on every path")
+    log(f"faults: {len(cases)} faulted boat streams decoded by decompress "
+        f"equal to their pins ({single} K2 launches; walls "
+        + ", ".join(f"{k} {1e3 * t:.1f}" for k, t in walls.items())
+        + f" ms), as one decompress_batch equal to the pins ({batch} "
+        f"launches, {len(units)} units, {1e3 * batch_s:.1f} ms); colour "
+        f"corrupt_random {COLOR_FAULT} through decompress_yuv equal to its "
+        f"pin ({color} launches, {1e3 * color_s:.1f} ms); {len(ccases)} "
+        f"faulted 64x64 crop streams equal to their pins, K2 on their "
+        f"{len(cunits)} joint units bit-equal to plain on the host CPU "
+        f"(tolerance 0; {retired} lanes retired, {over} plane reads past "
+        f"their data length; plain {plain_s:.1f} s) | {card}")
+    return {"launches": {"plane_decode": launches}, "err": err,
+            "plain_ms": 1e3 * plain_s, "units": len(cunits),
+            "cases": len(ccases),
+            "retired": retired, "over": over}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1560,6 +1810,17 @@ def main() -> int:
         kernels.load(name)
     log(f"build: {build_s:.2f} s wall, per source "
         f"{ {k: round(v, 2) for k, v in per_src.items()} }")
+    for name in kernels.KERNELS:
+        g = kernels.GUARD.get(name)
+        log(f"first-use check {name}: " + (
+            f"{g['seconds']:.2f} s, instances {', '.join(g['instances'])}, "
+            f"rebuilt {g['rebuilt']}" if g else "cached build, not checked"))
+    guard = guard_rerun(kernels, "full_encode")
+    from icer_compression_tpu_torch.backend import native_backend
+    t0 = time.perf_counter()
+    native_backend.get_lib()
+    log(f"native runtime: {native_backend.lib_path().name} "
+        f"({time.perf_counter() - t0:.2f} s to build or load)")
     res = kernel_resources(kernels)
     for fn, r in sorted(res.items()):
         log(f"sass/ptxas {fn}: {r}")
@@ -1819,9 +2080,9 @@ def main() -> int:
     long_pins = dict(ln.split(None, 1)[::-1] for ln in
                      (data / "golden_long_lanes.sha256").read_text()
                      .splitlines())
-    crop_launches, new = later_phases(dev, card, boat, img, bucket_words,
-                                      stream, golden, pins, cfg, cfg50,
-                                      long_pins)
+    lat, new = later_phases(dev, card, boat, img, bucket_words, stream,
+                            golden, pins, cfg, cfg50, long_pins)
+    crop_launches = lat["crop_launches"]
     dec = decode_phases(dev, card, boat, st, units, small)
     col = color_phases(dev, card, boat, [
         ln.split()[0] for ln in
@@ -1830,13 +2091,17 @@ def main() -> int:
     cl = cli_phase(dev, card, boat)
     lng = long_lane_phases(dev, card, boat, long_pins, batch)
     cld = cli_defaults_phase(dev, card, boat)
+    flt = fault_phase(dev, card, boat, stream, cfg, dict(
+        ln.split(None, 1)[::-1] for ln in
+        (data / "golden_faults.sha256").read_text().splitlines()))
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
              "plane_decode": {}}
     for path, counts in (
             [("grayscale", launches), ("color", col["launches"]),
              ("color_batch", col["batch_launches"]),
              ("deferred", dfr["launches"]), ("cli", cl["launches"]),
-             ("crop256 s1 g1", {"slim_encode_two_word": crop_launches})]
+             ("crop256 s1 g1", {"slim_encode_two_word": crop_launches}),
+             ("faults", flt["launches"])]
             + list(lng["launches"].items())
             + [(f"cli defaults {op}", r["launches"])
                for op, r in cld.items()]):
@@ -1883,6 +2148,12 @@ def main() -> int:
          "step": "one pixel of a stage-1 lane's critical path: one "
                  "round's pixels plus two rows per later round",
          "retirement_max_abs_err": dec["retire_err"],
+         "fault_plain_check": {
+             "shape": f"{flt['units']} units of {flt['cases']} faulted "
+                      "64x64 crop streams' joint plan",
+             "max_abs_err": flt["err"], "plain_cpu_ms": flt["plain_ms"],
+             "lanes_retired": flt["retired"],
+             "reads_past_data_length": flt["over"]},
          "device_placement_max_abs_err": dec["place_err"],
          "launches_by_path": paths["plane_decode"],
          "color_launches_per_image": col["k2_launches"],
@@ -1933,6 +2204,12 @@ def main() -> int:
                     for k, (e, d) in lng["walls"].items())
         + "; coder bytes per word "
         + ", ".join(f"{k} {v:.1f}" for k, v in lng["bytes_per_word"].items())
+        + "; host re-encodes (encode wall s, lanes, native s, sequential "
+        "s) " + ", ".join(f"{k} {e:.3f}, {n}, {t:.4f}, {q:.3f}"
+                          for k, (e, n, t, q) in lat["host"].items())
+        + "; first-use check s "
+        + ", ".join(f"{k} {g['seconds']:.2f}"
+                    for k, g in {**kernels.GUARD, **guard}.items())
         + "; cli defaults peak allocated GB "
         + ", ".join(f"{op} {r['peak_allocated_gb']:.2f}"
                     for op, r in cld.items()))

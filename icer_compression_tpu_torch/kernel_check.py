@@ -1,0 +1,192 @@
+"""First-use check of a freshly built kernel library.
+
+Counterpart: ``icer_compression_tpu/backend/aot_cache.py``
+(``_first_exec_check`` and the rebuild-once rule of ``_load_or_compile``).
+``kernels.build_all`` calls ``check_library`` on every library it has just
+compiled, before the library takes its final name: each kernel instance
+the library holds runs once on a small fixed input, made from a seed with
+numpy, and its outputs must equal the plain PyTorch version's on CPU copies
+of the same input, at tolerance 0.  The inputs are small (coder blocks of
+256 steps x 8 lanes, one 16x11 decode unit of 4 lanes and 9 rounds), so
+the check costs seconds, mostly the plain versions on the host.
+
+This module imports the kernel wrappers, which import ``kernels``; it is
+imported lazily by ``kernels.build_all`` for that reason.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from .ops import entropy_full as EF
+from .ops import entropy_slim as ES
+from .ops import plane_decode as PD
+
+SEED = 20261017
+L, LANES = 256, 8                 # coder check blocks
+UNIT_H, UNIT_W = 32, 22           # one stage: four 16x11 subbands
+UNIT_QUOTA = 1600                 # cuts the stream inside its last plane
+
+
+class KernelMismatch(RuntimeError):
+    """A kernel instance's output differs from its plain version's."""
+
+
+@dataclass(frozen=True)
+class Instance:
+    label: str                    # the kernel and its mode
+    symbol: str                   # the library's launch function
+    outputs: tuple[str, ...]
+    run: Callable                 # device -> tuple of output tensors
+
+
+@functools.lru_cache(maxsize=None)
+def coder_words() -> torch.Tensor:
+    """(L, LANES) int32 emission words (valid | ctx << 1 | bit << 6):
+    skewed adaptive contexts mixed with uncoded emissions and invalid
+    steps, a few lanes empty past random lengths."""
+    rng = np.random.default_rng(SEED)
+    p = np.exp(rng.uniform(np.log(0.01), np.log(0.5), (17, LANES)))
+    ctx = np.where(rng.random((L, LANES)) < 0.2, 17,
+                   rng.integers(0, 17, (L, LANES)))
+    bit = rng.random((L, LANES)) < np.where(
+        ctx < 17, p[np.minimum(ctx, 16), np.arange(LANES)], 0.5)
+    valid = rng.random((L, LANES)) < 0.85
+    valid &= np.arange(L)[:, None] < rng.integers(L // 2, L + 1, LANES)
+    valid[:, 0] = False
+    words = np.where(valid, 1 | (ctx << 1) | (bit << 6), 0)
+    return torch.from_numpy(words.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_unit():
+    """(blob, unit) of one decode unit: a seeded 32x22 uint16 image encoded
+    at one stage and one segment (four lanes of 16x11, nine rounds) by the
+    port on the host, cut by a byte quota inside its last planes."""
+    from .models import decode as D
+    from .models import grayscale as T
+    rng = np.random.default_rng(SEED)
+    ramp = np.add.outer(np.arange(UNIT_H) * 9, np.arange(UNIT_W) * 5)
+    img = (ramp + rng.integers(0, 48, ramp.shape)).astype(np.uint16)
+    cfg = T.CodecConfig(1, 0, 1, UNIT_QUOTA)
+    stream = T.compress(img, cfg, device="cpu")
+    _w, _h, _ll, blob, units = D.plan_batch([stream], cfg, np.uint16)
+    (unit,) = units
+    return blob, unit
+
+
+def _unit_args(dev):
+    blob, u = decode_unit()
+    return [torch.as_tensor(blob).to(dev)] + [
+        torch.as_tensor(u[k]).to(dev)
+        for k in ("offs", "ebits", "lane_end", "geom")]
+
+
+def _k1(dev):
+    return ES.encode_lanes_slim(coder_words().to(dev))
+
+
+def _k1_two_word(dev):
+    return ES.encode_lanes_slim_two_word(coder_words().to(dev))
+
+
+def _split(dev):
+    w = coder_words().to(dev)
+    return w & 1, (w >> 1) & 31, (w >> 6) & 1
+
+
+def _k2(dev):
+    _blob, u = decode_unit()
+    return PD.decode_planes(*_unit_args(dev), u["hmax"], u["wmax"], 8, 15)
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_seed():
+    """Kernel 3's inputs: the plain version's first R - 1 rounds of the
+    unit as the seed canvas, and the last round's offsets (lanes that
+    retired earlier get -1)."""
+    _blob, u = decode_unit()
+    st, offs, ebits, lane_end, geom = _unit_args("cpu")
+    seed, err, _pos = PD.decode_planes_plain(st, offs[:-1], ebits[:-1],
+                                             lane_end, geom, u["hmax"],
+                                             u["wmax"], 8, 15)
+    return seed, torch.where(err != 0, -1, offs[-1])
+
+
+def _k3(dev):
+    _blob, u = decode_unit()
+    st, offs, ebits, lane_end, geom = _unit_args(dev)
+    seed, last = _k3_seed()
+    R = offs.shape[0]
+    return PD.decode_plane_seeded(st, last.to(dev), ebits[-1], lane_end,
+                                  geom, seed.to(dev), u["hmax"], u["wmax"],
+                                  8 - (R - 1), 15)
+
+
+_SLIM = ("rec", "fstate", "misc", "ev")
+_TWO_WORD = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2")
+_FULL = ("code", "nbits", "open")
+_DECODE = ("out", "err", "pos")
+
+# every kernel instance of each library in kernels.KERNELS
+CHECKS = {
+    "slim_encode": (
+        Instance("K1 fused-key", "slim_encode_launch", _SLIM, _k1),
+        Instance("K1 two-word", "slim_encode_two_word_launch", _TWO_WORD,
+                 _k1_two_word)),
+    "plane_decode": (
+        Instance("K2", "plane_decode_launch", _DECODE, _k2),
+        Instance("K3", "plane_decode_seeded_launch", _DECODE, _k3)),
+    "full_encode": (
+        Instance("K4", "full_encode_launch", _FULL,
+                 lambda dev: EF.encode_lanes_full(*_split(dev))),
+        Instance("K5", "full_encode_tiled_launch", _FULL,
+                 lambda dev: EF.encode_lanes_full_tiled(*_split(dev)))),
+}
+
+# the wrappers' launch counts, which the check leaves as it found them
+_COUNTED = (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word,
+            EF.encode_lanes_full, EF.encode_lanes_full_tiled,
+            PD.decode_planes, PD.decode_plane_seeded)
+
+
+def first_difference(label: str, name: str, got: torch.Tensor,
+                     want: torch.Tensor) -> str | None:
+    """None if ``got`` equals ``want`` exactly, else a line naming the
+    kernel, the output and the first differing index."""
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return (f"{label}: output {name} is {got.dtype} "
+                f"{tuple(got.shape)}, the plain version's {want.dtype} "
+                f"{tuple(want.shape)}")
+    diff = (got != want).nonzero()
+    if not len(diff):
+        return None
+    idx = tuple(diff[0].tolist())
+    return (f"{label}: output {name} differs from the plain version first "
+            f"at index {idx} ({int(got[idx])} against {int(want[idx])}; "
+            f"{len(diff)} elements differ)")
+
+
+def check_library(name: str, device="cuda") -> tuple[str, ...]:
+    """Run every instance of library ``name`` on ``device`` and hold each
+    output equal to the plain version on the host.  Returns the instances
+    checked; raises ``KernelMismatch`` at the first difference."""
+    counts = [fn.launches for fn in _COUNTED]
+    try:
+        for inst in CHECKS[name]:
+            got = inst.run(torch.device(device))
+            want = inst.run(torch.device("cpu"))
+            for out, a, b in zip(inst.outputs, got, want, strict=True):
+                problem = first_difference(inst.label, out, a, b)
+                if problem:
+                    raise KernelMismatch(problem)
+    finally:
+        for fn, n in zip(_COUNTED, counts):
+            fn.launches = n
+    return tuple(inst.label for inst in CHECKS[name])

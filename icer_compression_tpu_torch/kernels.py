@@ -6,7 +6,10 @@ run at first use into ``build/`` beside the package (named by a hash of the
 source and of the shared headers ``csrc/*.cuh``, so an edited source or
 header rebuilds); ``build_all`` starts one ``nvcc`` per source, all at
 once, and keeps each compiler log (``-Xptxas -v``: registers, shared
-memory and spills per kernel) in ``BUILD_LOGS``.  Nothing is built or
+memory and spills per kernel) in ``BUILD_LOGS``.  A fresh library passes a
+first-use check (``kernel_check``: every kernel it holds against its plain
+version on a small fixed input) before it takes its final name, so only
+checked libraries are ever found in ``build/``.  Nothing is built or
 imported from CUDA when the module is imported.
 """
 
@@ -29,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
+GUARD: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -49,34 +53,106 @@ def lib_path(name: str) -> Path:
     return BUILD / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def _compile(name: str, out: Path) -> subprocess.Popen:
+    """Start ``nvcc`` on ``csrc/<name>.cu``, writing the library to
+    ``out``."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(path))
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> str | None:
+    """Wait for a compile; returns its error, or None."""
+    log, _ = proc.communicate()
+    BUILD_LOGS[name] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return f"nvcc failed for {name}.cu:\n{log}"
+    return None
+
+
+def _first_use_check(name: str, tmp: Path) -> tuple[str, ...]:
+    """Load a fresh build from its temporary path and hold every kernel
+    instance it holds equal to its plain version (``kernel_check``).
+    Returns the instances checked; on a mismatch the library is dropped
+    and ``kernel_check.KernelMismatch`` raised."""
+    from . import kernel_check
+    _LIBS[name] = _open(tmp)
+    try:
+        return kernel_check.check_library(name)
+    except BaseException:
+        del _LIBS[name]
+        raise
+
+
+def _check_or_rebuild(name: str, tmp: Path, retry: Path):
+    """The first-use check of the build at ``tmp``; on a mismatch, one
+    rebuild into ``retry`` and its check.  Returns (instances, rebuilt)."""
+    from .kernel_check import KernelMismatch
+    try:
+        return _first_use_check(name, tmp), False
+    except KernelMismatch as first:
+        tmp.unlink(missing_ok=True)
+        err = _finish(name, _compile(name, retry), retry)
+        if err:
+            raise RuntimeError(err) from first
+        try:
+            return _first_use_check(name, retry), True
+        except KernelMismatch as second:
+            raise RuntimeError(
+                f"fresh build of {name}.cu failed its first-use check twice "
+                f"(rebuilt once): {second}") from first
+
+
 def build_all(names=KERNELS) -> dict[str, float]:
     """Compile every missing kernel library, one nvcc per source in
-    parallel.  Returns {name: seconds} for the sources it compiled."""
+    parallel, and check each fresh build before it takes its final name.
+
+    The first-use check runs every kernel instance of the library once on
+    a small fixed input against its plain version (``kernel_check``); a
+    build that fails it is rebuilt once and checked again, and a second
+    failure raises ``RuntimeError`` naming the kernel, the output and the
+    first differing index.  So a library under its final name has always
+    passed, and a cached one is not checked again.  ``GUARD`` keeps each
+    check's seconds, instances and whether it rebuilt.  Returns {name:
+    seconds} of the compiles."""
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
     BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = None
-    procs = {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            continue
-        nvcc = nvcc or _nvcc()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+
+    def tmp_path(name, attempt):
+        return lib_path(name).with_suffix(f".{os.getpid()}.{attempt}.tmp")
+
+    t0 = {n: time.perf_counter() for n in todo}
+    procs = {n: _compile(n, tmp_path(n, 0)) for n in todo}
     secs = {}
     errors = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        BUILD_LOGS[name] = log
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)
+    for name in todo:
+        err = _finish(name, procs[name], tmp_path(name, 0))
+        secs[name] = time.perf_counter() - t0[name]
+        if err:
+            errors.append(err)
     if errors:
+        for name in todo:
+            tmp_path(name, 0).unlink(missing_ok=True)
         raise RuntimeError("\n".join(errors))
+    for name in todo:
+        tmp, retry = tmp_path(name, 0), tmp_path(name, 1)
+        t = time.perf_counter()
+        try:
+            instances, rebuilt = _check_or_rebuild(name, tmp, retry)
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            retry.unlink(missing_ok=True)
+            raise
+        os.replace(retry if rebuilt else tmp, lib_path(name))
+        GUARD[name] = {"seconds": time.perf_counter() - t,
+                       "instances": instances, "rebuilt": rebuilt}
     return secs
 
 
@@ -84,8 +160,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all((name,))
-        lib = _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+        build_all((name,))    # a fresh build leaves its checked handle
+        lib = _LIBS[name] = _LIBS.get(name) or _open(lib_path(name))
     return lib
 
 

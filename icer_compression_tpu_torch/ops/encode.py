@@ -30,19 +30,23 @@ back the same way, so its dispatch half never waits for the card
 Lanes that a backend flags (kernel 1's eviction side buffer overflow, a
 reorder-window flush that kernel 4 and the sorted coder leave to the host,
 more valid emissions than the compacted length, a payload past its cap)
-re-encode exactly on the host (backend/sequential); ``fallback_lanes``
-counts them and ``fallback_seconds`` adds up their host time.
+re-encode exactly on the host: the collect half gathers a pass's flagged
+rows on the device, copies them back at once and codes them in one
+threaded batch of the native runtime (backend/native_backend, held equal
+to backend/sequential); ``fallback_lanes`` counts them and
+``fallback_seconds`` adds up the time of the gather, copy and batch.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..backend import sequential
+from ..backend import native_backend
 from ..core import constants as C
 from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
@@ -374,7 +378,8 @@ class TorchGrayscaleEncoder:
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "ll mean")
 
         tables: list[dict] = [{} for _ in range(B)]
-        for gis, words, payload, total, flag in fetched:
+        redo = []      # (image, key, bucket, row) of every flagged lane
+        for bi, (gis, words, payload, total, flag) in enumerate(fetched):
             payload = payload.numpy()
             total = total.numpy()
             flag = flag.numpy()
@@ -387,21 +392,41 @@ class TorchGrayscaleEncoder:
                         for l in lanes:
                             key = (l.stage, l.subband, lsb, l.seg)
                             if flag[r]:
-                                tables[img_i][key] = self._host_encode(
-                                    words[r])
+                                redo.append((img_i, key, bi, r))
                             else:
                                 nb = int(total[r])
                                 tables[img_i][key] = (
                                     payload[r, :(nb + 7) // 8].tobytes(), nb)
                             r += 1
+        if redo:
+            coded = self._host_encode([f[1] for f in fetched],
+                                      [(bi, r) for *_, bi, r in redo])
+            for (img_i, key, _bi, _r), res in zip(redo, coded):
+                tables[img_i][key] = res
         return [(tables[i], int(means[i])) for i in range(B)]
 
-    def _host_encode(self, row: torch.Tensor):
-        """Exact host re-encode of one flagged lane from its words."""
+    def _host_encode(self, words, rows):
+        """Exact host re-encode of flagged lanes: ``rows`` lists (bucket,
+        row) of the pass's bucket words ``words``, in bucket order.  The
+        rows are gathered on the device (one ``index_select`` per bucket),
+        copied to the host at once, and coded by one threaded native
+        batch; each lane codes its bucket's whole padded length (the
+        invalid words are skipped).  Returns (payload bytes, bit length)
+        per row."""
         t0 = time.perf_counter()
-        w = row.cpu().numpy()
-        pl, nb, _ = sequential.encode_emissions(w & 1, (w >> 1) & 31,
-                                                (w >> 6) & 1)
-        self.fallback_lanes += 1
+        picks, lengths = [], []
+        for bi, grp in itertools.groupby(rows, key=lambda br: br[0]):
+            idx = torch.as_tensor([r for _b, r in grp],
+                                  device=words[bi].device)
+            picks.append(words[bi].index_select(0, idx).reshape(-1))
+            lengths += [words[bi].shape[1]] * len(idx)
+        w = torch.cat(picks).cpu().numpy()
+        lengths = np.asarray(lengths, np.int64)
+        out, bits = native_backend.encode_batch_native(
+            w & 1, (w >> 1) & 31, (w >> 6) & 1,
+            np.cumsum(lengths) - lengths, lengths)
+        res = [(out[k, :(nb + 7) // 8].tobytes(), nb)
+               for k, nb in enumerate(map(int, bits))]
+        self.fallback_lanes += len(rows)
         self.fallback_seconds += time.perf_counter() - t0
-        return pl, nb
+        return res

@@ -1,13 +1,17 @@
 """The kernel build cache of the port (``kernels.lib_path``): a library is
 named by its source and by the shared headers under ``csrc/``, so an edited
-header rebuilds every source instead of loading a stale library.  No
-compiler is needed: only the names are computed."""
+header rebuilds every source instead of loading a stale library; and the
+first-use check of a fresh build (``kernels.build_all`` with
+``kernel_check``), its rebuild-once rule and its fixed inputs.  No compiler
+or card is needed: the names are computed, and the compiler, the loader
+and the on-card check are stubbed."""
 
 import re
 
 import pytest
 
 from icer_compression_tpu_torch import kernels
+from test_torch_entropy_slim import one_torch_thread  # noqa: F401
 
 
 def test_lib_path_follows_source_and_headers(tmp_path, monkeypatch):
@@ -63,3 +67,137 @@ def test_lut_layouts_match_the_cuda_sources(source, module):
             assert getattr(mod, attr) == int(value), attr
     assert len(mod._LUT_NP if hasattr(mod, "_LUT_NP")
                else mod.full_luts("cpu")) == mod.LUT_SIZE
+
+
+# ---- the first-use check of a fresh build (``kernels.build_all``), with the
+# compiler, the loader and the on-card check stubbed -----------------------
+
+class _Proc:
+    """A finished compile: ``_compile``'s stub writes the library itself."""
+    returncode = 0
+
+    def communicate(self):
+        return "ptxas info: stub", None
+
+
+@pytest.fixture
+def stub_build(tmp_path, monkeypatch):
+    """kernels.build_all into ``tmp_path`` with a compiler stub that counts
+    its runs, a loader stub and a scripted first-use check: each entry of
+    ``script`` is the result of one check (True passes, False mismatches).
+    Returns (compiles, script, opened)."""
+    from icer_compression_tpu_torch import kernel_check
+    monkeypatch.setattr(kernels, "BUILD", tmp_path)
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    monkeypatch.setattr(kernels, "GUARD", {})
+    compiles, script, opened = [], [], []
+
+    def compile_stub(name, out):
+        out.write_bytes(b"library")
+        compiles.append((name, out.name))
+        return _Proc()
+
+    def open_stub(path):
+        opened.append(path.name)
+        return f"lib@{path.name}"
+
+    def check_stub(name):
+        assert kernels._LIBS[name] == f"lib@{opened[-1]}"
+        assert not kernels.lib_path(name).exists()
+        if not script.pop(0):
+            raise kernel_check.KernelMismatch(
+                f"{name}: output rec differs from the plain version first "
+                "at index (3, 1)")
+        return ("instance",)
+
+    monkeypatch.setattr(kernels, "_compile", compile_stub)
+    monkeypatch.setattr(kernels, "_open", open_stub)
+    monkeypatch.setattr(kernel_check, "check_library", check_stub)
+    return compiles, script, opened
+
+
+def test_guard_passing_check_keeps_one_build(stub_build, tmp_path):
+    compiles, script, opened = stub_build
+    script += [True]
+    kernels.build_all(("slim_encode",))
+    assert len(compiles) == 1 and len(opened) == 1
+    final = kernels.lib_path("slim_encode")
+    assert final.exists() and sorted(tmp_path.iterdir()) == [final]
+    assert kernels.GUARD["slim_encode"]["instances"] == ("instance",)
+    assert kernels.GUARD["slim_encode"]["rebuilt"] is False
+    assert kernels.load("slim_encode") == f"lib@{opened[0]}"
+    kernels.build_all(("slim_encode",))      # cached: neither built
+    assert len(compiles) == 1 and not script  # nor checked again
+
+
+def test_guard_failing_once_rebuilds_once(stub_build, tmp_path):
+    compiles, script, opened = stub_build
+    script += [False, True]
+    kernels.build_all(("plane_decode",))
+    assert len(compiles) == 2 and len(opened) == 2 and not script
+    assert compiles[0][1] != compiles[1][1]
+    final = kernels.lib_path("plane_decode")
+    assert sorted(tmp_path.iterdir()) == [final]
+    assert kernels.GUARD["plane_decode"]["rebuilt"] is True
+    assert kernels._LIBS["plane_decode"] == f"lib@{opened[1]}"
+
+
+def test_guard_failing_twice_raises_and_keeps_nothing(stub_build, tmp_path):
+    compiles, script, _opened = stub_build
+    script += [False, False]
+    with pytest.raises(RuntimeError, match=r"full_encode\.cu failed its "
+                       r"first-use check twice(.|\n)*output rec differs "
+                       r"from the plain version first at index \(3, 1\)"):
+        kernels.build_all(("full_encode",))
+    assert len(compiles) == 2
+    assert not list(tmp_path.iterdir())
+    assert "full_encode" not in kernels._LIBS
+    assert "full_encode" not in kernels.GUARD
+
+
+def test_guard_covers_every_kernel_instance():
+    """The first-use check has an instance for every launch function that
+    each library of ``KERNELS`` exports, and no other."""
+    from icer_compression_tpu_torch import kernel_check
+    assert sorted(kernel_check.CHECKS) == sorted(kernels.KERNELS)
+    for name in kernels.KERNELS:
+        exported = re.findall(r'extern "C" int (\w+)\(',
+                              (kernels.CSRC / f"{name}.cu").read_text())
+        assert sorted(i.symbol for i in kernel_check.CHECKS[name]) \
+            == sorted(exported)
+
+
+@pytest.mark.parametrize("name", ["slim_encode", "plane_decode",
+                                  "full_encode"])
+def test_guard_inputs_run_through_every_wrapper(name):
+    """The check's fixed inputs are valid for each instance's wrapper (here
+    the plain versions on both sides) and leave the launch counts alone."""
+    import torch
+    from icer_compression_tpu_torch import kernel_check as K
+    before = [fn.launches for fn in K._COUNTED]
+    assert K.check_library(name, device="cpu") \
+        == tuple(i.label for i in K.CHECKS[name])
+    assert [fn.launches for fn in K._COUNTED] == before
+    words = K.coder_words()
+    assert words.shape == (K.L, K.LANES)
+    assert int((words & 1).sum()) > 0 and not bool((words[:, 0] != 0).any())
+    assert bool((((words >> 1) & 31)[(words & 1) == 1] == 17).any())
+    _blob, unit = K.decode_unit()
+    assert unit["offs"].shape == (9, 4) and (unit["hmax"], unit["wmax"]) \
+        == (16, 11)
+    err = K._k2(torch.device("cpu"))[1]
+    assert 0 < int(err.sum()) < 4          # the cut retires some lanes
+
+
+def test_first_difference_names_the_index():
+    import torch
+    from icer_compression_tpu_torch.kernel_check import first_difference
+    a = torch.zeros((4, 3), dtype=torch.int32)
+    b = a.clone()
+    assert first_difference("K2", "out", a, b) is None
+    b[2, 1] = 7
+    b[3, 0] = 1
+    msg = first_difference("K2", "out", a, b)
+    assert "K2: output out" in msg and "index (2, 1)" in msg \
+        and "2 elements" in msg
+    assert "int32 (4, 3)" in first_difference("K2", "pos", a, b[:2])

@@ -18,7 +18,8 @@ the check and pass it; builds the native host runtime
      overflows the eviction side buffer and on a block whose lanes need
      the reorder-window eviction; its two-word instance on that eviction
      block and on a block of 33,024 steps whose allocation ordinals pass
-     2^15 (the wrapper picks that mode there itself);
+     2^15 (the wrapper picks that mode there itself; that block's plain
+     version runs on the host CPU);
   2. holds kernel 2 (multi-round plane decoder) bit-equal to its plain
      version on a crop of boat, lossless and at a truncating quota;
   3. drives the main path: boat 512 lossless (stages 4, filter A, 6
@@ -123,6 +124,25 @@ the check and pass it; builds the native host runtime
      scripts/pin_faults.py); the same faults on a 64x64 crop equal their
      pins, and kernel 2 on their joint plan equals its plain version run
      on the host CPU.
+ 23. the host codec: boat 512 lossless through ``compress`` with
+     ``backend="native"`` (the native runtime and its quota-aware tranche
+     allocator) and ``"numpy"`` (per plane) must hash to the golden
+     stream, quota 50,000 through ``"native"`` must match its pins, and
+     the native decode must return boat; the sequential ``"python"``
+     decode runs on boat's 64x64 centre crop; phase 16's colour image
+     through ``compress_yuv(backend="native")`` must match the colour
+     stream pins and decode through ``"native"`` to Y, U and V; each host
+     wall is logged beside the card path's;
+ 24. multi-GPU on the one card: worlds of ``parallel/`` on
+     ``torch.distributed``, each rank a process of this script
+     (``--sharded-rank``) on cuda:0: one rank over NCCL, and two ranks
+     over gloo (NCCL refuses two ranks on one device) as meshes 2 x 1
+     (the data axis) and 1 x 2 (the seg axis).  Every rank's
+     ``ShardedGrayscaleEncoder`` streams of phase 4's batch and boat must
+     equal ``compress_batch``'s and boat's the golden stream, its
+     ``ShardedGrayscaleDecoder`` pixels the inputs, its
+     ``ShardedColorEncoder`` streams of phase 17's colour batch
+     ``compress_yuv_batch``'s, and it must launch kernels 1 and 2.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -140,6 +160,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1176,6 +1197,7 @@ def color_phases(dev, card, boat, pins):
         bd, dec_s = sync_time(lambda: D.decompress_yuv_batch(
             bs, qcfg, np.uint16, device=dev))
         if quota is None:
+            res["batch_streams"] = bs
             res["batch_launches"] = {
                 "slim_encode": ES.encode_lanes_slim.launches,
                 "plane_decode": PDc.decode_planes.launches}
@@ -1788,7 +1810,254 @@ def fault_phase(dev, card, boat, stream, cfg, pins):
             "retired": retired, "over": over}
 
 
+def host_codec_phase(dev, card, boat, cfg, golden, pins, color_pins,
+                     walls):
+    """Phase 23: the host codec.  Boat 512 lossless through ``compress``
+    with ``backend="native"`` and ``"numpy"`` hashes to the golden stream,
+    quota 50,000 through ``"native"`` to its pins, and the native decode
+    returns the input; the sequential ``"python"`` decode runs on boat's
+    64x64 centre crop (the per-pixel decoder is slow); phase 16's colour
+    image through ``compress_yuv(backend="native")`` matches its stream
+    pins and decodes through ``"native"`` to Y, U and V.  Each host wall
+    is logged beside the card path's on the same image (``walls``: the
+    card's boat encode and decode and colour encode and decode, seconds).
+    No kernel runs here."""
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import grayscale as T
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    host = {}
+    for backend in ("native", "numpy"):
+        s, host[f"boat encode {backend}"] = sync_time(
+            lambda b=backend: T.compress(boat, cfg, backend=b))
+        if sha(s) != golden:
+            raise AssertionError(f"host codec: boat lossless through "
+                                 f"{backend} differs from the golden sha")
+    d, host["boat decode native"] = sync_time(
+        lambda: T.decompress(s, cfg, np.uint16, backend="native"))
+    if not np.array_equal(d, boat):
+        raise AssertionError("host codec: native decode differs from boat")
+    cfg50 = T.CodecConfig(4, 0, 6, 50000)
+    s50 = T.compress(boat, cfg50, backend="native")
+    d50 = T.decompress(s50, cfg50, np.uint16, backend="native")
+    if [sha(s50), pixels_sha(d50)] != pins:
+        raise AssertionError("host codec: quota 50000 through native "
+                             "differs from its pins")
+    crop = np.ascontiguousarray(boat[FAULT_CROP])
+    cs, card_crop_enc = sync_time(lambda: T.compress(crop, cfg, device=dev))
+    cd, card_crop_dec = sync_time(
+        lambda: T.decompress(cs, cfg, np.uint16, device=dev))
+    pd, host["crop64 decode python"] = sync_time(
+        lambda: T.decompress(cs, cfg, np.uint16, backend="python"))
+    nd, host["crop64 decode native"] = sync_time(
+        lambda: T.decompress(cs, cfg, np.uint16, backend="native"))
+    if not (np.array_equal(pd, crop) and np.array_equal(nd, crop)
+            and np.array_equal(cd, crop)):
+        raise AssertionError("host codec: a 64x64 crop decode differs")
+    rgb = color_boat(boat.astype(np.uint8))
+    for i, (label, dtype, quota) in enumerate(COLOR_PINS):
+        planes = color_planes(rgb, dtype)
+        qcfg = T.CodecConfig(4, 0, 6, quota)
+        cstream, t = sync_time(lambda: TC.compress_yuv(
+            *planes, qcfg, backend="native"))
+        if sha(cstream) != color_pins[2 * i]:
+            raise AssertionError(f"host codec: colour {label} through "
+                                 "native differs from its pin")
+        if i == 0:
+            host["colour encode native"] = t
+            back, host["colour decode native"] = sync_time(
+                lambda: TC.decompress_yuv(cstream, qcfg, dtype,
+                                          backend="native"))
+            if not all(np.array_equal(a, b) for a, b in zip(back, planes)):
+                raise AssertionError("host codec: colour native decode "
+                                     "differs from Y, U and V")
+    card_walls = {"boat encode": walls["enc"], "boat decode": walls["dec"],
+                  "crop64 encode": card_crop_enc,
+                  "crop64 decode": card_crop_dec,
+                  "colour encode": walls["color_enc"],
+                  "colour decode": walls["color_dec"]}
+    log("host codec: boat lossless through native and numpy == golden, "
+        "quota 50000 native == its pins, native decode == boat; 64x64 crop "
+        "through the python decode == crop; colour pins through native "
+        "(u16 unlimited, u16 150000, u8) match, native colour decode == "
+        "Y, U and V.  Host walls (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in host.items())
+        + "; the card path on the same images (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in card_walls.items())
+        + f" | {card}")
+    return {"host_s": host, "card_s": card_walls}
+
+
+# phase 24's worlds: (process-group backend, ranks, data axis); every rank
+# runs on cuda:0, so a world of two takes gloo (NCCL refuses two ranks on
+# one device)
+SHARDED_WORLDS = (("nccl", 1, 1), ("gloo", 2, 1), ("gloo", 2, 2))
+SHARDED_TIMEOUT_S = 300
+
+
+def sharded_images(boat: np.ndarray, data: int) -> np.ndarray:
+    """Phase 4's 8 noisy boat variants, then boat, then boat again until
+    the batch is a multiple of the data axis."""
+    h, w = boat.shape
+    rng = np.random.default_rng(1234)
+    imgs = list(np.clip(boat[None].astype(np.int32)
+                        + rng.integers(-6, 7, (8, h, w)), 0, 255)
+                .astype(np.uint16)) + [boat]
+    while len(imgs) % data:
+        imgs.append(boat)
+    return np.stack(imgs)
+
+
+def sharded_colour_planes(boat: np.ndarray) -> list:
+    """Phase 17's colour batch as (ys, us, vs), each (4, h, w)."""
+    rgb = color_boat(boat.astype(np.uint8))
+    rng = np.random.default_rng(1234)
+    variants = [np.clip(rgb.astype(np.int32)
+                        + rng.integers(-6, 7, rgb.shape), 0, 255)
+                .astype(np.uint8) for _ in range(4)]
+    planes = [color_planes(c, np.uint16) for c in variants]
+    return [np.stack(c) for c in zip(*planes)]
+
+
+def sharded_rank(rank: int, world: int, data: int, backend: str, port: int,
+                 out: str, device: str) -> int:
+    """One rank of a phase-24 world (``chip_smoke.py --sharded-rank``):
+    the sharded grayscale encoder, decoder and colour encoder on
+    ``device``;
+    writes its streams' sha256, the decode's equality, its kernel
+    launches and walls to ``out/rank{rank}.json``.  Prints no result
+    line."""
+    from icer_compression_tpu_torch.models.grayscale import CodecConfig
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.parallel import distributed, sharded
+    from icer_compression_tpu_torch.utils.image_io import read_png
+
+    # the ranks share the host's cores (as torchrun's one thread per
+    # process when several run on a node)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if not distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank,
+                                  backend=backend, device=device):
+        raise AssertionError("no process group")
+    mesh = distributed.global_mesh(data=data, device=device)
+    boat = read_png(REPO / "tests" / "data" / "boat.512.png") \
+        .astype(np.uint16)
+    h, w = boat.shape
+    imgs = sharded_images(boat, data)
+    ys, us, vs = sharded_colour_planes(boat)
+    cfg = CodecConfig(4, 0, 6, None)
+    ES.encode_lanes_slim.launches = 0
+    ES.encode_lanes_slim_two_word.launches = 0
+    PDc.decode_planes.launches = 0
+    enc = sharded.ShardedGrayscaleEncoder(mesh, w, h, 4, 0, 6)
+    dec = sharded.ShardedGrayscaleDecoder(mesh, w, h, cfg)
+    cenc = sharded.ShardedColorEncoder(mesh, w, h, 4, 0, 6)
+    walls = {}
+    for turn in ("first", "second"):
+        streams, walls[f"encode {turn}"] = sync_time(
+            lambda: enc.compress_batch(imgs, cfg))
+        decoded, walls[f"decode {turn}"] = sync_time(
+            lambda: dec.decode_batch(streams))
+        colour, walls[f"colour encode {turn}"] = sync_time(
+            lambda: cenc.compress_batch(ys, us, vs, cfg))
+    res = {"rank": rank, "mesh": mesh.shape, "batch": len(imgs),
+           "shas": [hashlib.sha256(s).hexdigest() for s in streams],
+           "colour_shas": [hashlib.sha256(s).hexdigest() for s in colour],
+           "decoded_equal": all(np.array_equal(a, b)
+                                for a, b in zip(decoded, imgs)),
+           "slim_encode": ES.encode_lanes_slim.launches
+           + ES.encode_lanes_slim_two_word.launches,
+           "plane_decode": PDc.decode_planes.launches,
+           "host_reencode_lanes": enc.enc.fallback_lanes, "walls_s": walls}
+    with open(Path(out) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(card, boat, golden, gray_streams, colour_streams,
+                  device: str = "cuda:0"):
+    """Phase 24: multi-GPU on the one card.  A world of 1 over NCCL and
+    worlds of 2 processes over gloo sharing cuda:0, meshes 2 x 1 (the
+    data axis) and 1 x 2 (the seg axis), each rank a process of this
+    script.  Every rank's grayscale streams (phase 4's batch and boat)
+    must equal ``compress_batch``'s (``gray_streams``) and boat's the
+    golden stream, its decode the inputs, its colour streams phase 17's
+    ``compress_yuv_batch`` (``colour_streams``); every rank must launch
+    kernels 1 and 2.  A failure of any rank fails the phase."""
+    want_colour = [hashlib.sha256(s).hexdigest() for s in colour_streams]
+    res = {}
+    for backend, n, data in SHARDED_WORLDS:
+        port = _free_port()
+        label = f"{backend} {data}x{n // data}"
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--sharded-rank", str(r), str(n), str(data), backend,
+                 str(port), out, device], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(n)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=max(
+                        1.0, t0 + SHARDED_TIMEOUT_S - time.perf_counter()))[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            for r, (p, out_r) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    raise AssertionError(f"sharded {label}: rank {r} failed "
+                                         f"({p.returncode}):\n{out_r[-4000:]}")
+            ranks = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                     for r in range(n)]
+        want = [hashlib.sha256(s).hexdigest() for s in gray_streams] \
+            + [golden] * (ranks[0]["batch"] - len(gray_streams))
+        for r in ranks:
+            if r["shas"] != want:
+                raise AssertionError(f"sharded {label} rank {r['rank']}: "
+                                     "streams differ from compress_batch's "
+                                     "or the golden")
+            if r["colour_shas"] != want_colour:
+                raise AssertionError(f"sharded {label} rank {r['rank']}: "
+                                     "colour streams differ from "
+                                     "compress_yuv_batch's")
+            if not r["decoded_equal"]:
+                raise AssertionError(f"sharded {label} rank {r['rank']}: "
+                                     "decode differs from the inputs")
+            if r["slim_encode"] <= 0 or r["plane_decode"] <= 0:
+                raise AssertionError(f"sharded {label} rank {r['rank']}: "
+                                     "a kernel did not launch")
+            log(f"sharded {label} rank {r['rank']} (mesh {r['mesh']}): "
+                f"{r['batch']} grayscale streams == compress_batch, boat's "
+                "== golden, decode == inputs, 4 colour streams == "
+                f"compress_yuv_batch; K1 {r['slim_encode']} K2 "
+                f"{r['plane_decode']} launches, {r['host_reencode_lanes']} "
+                "host re-encode lanes; walls (s) "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["walls_s"].items())
+                + f" | {card}")
+        log(f"sharded {label}: world of {n} in {wall:.1f} s")
+        res[label] = {"ranks": ranks, "wall_s": wall}
+    return res
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        a = sys.argv[2:]
+        return sharded_rank(int(a[0]), int(a[1]), int(a[2]), a[3],
+                            int(a[4]), a[5], a[6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1901,10 +2170,13 @@ def main() -> int:
         f"{k1w_short_plain_s:.1f} s")
     lw = long_ordinal_words(np.random.default_rng(3)).to(dev)
     kl = ES.encode_lanes_slim_two_word(lw)
+    # its plain version on the host CPU, where the per-step ops cost less
+    # than as launches on the card (as for the longest block below)
     pl, k1w_plain_s = sync_time(
-        lambda: ES.encode_lanes_slim_plain(lw, two_word=True))
+        lambda: ES.encode_lanes_slim_plain(lw.cpu(), two_word=True))
     for nm, a, b in zip(two_word_outs, kl, pl):
-        k1w_err = max(k1w_err, assert_equal(f"K1 two-word long {nm}", a, b))
+        k1w_err = max(k1w_err, assert_equal(f"K1 two-word long {nm}",
+                                            a.cpu(), b))
     top = int(torch.where(kl[0] != 0, kl[1], 0).max())
     if not (top >= 1 << 15 and int(kl[3][1].min()) > 1 << 15
             and bool((kl[3][2][1:] > 0).all())):
@@ -1915,9 +2187,10 @@ def main() -> int:
     k1w_long_b = k1_bound(lw, kl[3], two_word=True)
     log(f"K1 two-word instance, block {tuple(lw.shape)} with allocation "
         f"ordinals up to {top} (allocations {kl[3][1].tolist()}, evictions "
-        f"{kl[3][2].tolist()}): bit-equal to plain (tolerance 0); kernel "
-        f"{k1w_long_ms:.3f} ms (bound {k1w_long_b[0]:.5f} ms, "
-        f"{k1w_long_b[1]}), plain {k1w_plain_s:.1f} s | {card}")
+        f"{kl[3][2].tolist()}): bit-equal to plain on the host CPU "
+        f"(tolerance 0); kernel {k1w_long_ms:.3f} ms (bound "
+        f"{k1w_long_b[0]:.5f} ms, {k1w_long_b[1]}), plain {k1w_plain_s:.1f} "
+        f"s | {card}")
     # the longest lanes kernel 1 takes (the bin state's 17-bit ordinal
     # field); the plain version, a loop of small per-step ops, runs on the
     # host CPU, where they cost less than as launches on the card
@@ -2094,6 +2367,12 @@ def main() -> int:
     flt = fault_phase(dev, card, boat, stream, cfg, dict(
         ln.split(None, 1)[::-1] for ln in
         (data / "golden_faults.sha256").read_text().splitlines()))
+    hst = host_codec_phase(dev, card, boat, cfg, golden, pins, [
+        ln.split()[0] for ln in
+        (data / "golden_color512.sha256").read_text().splitlines()], {
+        "enc": enc_med, "dec": dec_med, "color_enc": col["enc_ms"] / 1e3,
+        "color_dec": col["dec_ms"] / 1e3})
+    shd = sharded_phase(card, boat, golden, streams, col["batch_streams"])
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
              "plane_decode": {}}
     for path, counts in (
@@ -2104,7 +2383,11 @@ def main() -> int:
              ("faults", flt["launches"])]
             + list(lng["launches"].items())
             + [(f"cli defaults {op}", r["launches"])
-               for op, r in cld.items()]):
+               for op, r in cld.items()]
+            + [(f"sharded {label} rank {r['rank']} (per rank)",
+                {"slim_encode": r["slim_encode"],
+                 "plane_decode": r["plane_decode"]})
+               for label, world in shd.items() for r in world["ranks"]]):
         for k, n in counts.items():
             paths[k][path] = n
 
@@ -2186,7 +2469,7 @@ def main() -> int:
          "long_plain_check": {
              "shape": f"L={lw.shape[0]} lanes={lw.shape[1]} (ordinals past "
                       "2^15)",
-             "ms": k1w_long_ms, "plain_ms": 1e3 * k1w_plain_s,
+             "ms": k1w_long_ms, "plain_cpu_ms": 1e3 * k1w_plain_s,
              "bound_ms": k1w_long_b[0], "top_ordinal": top},
          "longest_plain_check": {
              "shape": f"L={hw.shape[0]} lanes={hw.shape[1]} (ordinals past "
@@ -2212,7 +2495,11 @@ def main() -> int:
                     for k, g in {**kernels.GUARD, **guard}.items())
         + "; cli defaults peak allocated GB "
         + ", ".join(f"{op} {r['peak_allocated_gb']:.2f}"
-                    for op, r in cld.items()))
+                    for op, r in cld.items())
+        + "; host codec s " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in hst["host_s"].items())
+        + "; sharded world walls s " + ", ".join(
+            f"{k} {v['wall_s']:.1f}" for k, v in shd.items()))
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

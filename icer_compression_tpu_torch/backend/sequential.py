@@ -1,17 +1,23 @@
-"""Sequential, bit-exact interleaved entropy coder (host re-encode path).
+"""Sequential, bit-exact interleaved entropy coder and decoder.
 
-Counterpart: ``icer_compression_tpu/backend/sequential.py``, encode side
-only (``compute_bin``, ``ContextCounters``, ``InterleavedEncoder``,
-``encode_emissions``).  The encoder re-encodes, exactly, the lanes that
-the slim coder kernel flags (eviction side buffer overflow) or whose
-packed payload exceeds the lane's cap.  Behaviour mirrors
-lib_icer/src/icer_encoding.c, including its quirks:
+Counterpart: ``icer_compression_tpu/backend/sequential.py``
+(``compute_bin``, ``ContextCounters``, ``InterleavedEncoder``,
+``encode_emissions``, ``InterleavedDecoder``).  The encoder is the
+reference the native runtime's re-encode of flagged lanes is held to, and
+codes the planes of the host codec's ``numpy`` path that need the
+reorder-window flush; the decoder runs the host codec's ``python`` decode
+(backend/decode_plane).  Behaviour mirrors lib_icer/src/icer_encoding.c
+and icer_decoding.c, including their quirks:
 
   - the codeword-in-progress buffer holds at most CIRC_BUF_SIZE words; when
     full, the *oldest* in-progress codeword is force-completed with the
     bin's flush rule (icer_encoding.c:59-64, 141-189);
   - counter rescaling halves zero_count only when it exceeds the halved
-    total_count (icer_context_modeller.c:398-402).
+    total_count (icer_context_modeller.c:398-402);
+  - the decoder discards a bin's buffered bits when its last codeword is
+    CIRC_BUF_SIZE decoded codewords old (icer_decoding.c:128);
+  - the decoder's out-of-data guards compare against the frozen total
+    stream length (icer_decoding.c:14 is its only write).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import constants as C
+from ..core.status import IcerError, IcerStatus
 
 CTX_UNCODED = 17
 
@@ -202,3 +209,120 @@ def encode_emissions(valid, ctx, bit) -> tuple[bytes, int, int]:
     enc.flush()
     payload, nbits = enc.payload()
     return payload, nbits, enc.flush_events
+
+
+class InterleavedDecoder:
+    """Mirror of icer_decoder_context_typedef and icer_decode_bit."""
+
+    def __init__(self, payload, encoded_bits: int):
+        self.data = payload
+        self.encoded_bits = encoded_bits
+        self.pos = 0                   # consumed bit position
+        self.decoded_words = 0
+        self.bin_buf = [0] * (C.ENCODER_BIN_MAX + 1)
+        self.bin_bits = [0] * (C.ENCODER_BIN_MAX + 1)
+        self.bin_decode_index = [0] * (C.ENCODER_BIN_MAX + 1)
+
+    def _bit_at(self, bitpos: int) -> int:
+        byte_i, bit_i = divmod(bitpos, 8)
+        if byte_i >= len(self.data):
+            return 0   # the reference reads adjacent memory here; zeros
+        return (self.data[byte_i] >> bit_i) & 1
+
+    def _peek_bit(self, ahead: int) -> int:
+        """icer_get_bit_from_codeword: the ``ahead``-th next bit."""
+        return self._bit_at(self.pos + ahead - 1)
+
+    def _peek_bits(self, nbits: int) -> int:
+        if nbits > self.encoded_bits:
+            raise IcerError(IcerStatus.DECODER_OUT_OF_DATA)
+        v = 0
+        for i in range(nbits):
+            v |= self._bit_at(self.pos + i) << i
+        return v
+
+    def _pop_bits(self, nbits: int) -> int:
+        v = self._peek_bits(nbits)
+        self.pos += nbits
+        return v
+
+    # per-bin stack, consumed newest first (the original coding order)
+    def _push(self, value: int, nbits: int, b: int) -> None:
+        self.bin_buf[b] |= value << self.bin_bits[b]
+        self.bin_bits[b] += nbits
+
+    def _consume(self, b: int) -> int:
+        n = self.bin_bits[b] - 1
+        bitv = (self.bin_buf[b] >> n) & 1
+        self.bin_buf[b] &= ~(1 << n)
+        self.bin_bits[b] = n
+        return bitv
+
+    def decode_bit(self, zero_cnt: int, total_cnt: int) -> int:
+        inv = 0
+        if zero_cnt < (total_cnt >> 1):
+            zero_cnt = total_cnt - zero_cnt
+            inv = 1
+        b = compute_bin(zero_cnt, total_cnt)
+        if (self.bin_bits[b] <= 0 or self.decoded_words
+                - self.bin_decode_index[b] >= C.CIRC_BUF_SIZE):
+            self.bin_bits[b] = 0
+            self.bin_buf[b] = 0
+            if b > 7:
+                # golomb bins
+                m, l, i = (int(C.GOLOMB_M[b]), int(C.GOLOMB_L[b]),
+                           int(C.GOLOMB_I[b]))
+                if self._peek_bit(1):
+                    self._pop_bits(1)
+                    self._push(0, m, b)
+                else:
+                    k = C.reverse_bits(self._peek_bits(l), l)
+                    if k < i:
+                        self._pop_bits(l)
+                        self._push(1, 1, b)
+                        self._push(0, k, b)
+                    else:
+                        k = C.reverse_bits(self._pop_bits(l + 1), l + 1)
+                        self._push(1, 1, b)
+                        self._push(0, k - i, b)
+            elif b != 0:
+                # custom codes: incremental prefix match, at most 10 bits
+                codeword = 0
+                num_bits = 0
+                while True:
+                    if num_bits + 1 >= self.encoded_bits:
+                        raise IcerError(IcerStatus.DECODER_OUT_OF_DATA)
+                    codeword |= self._peek_bit(num_bits + 1) << num_bits
+                    num_bits += 1
+                    if codeword >= C.CUSTOM_CODING_MAX_LOOKUP:
+                        raise IcerError(IcerStatus.DECODED_INVALID_DATA)
+                    hit = _DECODE_LOOKUP[b].get((codeword, num_bits))
+                    if hit is not None:
+                        in_val, in_bits = hit
+                        self._push(C.reverse_bits(in_val, in_bits), in_bits,
+                                   b)
+                        if self._pop_bits(num_bits) != codeword:
+                            raise IcerError(IcerStatus.DECODED_INVALID_DATA)
+                        break
+                    if num_bits >= 10:
+                        raise IcerError(IcerStatus.DECODED_INVALID_DATA)
+            else:
+                # uncoded bin
+                self._push(self._pop_bits(1), 1, b)
+            self.decoded_words += 1
+            self.bin_decode_index[b] = self.decoded_words
+        return self._consume(b) ^ inv
+
+
+def _build_decode_lookup():
+    """Stream codeword (value, nbits) -> input pattern (value, nbits) per
+    custom bin: the inverse of the encode tables (icer_init_decodescheme
+    and its bit reversal)."""
+    tables: list[dict] = [dict() for _ in range(C.ENCODER_BIN_MAX + 1)]
+    for b, entries in C.CUSTOM_CODES.items():
+        for (iv, ib, ov, ob) in entries:
+            tables[b][(ov, ob)] = (iv, ib)
+    return tables
+
+
+_DECODE_LOOKUP = _build_decode_lookup()

@@ -11,8 +11,13 @@ preview, and the batch operations (batch-compress / batch-decompress: B
 same-geometry images per device batch, K batches in flight through the
 ``defer`` collectors; mixed geometries are bucketed by shape).  --device
 picks where the codec runs (``cuda``, the default, or ``cpu`` for the
-kernels' plain versions); there is one compute path per device, and a
-failure raises instead of switching to another path.
+kernels' plain versions).  --backend picks the compute path of compress
+and decompress: ``device`` (the default, on --device), ``native`` (the
+native host runtime) or ``numpy`` (the per-plane host encode; the
+sequential ``python`` decode), the counterpart of the JAX CLI's
+--backend.  A backend that cannot run (no CUDA device, a native runtime
+that does not build) raises, so the command exits non-zero; no path
+switches to another.
 """
 
 from __future__ import annotations
@@ -66,8 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--color", action="store_true")
     p.add_argument("-G", "--grayscale", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the codec runs (default cuda; cpu runs the "
-                        "kernels' plain PyTorch versions)")
+                   help="where the device backend runs (default cuda; cpu "
+                        "runs the kernels' plain PyTorch versions)")
+    p.add_argument("--backend", choices=["device", "native", "numpy"],
+                   default="device",
+                   help="compress/decompress compute path: device (default; "
+                        "the card, or the plain versions with --device "
+                        "cpu), native (the native host runtime) or numpy "
+                        "(per-plane host encode, sequential python decode). "
+                        "native and numpy run on the host and ignore "
+                        "--device; batch operations take only device")
     p.add_argument("--time", action="store_true", help="print timings")
     p.add_argument("--prefix", type=int, default=0, metavar="BYTES",
                    help="decompress only the first BYTES of the stream "
@@ -94,10 +107,12 @@ def cmd_compress(args) -> int:
     t0 = time.time()
     if is_color:
         y, u, v = (c.astype(np.uint16) for c in rgb_to_ycbcr(arr))
-        stream = color_model.compress_yuv(y, u, v, cfg, device=args.device)
+        stream = color_model.compress_yuv(y, u, v, cfg, device=args.device,
+                                          backend=args.backend)
     else:
         stream = gray_model.compress(arr.astype(np.uint16), cfg,
-                                     device=args.device)
+                                     device=args.device,
+                                     backend=args.backend)
     dt = time.time() - t0
     with open(args.output, "wb") as f:
         f.write(stream)
@@ -126,14 +141,16 @@ def cmd_decompress(args) -> int:
         return 1
     cfg = CodecConfig(stages=args.stages, filt=_parse_filter(args.filter),
                       segments=args.segments)
+    backend = "python" if args.backend == "numpy" else args.backend
     t0 = time.time()
     if args.color:
         y, u, v = color_model.decompress_yuv(data, cfg, dtype=np.uint16,
-                                             device=args.device)
+                                             device=args.device,
+                                             backend=backend)
         arr = ycbcr_to_rgb(y, u, v)
     else:
         arr = gray_model.decompress(data, cfg, dtype=np.uint16,
-                                    device=args.device)
+                                    device=args.device, backend=backend)
         arr = np.clip(arr, 0, 255).astype(np.uint8)
     dt = time.time() - t0
     save_image(args.output, arr)
@@ -289,6 +306,11 @@ def cmd_batch_decompress(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.operation.startswith("batch-") and args.backend != "device":
+        print(f"error: --backend {args.backend} runs compress and decompress "
+              "only; batch operations run on the device backend",
+              file=sys.stderr)
+        return 2
     if args.operation == "compress":
         return cmd_compress(args)
     if args.operation == "batch-compress":

@@ -13,8 +13,14 @@ The decode runs the lane-batched decoder over 3 canvases per stream
 (models/decode, kernel 2).  Streams are byte-identical and decodes
 pixel-identical to the JAX package's.
 
-Every entry point takes ``device=None``, which means ``"cuda"``; without a
-CUDA device the caller must pass ``device="cpu"``.
+``compress_yuv`` and ``decompress_yuv`` also take the host codec's
+``backend`` (``"native"``; ``"numpy"`` with the ``encode_plane`` hook,
+``"python"`` with ``decode_partition``), as in models/grayscale: the
+native encode runs the quota-aware tranche allocator over the three
+channels' transformed images.
+
+Every card entry point takes ``device=None``, which means ``"cuda"``;
+without a CUDA device the caller must pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,8 +31,13 @@ from ..core.packets import (build_packets_color, rearrange_order_color_uint8,
                             rearrange_order_color_uint16, sort_packets)
 from ..core.status import IcerError, IcerStatus
 from ..device import resolve_device
-from .grayscale import (PLANE_MASS, CodecConfig, _bitplanes, _cached_encoder,
-                        _mag_bits, allocate_from_table, assemble_stream)
+from .grayscale import (DECODE_BACKENDS, ENCODE_BACKENDS, PLANE_MASS,
+                        CodecConfig, _bitplanes, _cached_encoder, _mag_bits,
+                        _pick_backend, allocate_from_table, assemble_stream,
+                        encode_native_tranches, encode_per_plane,
+                        encode_plane_payload, finish_channel,
+                        reconstruct_channel, scan_table,
+                        transform_for_encode)
 
 _YUV_QUOTA_CLASSES: dict[tuple, list] = {}
 
@@ -99,18 +110,26 @@ def _allocate_yuv(results, config, w, h, bitplanes, order) -> bytes:
 
 
 def compress_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray,
-                 config: CodecConfig, device=None) -> bytes:
+                 config: CodecConfig, device=None, encode_plane=None,
+                 backend: str | None = None) -> bytes:
     """Compress three equally sized channel planes (uint8 or uint16) into
-    one stream.  The planes encode as one (3, h, w) batch, only the
-    priority-prefix bitplanes of the quota's class; when the allocation
-    needs a plane outside it, the encode widens to the next class and
-    codes only the planes that adds."""
+    one stream.  On the card (``backend="device"``, the default) the
+    planes encode as one (3, h, w) batch, only the priority-prefix
+    bitplanes of the quota's class; when the allocation needs a plane
+    outside it, the encode widens to the next class and codes only the
+    planes that adds.  ``"native"`` and ``"numpy"`` (or an
+    ``encode_plane`` hook) run the host codec, as ``grayscale.compress``
+    does."""
     y, u, v, mag_bits = _check_planes(y, u, v)
     if y.ndim != 2:
         raise IcerError(IcerStatus.INVALID_INPUT, "expected (h, w) planes")
-    dev = resolve_device(device)
+    backend = _pick_backend(backend, encode_plane, ENCODE_BACKENDS, "numpy")
     bitplanes = _bitplanes(mag_bits)
     h, w = y.shape
+    if backend != "device":
+        return _compress_yuv_host((y, u, v), config, mag_bits, backend,
+                                  encode_plane or encode_plane_payload)
+    dev = resolve_device(device)
     classes = yuv_quota_classes(w, h, config.stages, bitplanes)
     quota = config.byte_quota
     if quota is None:
@@ -146,6 +165,30 @@ def compress_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray,
             ci += 1
 
 
+def _compress_yuv_host(planes, config, mag_bits, backend, encode_plane):
+    """The host codec's colour encode: each channel transformed on the
+    host, one packet list over the three (Y-priority doubling), then the
+    native tranche allocator or the per-plane quota loop."""
+    bitplanes = _bitplanes(mag_bits)
+    h, w = planes[0].shape
+    native = backend == "native"
+    chans, ll_means = {}, []
+    for c, plane in enumerate(planes):
+        chans[c], mean = transform_for_encode(plane, config.stages,
+                                              config.filt, mag_bits,
+                                              native=native)
+        ll_means.append(mean)
+    packets = sort_packets(build_packets_color(w, h, config.stages, ll_means,
+                                               bitplanes))
+    if native:
+        encoded = encode_native_tranches(chans, packets, config, mag_bits,
+                                         w, h)
+    else:
+        encoded = encode_per_plane(chans, packets, config, mag_bits, w, h,
+                                   encode_plane)
+    return assemble_stream(encoded, _rearrange_order(mag_bits, bitplanes))
+
+
 def compress_yuv_batch(ys, us, vs, config: CodecConfig, device=None,
                        defer: bool = False):
     """Compress B same-geometry colour images (``ys``, ``us``, ``vs``: B
@@ -177,12 +220,31 @@ def compress_yuv_batch(ys, us, vs, config: CodecConfig, device=None,
 
 
 def decompress_yuv(data: bytes, config: CodecConfig, dtype=np.uint16,
-                   device=None, max_pixels: int | None = None):
+                   device=None, max_pixels: int | None = None,
+                   decode_partition=None, backend: str | None = None):
     """Decompress one colour stream into its (y, u, v) planes.
     ``max_pixels`` (default ``models.decode.DEFAULT_MAX_PIXELS``) bounds the
     canvas the untrusted header may ask for.  A channel whose every segment
     the quota cut decodes to zeros with LL mean 0 (the reference leaves
-    that case undefined, icer_color.c:229/555)."""
-    from .decode import decompress_yuv_batch
-    return decompress_yuv_batch([data], config, dtype=dtype, device=device,
-                                max_pixels=max_pixels)[0]
+    that case undefined, icer_color.c:229/555).  ``backend`` and
+    ``decode_partition`` as in ``grayscale.decompress``: the host paths
+    key the scan by the header's channel and decode each channel in
+    turn."""
+    backend = _pick_backend(backend, decode_partition, DECODE_BACKENDS,
+                            "python")
+    if backend == "device":
+        from .decode import decompress_yuv_batch
+        return decompress_yuv_batch([data], config, dtype=dtype,
+                                    device=device, max_pixels=max_pixels)[0]
+    mag_bits = _mag_bits(dtype)
+    bitplanes = _bitplanes(mag_bits)
+    table, (w, h), ll_means = scan_table(data, 3, max_pixels)
+    native = backend == "native"
+    out = []
+    for chan in range(3):
+        img = np.zeros((h, w), dtype=np.int32)
+        reconstruct_channel(img, table, chan, config, mag_bits, bitplanes,
+                            data, decode_partition, native=native)
+        out.append(finish_channel(img, ll_means[chan], config, mag_bits,
+                                  dtype, native=native))
+    return tuple(out)

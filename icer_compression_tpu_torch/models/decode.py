@@ -198,6 +198,33 @@ def _canvas_index(units, NC, w, h):
     return first, step
 
 
+def finalize(outs, units, ll_means, w: int, h: int, config: CodecConfig,
+             mag_bits: int, dev):
+    """The decode's finalize on the device: each unit's kernel-2 output
+    (hmax * wmax, n) gathered into the len(ll_means) sign-magnitude
+    canvases, two's complement, the LL means added back, the inverse DWT
+    and the clamp at 0.  Returns (pixels (NC, h, w) int32, the device
+    tensors the queued work reads)."""
+    NC = len(ll_means)
+    flat = [o.reshape(-1) for o in outs]
+    flat.append(torch.zeros(1, dtype=torch.int32, device=dev))
+    first, step = (to_device(a, dev) for a in _canvas_index(units, NC, w, h))
+    gidx = first + torch.arange(NC, dtype=first.dtype,
+                                device=dev)[:, None, None] * step
+    canvas = torch.cat(flat).index_select(0, gidx.reshape(-1)) \
+        .reshape(NC, h, w)
+    img = wavelet.from_sign_magnitude(canvas, mag_bits)
+    ll_w = dim_low(w, config.stages)
+    ll_h = dim_low(h, config.stages)
+    llv = to_device(np.asarray(ll_means, np.int32), dev)
+    img[:, :ll_h, :ll_w] = wavelet._wrap(
+        img[:, :ll_h, :ll_w] + llv[:, None, None], mag_bits)
+    img, _ov = wavelet.inverse_stages(img, config.stages, config.filt,
+                                      mag_bits)
+    px = torch.clamp(img, min=0)
+    return px, (flat, first, step, gidx, llv, canvas, px)
+
+
 def _passes(streams):
     """[start, end) ranges of consecutive streams whose joined bytes stay
     below ``PASS_BYTES``; a single stream that reaches it raises."""
@@ -249,24 +276,9 @@ def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
     NC = len(streams) * nchan
     stream_t = to_device(blob, dev)
     inputs = unit_inputs(units, dev)
-    outs = [out.reshape(-1) for out, _err, _pos in decode_units(
+    outs = [out for out, _err, _pos in decode_units(
         stream_t, inputs, bitplanes - 1, mag_bits)]
-    outs.append(torch.zeros(1, dtype=torch.int32, device=dev))
-    first, step = (to_device(a, dev) for a in _canvas_index(units, NC, w, h))
-    gidx = first + torch.arange(NC, dtype=first.dtype,
-                                device=dev)[:, None, None] * step
-    canvas = torch.cat(outs).index_select(0, gidx.reshape(-1)) \
-        .reshape(NC, h, w)
-
-    img = wavelet.from_sign_magnitude(canvas, mag_bits)
-    ll_w = dim_low(w, config.stages)
-    ll_h = dim_low(h, config.stages)
-    llv = to_device(np.asarray(ll_means, np.int32), dev)
-    img[:, :ll_h, :ll_w] = wavelet._wrap(
-        img[:, :ll_h, :ll_w] + llv[:, None, None], mag_bits)
-    img, _ov = wavelet.inverse_stages(img, config.stages, config.filt,
-                                      mag_bits)
-    px = torch.clamp(img, min=0)
+    px, keep = finalize(outs, units, ll_means, w, h, config, mag_bits, dev)
     if pack8 is None:
         # uint8-path pixels always fit a byte after the clamp; the uint16
         # path stays wide unless the caller opts in
@@ -275,8 +287,7 @@ def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
         fetched = to_host((px <= 255).all()), to_host(px.to(torch.uint8))
     else:
         fetched = None, to_host(px)
-    pending = Pending(dev, keep=(stream_t, inputs, outs, first, step, gidx,
-                                  llv, canvas, px))
+    pending = Pending(dev, keep=(stream_t, inputs, keep))
 
     def collect():
         pending.wait()

@@ -78,11 +78,16 @@ class Lane:
     col: int
     h: int
     w: int
+    dummy: bool = False   # a padding lane of a lane share: no pixels
 
 
-def _plan_groups(image_w, image_h, stages, segments):
+def _plan_groups(image_w, image_h, stages, segments, share=(1, 0)):
     """One group per stage: its subbands' segment lanes, padded to the
-    group's largest segment."""
+    group's largest segment.  ``share`` (n, k): the group's lanes, padded
+    with dummy lanes to a multiple of n, are cut into n equal runs and the
+    group keeps run k (a rank's share on the ``seg`` axis of
+    parallel/sharded); the padded size stays the whole group's."""
+    nshare, k = share
     groups = []
     for stage in range(1, stages + 1):
         subs = [C.SUBBAND_HL, C.SUBBAND_LH, C.SUBBAND_HH]
@@ -97,9 +102,14 @@ def _plan_groups(image_w, image_h, stages, segments):
                                   rect.h, rect.w))
         mh = max(l.h for l in lanes)
         mw = max(l.w for l in lanes)
+        while len(lanes) % nshare:
+            lanes.append(Lane(stage, C.SUBBAND_HH, -1, 0, 0, 1, 1,
+                              dummy=True))
+        per = len(lanes) // nshare
+        lanes = lanes[k * per:(k + 1) * per]
         pix_valid = np.zeros((len(lanes), mh, mw), dtype=np.int32)
         for i, l in enumerate(lanes):
-            pix_valid[i, :l.h, :l.w] = 1
+            pix_valid[i, :l.h, :l.w] = not l.dummy
         groups.append({
             "lanes": lanes, "mh": mh, "mw": mw, "L": 2 * mh * mw,
             "sub_codes": np.array([l.subband for l in lanes], np.int32),
@@ -166,11 +176,14 @@ class TorchGrayscaleEncoder:
     ``sorted``).  ``plane_cuts`` bounds the bitplanes encoded per stage
     group, as in the JAX encoder: one entry per stage, an int ``lo`` (the
     planes lo .. all) or a ``(lo, hi)`` window; ``encode_batch`` then
-    returns only those lanes."""
+    returns only those lanes.  ``lane_share`` (n, k) keeps share k of n of
+    every group's lanes (``_plan_groups``); ``encode_batch`` then returns
+    only those lanes."""
 
     def __init__(self, image_w: int, image_h: int, stages: int, filt: int,
                  segments: int, mag_bits: int, device: torch.device,
-                 entropy: str = "slim", plane_cuts: tuple | None = None):
+                 entropy: str = "slim", plane_cuts: tuple | None = None,
+                 lane_share: tuple = (1, 0)):
         if entropy not in ENTROPY_BACKENDS:
             raise ValueError(
                 f"unknown entropy backend {entropy!r}: expected 'slim', "
@@ -182,7 +195,8 @@ class TorchGrayscaleEncoder:
         self.entropy = entropy
         self.device = torch.device(device)
         self.bitplanes = C.BITPLANES_8 if mag_bits == 7 else C.BITPLANES_16
-        self.groups = _plan_groups(image_w, image_h, stages, segments)
+        self.groups = _plan_groups(image_w, image_h, stages, segments,
+                                   lane_share)
         self.buckets = _plan_buckets(self.groups)
         if plane_cuts is None:
             plane_cuts = (0,) * len(self.groups)
@@ -391,9 +405,9 @@ class TorchGrayscaleEncoder:
                     for lsb in range(lo, hi):
                         for l in lanes:
                             key = (l.stage, l.subband, lsb, l.seg)
-                            if flag[r]:
+                            if flag[r] and not l.dummy:
                                 redo.append((img_i, key, bi, r))
-                            else:
+                            elif not l.dummy:
                                 nb = int(total[r])
                                 tables[img_i][key] = (
                                     payload[r, :(nb + 7) // 8].tobytes(), nb)

@@ -348,3 +348,67 @@ def test_other_formats_need_pillow(tmp_path, monkeypatch):
         IO.save_image(tmp_path / "i.bmp", gray)
     IO.save_image(tmp_path / "g.png", gray)        # PNG needs no Pillow
     assert np.array_equal(IO.load_image(tmp_path / "g.png")[0], gray)
+
+
+@pytest.mark.parametrize("backend", ["native", "numpy"])
+def test_cli_host_backends_match_jax_cli(tmp_path, gray_png, backend):
+    """--backend native / numpy against the JAX CLI with the same flags:
+    streams byte-equal (and equal to the device path's), decodes
+    pixel-equal (numpy decodes through the sequential python path)."""
+    src, img = gray_png
+    flags = ["-s", "3", "-f", "A", "-g", "4", "-G"]
+    comp, back = tmp_path / "out.icer", tmp_path / "back.png"
+    assert both(["compress", str(src), str(comp)] + flags
+                + ["-t", "1500", "--backend", backend]) == (0, 0)
+    assert comp.read_bytes() == (tmp_path / "jax_out.icer").read_bytes()
+    dev = tmp_path / "dev.icer"
+    assert port(["compress", str(src), str(dev)] + flags
+                + ["-t", "1500"]) == 0
+    assert dev.read_bytes() == comp.read_bytes()
+    assert both(["decompress", str(comp), str(back)] + flags
+                + ["--backend", backend]) == (0, 0)
+    assert np.array_equal(png(back), png(tmp_path / "jax_back.png"))
+
+
+def test_cli_color_native_backend_matches_jax_cli(tmp_path):
+    rng = np.random.default_rng(7)
+    rgb = np.stack([make_test_image(40, 48, rng, dtype=np.uint8,
+                                    amplitude=200, noise=20)
+                    for _ in range(3)], axis=-1)
+    src = tmp_path / "in.png"
+    Image.fromarray(rgb, mode="RGB").save(src)
+    comp, back = tmp_path / "out.icer", tmp_path / "back.png"
+    flags = ["-s", "2", "-f", "A", "-g", "3", "-c", "--backend", "native"]
+    assert both(["compress", str(src), str(comp)] + flags) == (0, 0)
+    assert comp.read_bytes() == (tmp_path / "jax_out.icer").read_bytes()
+    assert both(["decompress", str(comp), str(back)] + flags) == (0, 0)
+    assert np.array_equal(png(back), png(tmp_path / "jax_back.png"))
+
+
+def test_cli_unavailable_backend_exits_nonzero(tmp_path, gray_png,
+                                               monkeypatch):
+    """No fallback to another path: a native runtime that does not build
+    raises, the module exits non-zero without CUDA on the device backend,
+    and batch operations refuse a host backend."""
+    from icer_compression_tpu_torch.backend import native_backend as NB
+    src, _ = gray_png
+    out = tmp_path / "o.icer"
+    assert cli.main(["batch-compress", str(src), str(tmp_path / "d"), "-G",
+                     "--backend", "native", "--device", "cpu"]) == 2
+    if not torch.cuda.is_available():
+        env = dict(os.environ, PYTHONPATH=REPO)
+        res = subprocess.run(
+            [sys.executable, "-m", "icer_compression_tpu_torch.cli",
+             "compress", str(src), str(out), "-G", "-s", "3",
+             "--backend", "device"], env=env, capture_output=True,
+            text=True, timeout=300)
+        assert res.returncode != 0 and "CUDA" in res.stderr
+    bad = tmp_path / "icer_runtime.cpp"
+    bad.write_text("int broken( {\n")
+    monkeypatch.setattr(NB, "SRC", bad)
+    monkeypatch.setattr(NB, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(NB, "_lib", None)
+    with pytest.raises(RuntimeError, match="native runtime build failed"):
+        cli.main(["compress", str(src), str(out), "-G", "-s", "3",
+                  "--backend", "native"])
+    assert not out.exists()

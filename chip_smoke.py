@@ -26,7 +26,7 @@ the check and pass it; builds the native host runtime
      segments) must hash to tests/data/golden_boat512.sha256 and decode to
      the input; quota 50,000 must match tests/data/golden_boat512_q50000
      .sha256 for the stream and the decoded pixels; both kernels must have
-     launched;
+     launched, and every bucket of boat must stay on kernel 1;
   4. encodes and decodes a batch of 8 noisy variants of boat, pixel-exact;
   5. times encode, decode and kernels 1-2 (CUDA events) beside their
      bounds; kernel 2 over all four units of the decode at once, against
@@ -108,9 +108,9 @@ the check and pass it; builds the native host runtime
      stream and decode equals its pin (tests/data/golden_long_lanes
      .sha256, made with the JAX package by scripts/pin_long_lanes.py);
      kernel 2's canvas placement on the 1024x1024 stage-1 unit (held
-     equal to device memory), kernel 1's two-word stage-1 launch time,
-     and the peak device memory per coder word of an encode pass in each
-     record mode;
+     equal to device memory), kernel 1's two-word stage-1 launch time and
+     its plain version there (on the host CPU), and the peak device memory
+     per coder word of an encode pass in each record mode;
  21. the CLI's batch-compress and batch-decompress at their defaults
      (``--batch-size 56 --pipeline 4``) on 8 colour 1024x1024 PNGs: the
      outputs equal the API's; peak device memory of each;
@@ -143,6 +143,20 @@ the check and pass it; builds the native host runtime
      ``ShardedGrayscaleDecoder`` pixels the inputs, its
      ``ShardedColorEncoder`` streams of phase 17's colour batch
      ``compress_yuv_batch``'s, and it must launch kernels 1 and 2.
+ 25. frames whose lanes reach kernel 1's limit of 2^17 slots, at the
+     CLI's defaults, through the default ``auto`` coder (kernel 1 on the
+     short buckets, kernel 4 on the long ones): boat tiled to 1600x1200
+     and to 2048x2048 (lossless and quota 200,000), a batch of 3 at
+     2048x2048 in device passes, colour 1600x1200 through
+     ``compress_yuv``/``decompress_yuv``, one 5120x3840 image lossless, and
+     the CLI's batch-compress / batch-decompress -c at their defaults on 4
+     colour 1600x1200 PNGs: every stream and decode equals its pin
+     (tests/data/golden_big_images.sha256, made with the JAX package by
+     scripts/pin_big_images.py), lossless decodes return the input, and
+     kernel 4 launches on every image; each kernel-4 launch's time beside
+     its bound, the host lanes, the walls and the peak device memory; the
+     ``sorted`` backend's wall on 1600x1200; kernel 4 bit-equal to its
+     plain version (on the host CPU) on 1600x1200's stage-1 block.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -253,6 +267,44 @@ def long_lane_images(boat: np.ndarray) -> dict:
             "color1024": color_boat(big.astype(np.uint8))}
 
 
+# phase 25: frames whose stage-1 lanes (and at 5120x3840 stage 2's) reach
+# kernel 1's limit of 2^17 slots, at the CLI's defaults and these quotas,
+# pinned in tests/data/golden_big_images.sha256; a batch of BIG_BATCH at
+# 2048x2048, and the CLI's batch operations on BIG_CLI colour PNGs
+BIG_QUOTAS = (None, 200000)
+BIG_BATCH = 3
+BIG_CLI = 4
+
+
+def _tiled(boat: np.ndarray, h: int, w: int, n: int = 1) -> np.ndarray:
+    """``n`` variants of boat tiled to (h, w) with noise of +-6 from
+    ``default_rng(0)``, as ``long_lane_images`` makes its images."""
+    big = np.tile(boat, (-(-h // boat.shape[0]), -(-w // boat.shape[1])))[
+        :h, :w].astype(np.int32)
+    rng = np.random.default_rng(0)
+    return np.stack([np.clip(big + rng.integers(-6, 7, big.shape), 0, 255)
+                     for _ in range(n)]).astype(np.uint16)
+
+
+def big_images(boat: np.ndarray) -> dict:
+    """Phase 25's images: boat tiled to 1600x1200 (Mastcam-Z's frame), to
+    2048x2048 (``BIG_BATCH`` variants) and to 5120x3840 (the Mars 2020
+    engineering cameras' frame), with noise as in ``_tiled``;
+    ``color_boat`` of boat tiled to 1600x1600, cut to 1600x1200; and
+    ``BIG_CLI`` variants of that colour image with noise of +-6 from
+    ``default_rng(1234)`` (phase 21's recipe) for the CLI."""
+    rgb = color_boat(np.tile(boat, (4, 4))[:1600, :1600].astype(np.uint8))[
+        :1200]
+    rng = np.random.default_rng(1234)
+    return {"gray1600x1200": _tiled(boat, 1200, 1600),
+            "gray2048": _tiled(boat, 2048, 2048, BIG_BATCH),
+            "gray5120x3840": _tiled(boat, 3840, 5120),
+            "color1600x1200": rgb,
+            "cli1600x1200": [np.clip(rgb.astype(np.int32) + rng.integers(
+                -6, 7, rgb.shape), 0, 255).astype(np.uint8)
+                for _ in range(BIG_CLI)]}
+
+
 # phase 22: boat's 64x64 centre crop, whose faulted streams kernel 2 also
 # decodes against its plain version (on the host CPU), and the colour
 # fault (corrupt_random's n and seed) on phase 16's unlimited uint16 stream
@@ -337,6 +389,54 @@ def assert_equal(name, a, b) -> int:
     return err
 
 
+def _plain_job(kind, ins):
+    """One plain version on the host CPU, in a worker of ``HostPlain``:
+    kernel 1's two-word instance (``"k1w"``) or kernel 4 (``"k4"``) on
+    CPU tensors.  Returns (outputs, seconds)."""
+    from icer_compression_tpu_torch.ops import entropy_full as EF
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if kind == "k1w":
+        out = ES.encode_lanes_slim_plain(*ins, two_word=True)
+    else:
+        out = EF.encode_lanes_full_plain(*ins)
+    return out, time.perf_counter() - t0
+
+
+class HostPlain:
+    """The plain versions that run on the host CPU (a loop of small
+    per-step ops costs less there than as launches on the card), each in
+    a worker process started as soon as its inputs exist, so that they run
+    beside the card phases.  ``check`` waits for one and holds a kernel's
+    outputs to it at tolerance 0.  The workers are spawned (they never
+    touch the card) and stopped on exit."""
+
+    def __init__(self, workers: int = 4):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def submit(self, name, kind, ins):
+        self.jobs[name] = self.pool.submit(_plain_job, kind,
+                                           tuple(t.cpu() for t in ins))
+
+    def check(self, name, outs, names):
+        """(max abs error, plain seconds) of the kernel's ``outs`` against
+        job ``name``, output by output."""
+        ref, secs = self.jobs.pop(name).result()
+        return max(assert_equal(f"{name} {nm}", a.cpu(), b)
+                   for nm, a, b in zip(names, outs, ref)), secs
+
+
 def noisy_eviction_words(rng, L=16384, lanes=32, warm=3072, feed=144):
     """Skewed contexts warmed up into many bins, then uncoded emissions
     with one zero fed to each context in turn every 16 * ``feed`` steps:
@@ -388,12 +488,15 @@ def k2_bound(unit, pos):
     return bound(nbytes, ops)
 
 
-def k4_bound(valid):
+def k4_bound(valid, nvalid=None):
     """Kernels 4/5: three words in per step, three out per row (incl. the
-    17 flush rows); ops from this run's valid emissions."""
-    L, lanes = valid.shape
+    17 flush rows); ops from this run's valid emissions (``nvalid``, else
+    counted in ``valid``; with ``nvalid``, ``valid`` may be its shape)."""
+    L, lanes = getattr(valid, "shape", valid)
     nbytes = 4 * (3 * L * lanes + 3 * (L + 17) * lanes)
-    return bound(nbytes, K4_OPS_PER_VALID * int(valid.sum()))
+    if nvalid is None:
+        nvalid = int(valid.sum())
+    return bound(nbytes, K4_OPS_PER_VALID * nvalid)
 
 
 def k3_bound(unit, pos, active):
@@ -1386,7 +1489,23 @@ def coder_bytes_per_word(enc, imgs):
         len(imgs) * enc.words_per_image
 
 
-def long_lane_phases(dev, card, boat, pins, batch8):
+def long_lane_block(dev, boat):
+    """Kernel 1's two-word input in phase 20: the stage-1 bucket words
+    (L, lanes) of the first 1024x1024 variant at the CLI's defaults."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    img = long_lane_images(boat)["gray1024"][:1]
+    enc = T.make_encoder(img.shape[2], img.shape[1], T.CodecConfig(
+        4, 0, 6, None), np.uint16, dev)
+    x = torch.as_tensor(img.astype(np.int32), device=dev)
+    em = [enc.emit(g, enc.transform(x)[0]) for g in enc.groups]
+    bw = enc.bucket_words(enc.buckets[0], em).t().contiguous()
+    if ES.fused_key_ok(bw.shape[0]):
+        raise AssertionError("1024x1024 stage 1 fits fused keys")
+    return bw
+
+
+def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
     """Phase 20: the long-lane geometries at the CLI's defaults (stages 4,
     filter A, 6 segments), whose stage-1 lanes run kernel 1's two-word
     instance: 1024x1024 and its 999x601 crop through ``compress`` and
@@ -1396,8 +1515,9 @@ def long_lane_phases(dev, card, boat, pins, batch8):
     through ``compress_yuv`` and ``decompress_yuv``; every stream and
     decode against its pin from the JAX package.  Also kernel 2's canvas
     placement on the 1024x1024 stage-1 unit (both held equal), kernel 1's
-    two-word stage-1 launch time, and peak device memory per coder word
-    of one encode pass in each record mode."""
+    two-word stage-1 launch time (its plain version on the host CPU), and
+    peak device memory per coder word of one encode pass in each record
+    mode."""
     from icer_compression_tpu_torch.models import color as TC
     from icer_compression_tpu_torch.models import decode as D
     from icer_compression_tpu_torch.models import grayscale as T
@@ -1553,22 +1673,13 @@ def long_lane_phases(dev, card, boat, pins, batch8):
         f"int32): auto placement ran {res['placement']!r}, bit-equal to the "
         f"device-memory placement")
 
-    # kernel 1's two-word instance on the 1024x1024 stage-1 bucket,
-    # against its plain version at that shape
+    # kernel 1's two-word instance on the 1024x1024 stage-1 bucket
+    # (``long_lane_block``), against its plain version at that shape, run
+    # on the host CPU since the script's start
     h, w = images["gray1024"].shape[1:]
-    enc = T.make_encoder(w, h, cfg, np.uint16, dev)
-    x = torch.as_tensor(images["gray1024"][:1].astype(np.int32), device=dev)
-    img = enc.transform(x)[0]
-    em = [enc.emit(g, img) for g in enc.groups]
-    bw = enc.bucket_words(enc.buckets[0], em).t().contiguous()
-    if ES.fused_key_ok(bw.shape[0]):
-        raise AssertionError("1024x1024 stage 1 fits fused keys")
     kw = ES.encode_lanes_slim_two_word(bw)
-    pw, plain_s = sync_time(
-        lambda: ES.encode_lanes_slim_plain(bw, two_word=True))
-    res["k1w_err"] = max(
-        assert_equal(f"K1 two-word 1024x1024 stage-1 {nm}", a, b)
-        for nm, a, b in zip(TWO_WORD_OUTS, kw, pw))
+    res["k1w_err"], plain_s = host.check("K1 two-word 1024x1024 stage-1",
+                                         kw, TWO_WORD_OUTS)
     res["k1w_plain_ms"] = 1e3 * plain_s
     res["k1w_top"] = top_ordinal(kw)
     res["k1w_ms"] = event_ms(lambda: ES.encode_lanes_slim_two_word(bw))
@@ -1581,8 +1692,9 @@ def long_lane_phases(dev, card, boat, pins, batch8):
         f"lanes flagged {int((kw[3][0] != 0).sum())}; kernel "
         f"{res['k1w_ms']:.3f} ms (bound {res['k1w_bound'][0]:.4f} ms, "
         f"{res['k1w_bound'][1]}; {1e6 * res['k1w_ms'] / bw.shape[0]:.1f} ns "
-        f"per step), plain {plain_s:.1f} s | {card}")
-    del x, img, em, bw, kw, pw
+        f"per step), plain on the host CPU {plain_s:.1f} s | {card}")
+    del kw
+    enc = T.make_encoder(w, h, cfg, np.uint16, dev)
 
     # device memory of one encode pass per coder word, in each mode
     per_word = {}
@@ -1674,6 +1786,306 @@ def cli_defaults_phase(dev, card, boat):
             f"{card}")
     log("cli defaults: streams equal compress_yuv and decodes equal "
         "decompress_yuv for all 8 images")
+    return res
+
+
+def big_k4_block(dev, boat):
+    """Kernel 4's input in phase 25: the compacted stage-1 bucket (valid,
+    ctx, bit), each (L, lanes), of the 1600x1200 image at the CLI's
+    defaults."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
+    img = _tiled(boat, 1200, 1600)
+    enc = T.make_encoder(1600, 1200, T.CodecConfig(4, 0, 6, None),
+                         np.uint16, dev)
+    x = torch.as_tensor(img.astype(np.int32), device=dev)
+    em = [enc.emit(g, enc.transform(x)[0]) for g in enc.groups]
+    b0 = enc.buckets[0]
+    cw, _over = E.compact_words(enc.bucket_words(b0, em),
+                                E.bucket_sizes(b0["L"])[1])
+    return [t.t().contiguous() for t in E._split_words(cw)]
+
+
+def big_image_phase(dev, card, boat, pins, host, k4_ins):
+    """Phase 25: frames whose lanes reach kernel 1's 2^17-slot limit, at
+    the CLI's defaults (stages 4, filter A, 6 segments), through the
+    default ``auto`` coder: kernel 1 on the short buckets, kernel 4 on the
+    long ones.  1600x1200 and the first 2048x2048 variant through
+    ``compress_batch`` with ``make_encoder``'s encoder (lossless) and
+    ``compress`` (quota 200,000), then ``decompress``; the 2048x2048 batch
+    through ``compress_batch`` / ``decompress_batch`` (device passes under
+    ``PASS_WORDS``); colour 1600x1200 through ``compress_yuv`` /
+    ``decompress_yuv``; 5120x3840 lossless once; the CLI's
+    ``batch-compress -c`` / ``batch-decompress -c`` at their defaults on
+    ``BIG_CLI`` colour PNGs.  Every stream and decode equals its pin from
+    the JAX package, lossless decodes return the input, and kernel 4
+    launches on every image.  Logs each bucket's coder, each kernel-4
+    launch's CUDA-event time beside its bound, the host lanes and their
+    seconds, the walls and the peak device memory; the ``sorted`` backend's
+    wall on 1600x1200; kernel 4 against its plain version (on the host
+    CPU) on 1600x1200's stage-1 block; device bytes per coder word of a
+    kernel-4 pass."""
+    from icer_compression_tpu_torch import cli
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
+    from icer_compression_tpu_torch.ops import entropy_full as EF
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.utils.image_io import read_png, write_png
+
+    images = big_images(boat)
+    k4, launch = EF.encode_lanes_full, EF._launch
+    seen = []      # (shape, valid steps (device), start, end) per K4 launch
+    res = {"launches": {}, "images": {}}
+
+    def timed_launch(entry, valid, ctx, bit):
+        """Kernel 4's launches on the path, bracketed by CUDA events."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch(entry, valid, ctx, bit)
+        b.record()
+        if entry == "full_encode_launch":
+            seen.append((tuple(valid.shape), valid.sum(), a, b))
+        return out
+
+    def reset():
+        ES.encode_lanes_slim.launches = 0
+        ES.encode_lanes_slim_two_word.launches = 0
+        k4.launches = 0
+        PDc.decode_planes.launches = 0
+        seen.clear()
+
+    def counts():
+        return {"slim_encode": ES.encode_lanes_slim.launches,
+                "slim_encode_two_word": ES.encode_lanes_slim_two_word
+                .launches, "full_encode": k4.launches,
+                "plane_decode": PDc.decode_planes.launches}
+
+    def check_pin(label, digest):
+        if digest != pins[label]:
+            raise AssertionError(f"{label}: {digest} != pin {pins[label]}")
+
+    def check_launches(label, c):
+        if c["full_encode"] <= 0 or c["plane_decode"] <= 0 or \
+                c["slim_encode"] + c["slim_encode_two_word"] <= 0:
+            raise AssertionError(f"{label}: a kernel did not launch: {c}")
+        res["launches"][label] = c
+
+    def k4_launches():
+        """[(shape, ms, bound)] of the K4 launches since ``reset``."""
+        torch.cuda.synchronize()
+        return [(shape, a.elapsed_time(b), k4_bound(shape, int(nv)))
+                for shape, nv, a, b in seen]
+
+    def peak(fn):
+        """(result, seconds, peak device bytes above the baseline)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = sync_time(fn)
+        return out, secs, torch.cuda.max_memory_allocated() - base
+
+    def plan(enc):
+        """Each bucket's (Lk, coder); the auto rule holds on every one."""
+        out = []
+        for b in enc.buckets:
+            Lk = E.bucket_sizes(b["L"])[0]
+            want = "slim" if Lk < ES.MAX_L else "pallas"
+            if b["coder"] != want:
+                raise AssertionError(f"bucket of {Lk} slots planned on "
+                                     f"{b['coder']}, not {want}")
+            out.append((Lk, b["coder"]))
+        return out
+
+    def gray(key, img, q):
+        h, w = img.shape
+        cfg = T.CodecConfig(4, 0, 6, q)
+        tag = "unlimited" if q is None else f"quota {q}"
+        enc = T.make_encoder(w, h, cfg, np.uint16, dev)
+        reset()
+        if q is None:
+            s, enc_s, enc_pk = peak(lambda: T.compress_batch(
+                img[None], cfg, encoder=enc)[0])
+        else:
+            s, enc_s, enc_pk = peak(lambda: T.compress(img, cfg, device=dev))
+        launches = k4_launches()
+        d, dec_s, dec_pk = peak(lambda: T.decompress(s, cfg, np.uint16,
+                                                     device=dev))
+        c = counts()
+        check_pin(f"{key} v0 {tag} stream", hashlib.sha256(s).hexdigest())
+        check_pin(f"{key} v0 {tag} decoded", pixels_sha(d))
+        if q is None and not np.array_equal(d, img):
+            raise AssertionError(f"{key}: lossless decode differs")
+        check_launches(f"{key} {tag}", c)
+        coders = plan(enc)
+        r = {"enc_s": enc_s, "dec_s": dec_s, "enc_peak": enc_pk,
+             "k4": launches}
+        if q is None:
+            calls = sum(-(-b["rows"] // b["call_rows"]) for b in enc.buckets
+                        if b["coder"] == "pallas")
+            if c["full_encode"] != calls:
+                raise AssertionError(f"{key}: {c['full_encode']} K4 "
+                                     f"launches, {calls} planned")
+            r.update(host=enc.fallback_lanes, host_s=enc.fallback_seconds,
+                     rows=sum(b["rows"] for b in enc.buckets))
+        res["images"][f"{key} {tag}"] = r
+        log(f"{key} ({w}x{h}) {tag}: {len(s)} B stream and decoded pixels "
+            f"match the pins" + (", decode returns the image"
+                                 if q is None else "")
+            + f"; buckets (Lk, coder) {coders}; K4 launches "
+            + ", ".join(f"{sh}: {ms:.3f} ms (bound {bd[0]:.4f} ms, {bd[1]}; "
+                        f"{1e6 * ms / sh[0]:.1f} ns per step)"
+                        for sh, ms, bd in launches)
+            + (f"; host re-encode lanes {r['host']} of {r['rows']} in "
+               f"{r['host_s']:.3f} s" if q is None else "")
+            + f"; wall (run once) encode {enc_s:.3f} s, decode {dec_s:.3f} "
+            f"s; peak device memory above the baseline encode "
+            f"{enc_pk / 1e9:.2f} GB, decode {dec_pk / 1e9:.2f} GB; "
+            f"launches {c} | {card}")
+
+    EF._launch = timed_launch
+    try:
+        for q in BIG_QUOTAS:
+            gray("gray1600x1200", images["gray1600x1200"][0], q)
+            gray("gray2048", images["gray2048"][0], q)
+
+        # the 2048x2048 batch, in device passes under PASS_WORDS
+        imgs = images["gray2048"]
+        cfg = T.CodecConfig(4, 0, 6, None)
+        reset()
+        bs, benc_s, benc_pk = peak(lambda: T.compress_batch(imgs, cfg,
+                                                            device=dev))
+        bd, bdec_s, bdec_pk = peak(lambda: D.decompress_batch(
+            bs, cfg, np.uint16, device=dev))
+        c = counts()
+        for i, (st_i, d_i) in enumerate(zip(bs, bd)):
+            check_pin(f"gray2048 v{i} unlimited stream",
+                      hashlib.sha256(st_i).hexdigest())
+            if not np.array_equal(d_i, imgs[i]):
+                raise AssertionError(f"gray2048 batch image {i}: lossless "
+                                     "decode differs")
+        check_launches("gray2048 batch", c)
+        bh, bw = imgs.shape[1:]
+        per_pass = T.make_encoder(bw, bh, cfg, np.uint16, dev).pass_images
+        npass = -(-len(imgs) // per_pass)
+        if npass < 2:
+            raise AssertionError(f"gray2048 batch ran in {npass} pass")
+        log(f"gray2048 batch of {len(imgs)}: streams match the pins, "
+            f"decodes return the images; {npass} device passes of at most "
+            f"{per_pass} image(s); encode {benc_s:.3f} s, decode "
+            f"{bdec_s:.3f} s ({imgs.size / (benc_s + bdec_s) / 1e6:.3f} "
+            f"MP/s); peak device memory encode {benc_pk / 1e9:.2f} GB, "
+            f"decode {bdec_pk / 1e9:.2f} GB; launches {c} | {card}")
+
+        # colour
+        planes = color_planes(images["color1600x1200"], np.uint16)
+        for q in BIG_QUOTAS:
+            cfg = T.CodecConfig(4, 0, 6, q)
+            tag = "unlimited" if q is None else f"quota {q}"
+            reset()
+            s, enc_s, enc_pk = peak(lambda: TC.compress_yuv(*planes, cfg,
+                                                            device=dev))
+            d, dec_s, _pk = peak(lambda: TC.decompress_yuv(
+                s, cfg, np.uint16, device=dev))
+            c = counts()
+            check_pin(f"color1600x1200 {tag} stream",
+                      hashlib.sha256(s).hexdigest())
+            check_pin(f"color1600x1200 {tag} decoded", planes_sha(d))
+            if q is None and not all(np.array_equal(a, b)
+                                     for a, b in zip(d, planes)):
+                raise AssertionError("color1600x1200: lossless decode "
+                                     "differs")
+            check_launches(f"color1600x1200 {tag}", c)
+            res["images"][f"color1600x1200 {tag}"] = {
+                "enc_s": enc_s, "dec_s": dec_s, "enc_peak": enc_pk}
+            log(f"color1600x1200 {tag}: {len(s)} B stream and decoded "
+                f"planes match the pins"
+                + (", decode returns Y, U and V" if q is None else "")
+                + f"; wall (run once) encode {enc_s:.3f} s, decode "
+                f"{dec_s:.3f} s; peak device memory encode "
+                f"{enc_pk / 1e9:.2f} GB; launches {c} | {card}")
+
+        gray("gray5120x3840", images["gray5120x3840"][0], None)
+
+        # the CLI's batch operations at their defaults
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            (tmp / "in").mkdir()
+            for i, rgb in enumerate(images["cli1600x1200"]):
+                write_png(tmp / "in" / f"c{i}.png", rgb)
+            for op, src, dst in (("batch-compress", "in", "enc"),
+                                 ("batch-decompress", "enc", "dec")):
+                reset()
+                _r, secs, pk = peak(lambda: cli.main(
+                    [op, str(tmp / src), str(tmp / dst), "-c", "--device",
+                     dev.type]))
+                if _r != 0:
+                    raise AssertionError(f"cli {op} failed")
+                res["cli " + op] = (secs, pk, counts())
+            for i in range(BIG_CLI):
+                check_pin(f"cli1600x1200 c{i} stream", hashlib.sha256(
+                    (tmp / "enc" / f"c{i}.icer").read_bytes()).hexdigest())
+                check_pin(f"cli1600x1200 c{i} decoded rgb",
+                          pixels_sha(read_png(tmp / "dec" / f"c{i}.png")))
+        if res["cli batch-compress"][2]["full_encode"] <= 0 or \
+                res["cli batch-decompress"][2]["plane_decode"] <= 0:
+            raise AssertionError(f"cli: a kernel did not launch: {res}")
+        for op in ("batch-compress", "batch-decompress"):
+            secs, pk, c = res["cli " + op]
+            res["launches"]["cli " + op] = c
+            log(f"cli {op} -c at its defaults, {BIG_CLI} colour 1600x1200 "
+                f"PNGs: outputs match the pins; wall {secs:.3f} s, peak "
+                f"device memory {pk / 1e9:.2f} GB; launches {c} | {card}")
+    finally:
+        EF._launch = launch
+
+    # the sorted backend (the JAX package's default coder) on 1600x1200
+    img = images["gray1600x1200"][0]
+    h, w = img.shape
+    cfg = T.CodecConfig(4, 0, 6, None)
+    senc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted")
+    s, sorted_s, sorted_pk = peak(lambda: T.compress_batch(
+        img[None], cfg, encoder=senc)[0])
+    check_pin("gray1600x1200 v0 unlimited stream",
+              hashlib.sha256(s).hexdigest())
+    res["sorted"] = (sorted_s, senc.fallback_lanes, senc.fallback_seconds,
+                     sorted_pk / senc.words_per_image)
+    log(f"sorted backend, gray1600x1200 lossless: stream matches the pin; "
+        f"encode wall (run once) {sorted_s:.3f} s, host re-encode lanes "
+        f"{senc.fallback_lanes} in {senc.fallback_seconds:.3f} s, peak "
+        f"device memory {sorted_pk / 1e9:.2f} GB, "
+        f"{sorted_pk / senc.words_per_image:.1f} B per coder word (auto: "
+        f"{res['images']['gray1600x1200 unlimited']['enc_s']:.3f} s) | "
+        f"{card}")
+
+    # kernel 4 on 1600x1200's stage-1 block (``big_k4_block``) against its
+    # plain version, run on the host CPU since the script's start; device
+    # bytes per coder word of a kernel-4 pass
+    ins = [t.to(dev) for t in k4_ins]
+    kout = k4(*ins)
+    err, plain_s = host.check("K4 1600x1200 stage-1", kout,
+                              ("code", "nbits", "open"))
+    ms = event_ms(lambda: k4(*ins), reps=3)
+    bd = k4_bound(ins[0])
+    chain = int(ins[0].sum(dim=0).max())
+    res["k4"] = {"shape": tuple(ins[0].shape), "ms": ms, "bound": bd,
+                 "plain_ms": 1e3 * plain_s, "err": err, "chain": chain}
+    log(f"K4 1600x1200 stage-1 block {tuple(ins[0].shape)}: code/nbits/open "
+        f"bit-equal to plain on the host CPU (tolerance 0), plain "
+        f"{plain_s:.1f} s; kernel {ms:.3f} ms (median of 3; bound "
+        f"{bd[0]:.4f} ms, {bd[1]}; {1e6 * ms / ins[0].shape[0]:.1f} ns per "
+        f"slot, {1e6 * ms / chain:.1f} ns per valid step of the longest "
+        f"lane, {chain} steps) | {card}")
+    del ins, kout
+    pk, words = coder_bytes_per_word(T.make_encoder(
+        bw, bh, cfg, np.uint16, dev), images["gray2048"][:1])
+    res["bytes_per_word"] = pk / words
+    log(f"encode pass, kernel 4 on the largest bucket (one 2048x2048 image, "
+        f"{words} coder words): peak {pk / 1e9:.2f} GB above the baseline, "
+        f"{pk / words:.1f} B per coder word | {card}")
     return res
 
 
@@ -2061,9 +2473,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    with HostPlain() as host:
+        return smoke(host)
+
+
+def smoke(host) -> int:
+    """Phases 1-25 on the card; ``host`` runs the plain versions that are
+    checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
     from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_full as EF
     from icer_compression_tpu_torch.ops import entropy_slim as ES
     from icer_compression_tpu_torch.ops import plane_decode as PDc
     from icer_compression_tpu_torch.utils.image_io import read_png
@@ -2112,6 +2532,22 @@ def main() -> int:
     h, w = boat.shape
     cfg = T.CodecConfig(stages=4, filt=0, segments=6, byte_quota=h * w)
     cfg50 = T.CodecConfig(stages=4, filt=0, segments=6, byte_quota=50000)
+
+    # the plain versions checked on the host CPU start now, beside the
+    # card phases: kernel 1's two-word instance on phase 1's blocks whose
+    # ordinals pass 2^15 and 2^16 and on phase 20's 1024x1024 stage-1
+    # bucket, kernel 4 on phase 25's 1600x1200 stage-1 block
+    lw = long_ordinal_words(np.random.default_rng(3))
+    hw = long_ordinal_words(np.random.default_rng(4), L=ES.MAX_L - ES.CHUNK)
+    host.submit("K1 two-word long", "k1w", (lw,))
+    host.submit("K1 two-word longest", "k1w", (hw,))
+    lw, hw = lw.to(dev), hw.to(dev)
+    long_bw = long_lane_block(dev, boat)
+    host.submit("K1 two-word 1024x1024 stage-1", "k1w", (long_bw,))
+    # kept on the host until phase 25, off the device peaks of the phases
+    # between
+    big_k4 = [t.cpu() for t in big_k4_block(dev, boat)]
+    host.submit("K4 1600x1200 stage-1", "k4", big_k4)
 
     # ---- phase 1: kernel 1 vs its plain version ------------------------
     enc = T.make_encoder(w, h, cfg, np.uint16, dev)
@@ -2168,15 +2604,8 @@ def main() -> int:
         f"rec1/rec2/fstate/misc/ev1/ev2 bit-equal to plain (tolerance 0); "
         f"evictions max {int(pw[3][2].max())}, plain "
         f"{k1w_short_plain_s:.1f} s")
-    lw = long_ordinal_words(np.random.default_rng(3)).to(dev)
+    # (their plain versions run on the host CPU, checked at the end)
     kl = ES.encode_lanes_slim_two_word(lw)
-    # its plain version on the host CPU, where the per-step ops cost less
-    # than as launches on the card (as for the longest block below)
-    pl, k1w_plain_s = sync_time(
-        lambda: ES.encode_lanes_slim_plain(lw.cpu(), two_word=True))
-    for nm, a, b in zip(two_word_outs, kl, pl):
-        k1w_err = max(k1w_err, assert_equal(f"K1 two-word long {nm}",
-                                            a.cpu(), b))
     top = int(torch.where(kl[0] != 0, kl[1], 0).max())
     if not (top >= 1 << 15 and int(kl[3][1].min()) > 1 << 15
             and bool((kl[3][2][1:] > 0).all())):
@@ -2187,29 +2616,17 @@ def main() -> int:
     k1w_long_b = k1_bound(lw, kl[3], two_word=True)
     log(f"K1 two-word instance, block {tuple(lw.shape)} with allocation "
         f"ordinals up to {top} (allocations {kl[3][1].tolist()}, evictions "
-        f"{kl[3][2].tolist()}): bit-equal to plain on the host CPU "
-        f"(tolerance 0); kernel {k1w_long_ms:.3f} ms (bound "
-        f"{k1w_long_b[0]:.5f} ms, {k1w_long_b[1]}), plain {k1w_plain_s:.1f} "
-        f"s | {card}")
+        f"{kl[3][2].tolist()}): kernel {k1w_long_ms:.3f} ms (bound "
+        f"{k1w_long_b[0]:.5f} ms, {k1w_long_b[1]}) | {card}")
     # the longest lanes kernel 1 takes (the bin state's 17-bit ordinal
-    # field); the plain version, a loop of small per-step ops, runs on the
-    # host CPU, where they cost less than as launches on the card
-    hw = long_ordinal_words(np.random.default_rng(4),
-                            L=ES.MAX_L - ES.CHUNK).to(dev)
+    # field)
     kh = ES.encode_lanes_slim_two_word(hw)
-    ph, k1w_huge_plain_s = sync_time(
-        lambda: ES.encode_lanes_slim_plain(hw.cpu(), two_word=True))
-    for nm, a, b in zip(two_word_outs, kh, ph):
-        k1w_err = max(k1w_err, assert_equal(f"K1 two-word longest {nm}",
-                                            a.cpu(), b))
     top_h = top_ordinal(kh)
     if top_h < 1 << 16:
         raise AssertionError(f"longest block: ordinals reach only {top_h}")
     log(f"K1 two-word instance, block {tuple(hw.shape)} with allocation "
         f"ordinals up to {top_h} (allocations {kh[3][1].tolist()}, "
-        f"evictions {kh[3][2].tolist()}, flagged {kh[3][0].tolist()}): "
-        f"bit-equal to plain on the host CPU (tolerance 0), plain "
-        f"{k1w_huge_plain_s:.1f} s")
+        f"evictions {kh[3][2].tolist()}, flagged {kh[3][0].tolist()})")
 
     # ---- phase 2: kernel 2 vs its plain version ------------------------
     crop = np.ascontiguousarray(boat[200:296, 180:276])
@@ -2236,11 +2653,15 @@ def main() -> int:
     # ---- phase 3: main path --------------------------------------------
     ES.encode_lanes_slim.launches = 0
     PDc.decode_planes.launches = 0
+    EF.encode_lanes_full.launches = 0
     menc = T.make_encoder(w, h, cfg, np.uint16, dev)
     stream = T.compress_batch(boat[None], cfg, encoder=menc)[0]
     out = T.decompress(stream, cfg, dtype=np.uint16, device=dev)
     launches = {"slim_encode": ES.encode_lanes_slim.launches,
                 "plane_decode": PDc.decode_planes.launches}
+    if set(menc.bucket_coders) != {"slim"} or EF.encode_lanes_full.launches:
+        raise AssertionError(f"boat's buckets left kernel 1: "
+                             f"{menc.bucket_coders}")
     sha = hashlib.sha256(stream).hexdigest()
     if sha != golden:
         raise AssertionError(f"boat lossless sha {sha} != golden {golden}")
@@ -2362,7 +2783,8 @@ def main() -> int:
         (data / "golden_color512.sha256").read_text().splitlines()])
     dfr = deferred_phase(dev, card, boat)
     cl = cli_phase(dev, card, boat)
-    lng = long_lane_phases(dev, card, boat, long_pins, batch)
+    lng = long_lane_phases(dev, card, boat, long_pins, batch, host, long_bw)
+    del long_bw
     cld = cli_defaults_phase(dev, card, boat)
     flt = fault_phase(dev, card, boat, stream, cfg, dict(
         ln.split(None, 1)[::-1] for ln in
@@ -2373,8 +2795,24 @@ def main() -> int:
         "enc": enc_med, "dec": dec_med, "color_enc": col["enc_ms"] / 1e3,
         "color_dec": col["dec_ms"] / 1e3})
     shd = sharded_phase(card, boat, golden, streams, col["batch_streams"])
+    large = big_image_phase(dev, card, boat, dict(
+        ln.split(None, 1)[::-1] for ln in
+        (data / "golden_big_images.sha256").read_text().splitlines()),
+        host, big_k4)
+    del big_k4
+    # phase 1's long blocks against their plain versions (host CPU)
+    late_s = {}
+    for name, kout, blk in (("K1 two-word long", kl, lw),
+                            ("K1 two-word longest", kh, hw)):
+        err, late_s[name] = host.check(name, kout, two_word_outs)
+        k1w_err = max(k1w_err, err)
+        log(f"{name} block {tuple(blk.shape)} (phase 1): "
+            f"rec1/rec2/fstate/misc/ev1/ev2 bit-equal to plain on the host "
+            f"CPU (tolerance 0), plain {late_s[name]:.1f} s")
+    k1w_plain_s = late_s["K1 two-word long"]
+    k1w_huge_plain_s = late_s["K1 two-word longest"]
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
-             "plane_decode": {}}
+             "plane_decode": {}, "full_encode": {}}
     for path, counts in (
             [("grayscale", launches), ("color", col["launches"]),
              ("color_batch", col["batch_launches"]),
@@ -2387,9 +2825,42 @@ def main() -> int:
             + [(f"sharded {label} rank {r['rank']} (per rank)",
                 {"slim_encode": r["slim_encode"],
                  "plane_decode": r["plane_decode"]})
-               for label, world in shd.items() for r in world["ranks"]]):
+               for label, world in shd.items() for r in world["ranks"]]
+            + [(f"large {label}", c)
+               for label, c in large["launches"].items()]):
         for k, n in counts.items():
             paths[k][path] = n
+
+    # kernel 4 runs on the default path since phase 25: its entry reads
+    # that path's launches and the 1600x1200 stage-1 block; the pallas
+    # backend's numbers on boat (phases 6, 7 and 12) move under
+    # "pallas_backend"
+    k4e, bk = new[0], large["k4"]
+    k4e["pallas_backend"] = {k: k4e.pop(k) for k in (
+        "shape", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+        "path", "stage1_ms", "stage1_bound_ms", "stage1_tiles_skipped",
+        "ms_per_image", "bound_ms_per_image")}
+    paths["full_encode"]["pallas boat 512"] = \
+        k4e["pallas_backend"]["launches"]
+    k4e.update(
+        launches=large["launches"]["gray1600x1200 unlimited"]["full_encode"],
+        max_abs_err=max(k4e["max_abs_err"], bk["err"]),
+        shape="L={} lanes={} (1600x1200 stage 1, compacted)".format(
+            *bk["shape"]),
+        ms=bk["ms"], plain_ms=bk["plain_ms"], plain_on="host CPU",
+        bound_ms=bk["bound"][0], bound_by=bk["bound"][1],
+        ns_per_step=1e6 * bk["ms"] / bk["shape"][0],
+        step="one emission slot of a 1600x1200 stage-1 lane",
+        ns_per_valid_step=1e6 * bk["ms"] / bk["chain"],
+        valid_step="one valid emission of the longest 1600x1200 stage-1 "
+                   "lane",
+        launches_by_path=paths["full_encode"],
+        large_image_launches={
+            label: [{"shape": list(sh), "ms": ms, "bound_ms": bd[0]}
+                    for sh, ms, bd in r["k4"]]
+            for label, r in large["images"].items() if r.get("k4")},
+        path="compress of a 1600x1200 image at the CLI's defaults (the "
+             "auto coder): the stage-1 bucket")
 
     kern = [
         {"name": "slim_encode", "route": "cuda",
@@ -2499,7 +2970,14 @@ def main() -> int:
         + "; host codec s " + ", ".join(f"{k} {v:.4f}"
                                          for k, v in hst["host_s"].items())
         + "; sharded world walls s " + ", ".join(
-            f"{k} {v['wall_s']:.1f}" for k, v in shd.items()))
+            f"{k} {v['wall_s']:.1f}" for k, v in shd.items())
+        + "; large images (encode s, decode s, host lanes, host s, peak "
+        "encode GB) " + ", ".join(
+            f"{k} {r['enc_s']:.3f}, {r['dec_s']:.3f}, {r['host']}, "
+            f"{r['host_s']:.3f}, {r['enc_peak'] / 1e9:.2f}"
+            for k, r in large["images"].items() if "host" in r)
+        + f"; kernel-4 pass bytes per coder word "
+        f"{large['bytes_per_word']:.1f}, sorted {large['sorted'][3]:.1f}")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

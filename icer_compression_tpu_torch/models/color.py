@@ -149,7 +149,7 @@ def compress_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         windows = tuple((lo, hi) for lo, hi in zip(cuts, prev))
         if any(lo < hi for lo, hi in windows):
             enc = _cached_encoder(w, h, config.stages, config.filt,
-                                  config.segments, mag_bits, "slim", dev,
+                                  config.segments, mag_bits, "auto", dev,
                                   windows)
             for chan, (table, mean) in enumerate(enc.encode_batch(stacked)):
                 tables[chan].update(table)
@@ -206,7 +206,7 @@ def compress_yuv_batch(ys, us, vs, config: CodecConfig, device=None,
     bitplanes = _bitplanes(mag_bits)
     full = ((0, bitplanes),) * config.stages
     enc = _cached_encoder(w, h, config.stages, config.filt, config.segments,
-                          mag_bits, "slim", resolve_device(device), full)
+                          mag_bits, "auto", resolve_device(device), full)
     res = enc.encode_batch(np.concatenate([ys, us, vs]), defer=defer)
     order = _rearrange_order(mag_bits, bitplanes)
 

@@ -117,10 +117,11 @@ def assemble_stream(encoded: dict, order) -> bytes:
 
 
 def make_encoder(w: int, h: int, config: CodecConfig, dtype, device=None,
-                 entropy: str = "slim", plane_cuts: tuple | None = None):
+                 entropy: str = "auto", plane_cuts: tuple | None = None):
     """An encoder for (h, w) images of ``dtype`` on ``device``, with the
-    coder backend ``entropy`` (``slim``, ``pallas`` or ``sorted``) over
-    the plane windows ``plane_cuts`` (None: every plane)."""
+    coder backend ``entropy`` (``auto``: kernel 1 on buckets below 2^17
+    slots and kernel 4 from there; ``slim``, ``pallas`` or ``sorted``)
+    over the plane windows ``plane_cuts`` (None: every plane)."""
     from ..ops.encode import TorchGrayscaleEncoder
     return TorchGrayscaleEncoder(w, h, config.stages, config.filt,
                                  config.segments, _mag_bits(dtype),
@@ -206,7 +207,7 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
     """Compress a (B, h, w) batch of same-geometry grayscale images; each
     stream equals ``compress`` of its image.  ``encoder`` (from
     ``make_encoder``) picks the coder backend and may be passed to reuse
-    its plan across calls; without one the ``slim`` backend runs.
+    its plan across calls; without one the ``auto`` backend runs.
 
     The quota picks a prefix class for the whole batch; when any image's
     allocation needs a plane outside it, the batch widens to the next
@@ -221,7 +222,7 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
     full = ((0, bitplanes),) * config.stages
     if encoder is None:
         encoder = _cached_encoder(w, h, config.stages, config.filt,
-                                  config.segments, mag_bits, "slim",
+                                  config.segments, mag_bits, "auto",
                                   resolve_device(device), full)
     classes = quota_classes(w, h, config.stages, bitplanes)
     quota = config.byte_quota

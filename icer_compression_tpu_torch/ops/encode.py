@@ -14,6 +14,8 @@ into one padded lane batch and its emission words for every bitplane of
 the group's plane window, then per length bucket the coder backend, all on
 the device:
 
+  ``auto``   per bucket, from its kernel length alone: ``slim`` below
+             2^17 slots, ``pallas`` from there (the default);
   ``slim``   kernel 1 over the interleaved words, then the sort/rebuild/
              pack tail (ops/entropy_slim): fused-key records where a
              bucket's allocation ordinals stay below 2^15, two-word records
@@ -58,7 +60,7 @@ from . import entropy_sorted as SO
 from . import wavelet
 from .context_model import plane_emissions_words
 
-ENTROPY_BACKENDS = ("slim", "pallas", "sorted")
+ENTROPY_BACKENDS = ("auto", "slim", "pallas", "sorted")
 
 # Coder words (int32) of a pass's largest bucket that one device pass of
 # ``encode_batch`` codes at most.  A slim pass peaks at about 127 bytes per
@@ -67,6 +69,13 @@ ENTROPY_BACKENDS = ("slim", "pallas", "sorted")
 # one pass over 168 canvases of 512x512, 6.0e8 words, ran an 80 GB card
 # out of memory.
 PASS_WORDS = 1 << 27
+# Coder words of one coder call at most: a pass's bucket past it (one
+# image's, where that alone passes PASS_WORDS) is coded in runs of rows.
+# Lanes are independent, so the payloads do not change.  One 5120x3840
+# image's stage-1 bucket (2.66e8 words) runs as two calls.  Kernel 4's
+# path peaks at 113 bytes per coder word (chip_smoke.py phase 25), below
+# slim's, so both bounds hold for the ``auto`` coder.
+CALL_WORDS = PASS_WORDS
 
 
 @dataclass(frozen=True)
@@ -172,22 +181,25 @@ def _split_words(words: torch.Tensor):
 class TorchGrayscaleEncoder:
     """Encoder for one image geometry (one channel) on one device.
 
-    ``entropy`` picks the coder backend (``slim``, ``pallas`` or
-    ``sorted``).  ``plane_cuts`` bounds the bitplanes encoded per stage
-    group, as in the JAX encoder: one entry per stage, an int ``lo`` (the
-    planes lo .. all) or a ``(lo, hi)`` window; ``encode_batch`` then
-    returns only those lanes.  ``lane_share`` (n, k) keeps share k of n of
-    every group's lanes (``_plan_groups``); ``encode_batch`` then returns
-    only those lanes."""
+    ``entropy`` picks the coder backend (``auto``, ``slim``, ``pallas`` or
+    ``sorted``); ``bucket_coders`` holds the one each bucket runs
+    (``auto``: ``slim`` below ``entropy_slim.MAX_L`` slots, ``pallas``
+    from there, planned here and never swapped at run time).
+    ``plane_cuts`` bounds the bitplanes encoded per stage group, as in the
+    JAX encoder: one entry per stage, an int ``lo`` (the planes lo .. all)
+    or a ``(lo, hi)`` window; ``encode_batch`` then returns only those
+    lanes.  ``lane_share`` (n, k) keeps share k of n of every group's
+    lanes (``_plan_groups``); ``encode_batch`` then returns only those
+    lanes."""
 
     def __init__(self, image_w: int, image_h: int, stages: int, filt: int,
                  segments: int, mag_bits: int, device: torch.device,
-                 entropy: str = "slim", plane_cuts: tuple | None = None,
+                 entropy: str = "auto", plane_cuts: tuple | None = None,
                  lane_share: tuple = (1, 0)):
         if entropy not in ENTROPY_BACKENDS:
             raise ValueError(
-                f"unknown entropy backend {entropy!r}: expected 'slim', "
-                "'pallas' or 'sorted'")
+                f"unknown entropy backend {entropy!r}: expected 'auto', "
+                "'slim', 'pallas' or 'sorted'")
         wavelet.check_stages(image_w, image_h, stages)
         self.w, self.h = image_w, image_h
         self.stages, self.filt, self.segments = stages, filt, segments
@@ -205,26 +217,28 @@ class TorchGrayscaleEncoder:
         self.plane_cuts = tuple(
             (int(c[0]), int(c[1])) if isinstance(c, tuple)
             else (int(c), self.bitplanes) for c in plane_cuts)
-        if entropy == "slim":
-            for b in self.buckets:
-                Lk = bucket_sizes(b["L"])[0]
-                if Lk >= ES.MAX_L:
-                    raise IcerError(
-                        IcerStatus.INVALID_INPUT,
-                        f"segment lanes of {Lk} emission slots reach the "
-                        "slim coder's limit of 2^17 (its bin state holds "
-                        "17-bit allocation ordinals); use more segments or "
-                        "another entropy backend")
-        self._code = {"slim": self._code_slim, "pallas": self._code_pallas,
-                      "sorted": self._code_sorted}[entropy]
+        for b in self.buckets:
+            Lk = bucket_sizes(b["L"])[0]
+            if entropy == "slim" and Lk >= ES.MAX_L:
+                raise IcerError(
+                    IcerStatus.INVALID_INPUT,
+                    f"segment lanes of {Lk} emission slots reach the "
+                    "slim coder's limit of 2^17 (its bin state holds "
+                    "17-bit allocation ordinals); use more segments or "
+                    "another entropy backend")
+            b["coder"] = entropy if entropy != "auto" else (
+                "slim" if Lk < ES.MAX_L else "pallas")
+            b["rows"] = sum(max(0, hi - lo) * len(self.groups[gi]["lanes"])
+                            for gi in b["groups"]
+                            for lo, hi in [self.plane_cuts[gi]])
+            b["call_rows"] = max(1, CALL_WORDS // Lk)
+        self.bucket_coders = tuple(b["coder"] for b in self.buckets)
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
         # images per device pass: the largest bucket's coder words of one
         # image, against PASS_WORDS
-        self.words_per_image = max(bucket_sizes(b["L"])[0] * sum(
-            max(0, hi - lo) * len(self.groups[gi]["lanes"])
-            for gi in b["groups"]
-            for lo, hi in [self.plane_cuts[gi]]) for b in self.buckets)
+        self.words_per_image = max(bucket_sizes(b["L"])[0] * b["rows"]
+                                   for b in self.buckets)
         self.pass_images = max(1, PASS_WORDS
                                // max(1, self.words_per_image))
         # per group: gather index of every lane rectangle into the padded
@@ -299,6 +313,17 @@ class TorchGrayscaleEncoder:
         return torch.cat(parts)
 
     # ---- coder backends: words -> (payload, total bits, host flag) -------
+    def _code(self, b, words):
+        """Bucket ``b``'s planned coder over its (rows, Lk) words, in
+        calls of at most ``b["call_rows"]`` rows."""
+        code = {"slim": self._code_slim, "pallas": self._code_pallas,
+                "sorted": self._code_sorted}[b["coder"]]
+        n = b["call_rows"]
+        if words.shape[0] <= n:
+            return code(b, words)
+        parts = [code(b, words[i:i + n]) for i in range(0, len(words), n)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
     def _code_slim(self, b, words):
         _Lk, Lc, cap_bits = bucket_sizes(b["L"])
         return ES.code_lanes_slim(words.t().contiguous(), cap_bits, Lc)

@@ -13,8 +13,8 @@ The codec's own parallel axes, one device per rank:
     every lane codes with state of its own.
 
 Each rank runs the single-card machinery on its own device: the
-transform, emission words, buckets and the slim coder (kernel 1) of
-``ops/encode.TorchGrayscaleEncoder``, with the exact native re-encode of
+transform, emission words, buckets and coders (kernel 1, and kernel 4 on
+buckets of 2^17 slots or more) of ``ops/encode.TorchGrayscaleEncoder``, with the exact native re-encode of
 the lanes it flags.  The one collective of the encode is the ordered
 gather of the per-lane payload tables (the JAX ``_host``): an all_gather
 of bit lengths, then of the padded payload bytes, in (data, seg) rank
@@ -161,7 +161,7 @@ class ShardedGrayscaleEncoder:
         self.mag_bits = mag_bits
         self.enc = TorchGrayscaleEncoder(
             image_w, image_h, stages, filt, segments, mag_bits, mesh.device,
-            entropy="slim", lane_share=(mesh.seg, mesh.seg_rank))
+            entropy="auto", lane_share=(mesh.seg, mesh.seg_rank))
         self.bitplanes = self.enc.bitplanes
         # every seg run's table keys in gather order (None: a dummy lane)
         self._keys = []

@@ -157,6 +157,25 @@ the check and pass it; builds the native host runtime
      its bound, the host lanes, the walls and the peak device memory; the
      ``sorted`` backend's wall on 1600x1200; kernel 4 bit-equal to its
      plain version (on the host CPU) on 1600x1200's stage-1 block.
+ 26. every filter (A-F, Q), stage count (1-6), segment count (1-32) and
+     sample type (uint8, uint16) that the JAX package encodes: kernel W1
+     (the inverse DWT's backward recurrence, csrc/wavelet.cu) bit-equal to
+     its plain version on every filter it serves at mag_bits 7 and 15 and
+     lengths 2-9 and on boat 512's stage-1 column and row passes; the
+     lifting path's integer steps (floor_div, >> on negative int32,
+     _wrap) and forward_1d / inverse_1d on the card equal to the host's;
+     the inverse DWT's kernel launches at filter B (through W1, at most
+     twice filter A's) and through the plain loop, and the filter-B decode
+     wall both ways; the 32 configurations of ``config_sweep`` through
+     ``compress`` / ``decompress`` and ``compress_yuv`` /
+     ``decompress_yuv`` equal to tests/data/golden_configs.sha256 (made
+     with the JAX package by scripts/pin_configs.py), lossless decodes
+     returning the input (filter C's excepted, as in the reference), and
+     the ``error_sweep`` cases refused with the pinned IcerStatus; a
+     filter-B batch of 3 equal to the single calls (and its deferred
+     decode with no host sync); the CLI's ``-f D -s 3 -g 7`` equal to the
+     API; a fixed-seed differential fuzz (``utils/fuzz.py``) against the
+     native host codec with no mismatch.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -303,6 +322,104 @@ def big_images(boat: np.ndarray) -> dict:
             "cli1600x1200": [np.clip(rgb.astype(np.int32) + rng.integers(
                 -6, 7, rgb.shape), 0, 255).astype(np.uint8)
                 for _ in range(BIG_CLI)]}
+
+
+# phase 26: the configuration sweep, pinned in
+# tests/data/golden_configs.sha256: every filter, stage count, segment
+# count and sample type beside the CLI's defaults (filters A-F and Q are
+# CodecConfig's filt 0-6)
+FILTERS = "ABCDEFQ"
+
+
+def config_sweep(boat: np.ndarray) -> list:
+    """Phase 26's configurations: [(label, image, dtype, (stages, filt,
+    segments, quota))], ``image`` a 2-D array or, for colour, the (y, u,
+    v) planes of ``color_planes``; quota None is lossless.  Boat 512 at
+    s4 g6 under filters B-F and Q (lossless and 50,000 bytes) and under
+    filter A at 30,000 (examples/compress_gray.py's settings); boat // 2
+    as uint8 (the signed 8-bit range the uint8 DWT holds); stages 1-6 at
+    filter D and segments 1-32 at filter Q; phase 20's 999x601 crop and
+    a 333x257 crop of it (its smallest subband at s6 holds 20 pixels);
+    phase 25's 1600x1200 and 2048x2048; phase 16's colour image."""
+    def f(c):
+        return FILTERS.index(c)
+
+    def tag(q):
+        return "lossless" if q is None else f"q{q}"
+
+    u8 = (boat // 2).astype(np.uint8)
+    odd = long_lane_images(boat)["gray999x601"][0]
+    big = big_images(boat)
+    rgb = color_boat(boat.astype(np.uint8))
+    cases = [(f"boat512 u16 f{c} s4 g6 {tag(q)}", boat, np.uint16,
+              (4, f(c), 6, q)) for c in "BCDEFQ" for q in (None, 50000)]
+    cases += [("boat512 u16 fA s4 g6 q30000", boat, np.uint16,
+               (4, 0, 6, 30000)),
+              ("boat512//2 u8 fA s4 g6 lossless", u8, np.uint8,
+               (4, 0, 6, None)),
+              ("boat512//2 u8 fE s4 g6 q30000", u8, np.uint8,
+               (4, f("E"), 6, 30000))]
+    cases += [(f"boat512 u16 fD s{s} g6 lossless", boat, np.uint16,
+               (s, f("D"), 6, None)) for s in (1, 2, 3, 5, 6)]
+    cases += [(f"boat512 u16 fQ s4 g{g} lossless", boat, np.uint16,
+               (4, f("Q"), g, None)) for g in (1, 2, 7, 16, 32)]
+    cases += [(f"999x601 u16 fF s5 g13 {tag(q)}", odd, np.uint16,
+               (5, f("F"), 13, q)) for q in (None, 100000)]
+    cases += [("333x257 u16 fC s6 g16 lossless",
+               np.ascontiguousarray(odd[:257, :333]), np.uint16,
+               (6, f("C"), 16, None)),
+              ("1600x1200 u16 fB s4 g6 lossless", big["gray1600x1200"][0],
+               np.uint16, (4, f("B"), 6, None)),
+              ("2048x2048 u16 fF s6 g32 lossless", big["gray2048"][0],
+               np.uint16, (6, f("F"), 32, None)),
+              ("color512 u16 fC s5 g10 lossless",
+               color_planes(rgb, np.uint16), np.uint16,
+               (5, f("C"), 10, None)),
+              ("color512 u8 fE s4 g6 q150000", color_planes(rgb, np.uint8),
+               np.uint8, (4, f("E"), 6, 150000))]
+    return cases
+
+
+def error_sweep(boat: np.ndarray) -> list:
+    """Phase 26's error-parity cases: [(label, image, (stages, filt,
+    segments, quota))], ``image`` a 2-D array or colour (y, u, v) planes,
+    each refused with the IcerStatus that tests/data/golden_configs.sha256
+    pins: stages past the 3-pixel LL rule, 33 segments, more segments than
+    LL pixels, boat's raw uint8 samples and a 0/65535 checkerboard at
+    every filter (DWT overflow); uint8 colour at 5 stages, whose packet
+    list passes the reference's 300 entries, as phase 16's planes // 3
+    (the packet count) and as its raw uint8 planes (the DWT overflows,
+    which the reference finds first)."""
+    crop = boat[:64, :64]
+    board = ((np.add.outer(np.arange(64), np.arange(64)) & 1)
+             * 65535).astype(np.uint16)
+    cases = [("64x64 s7 g6", crop, (7, 0, 6, None)),
+             ("64x64 s2 g33", crop, (2, 0, 33, None)),
+             ("128x128 s5 g20", boat[:128, :128], (5, 0, 20, None)),
+             ("boat512 u8 fA s4 g6", boat.astype(np.uint8), (4, 0, 6, None))]
+    cases += [(f"checkerboard 64x64 f{c} s4 g6", board, (4, i, 6, None))
+              for i, c in enumerate(FILTERS)]
+    rgb = color_boat(boat.astype(np.uint8))[208:304, 208:304]
+    raw = tuple(p.astype(np.uint8)
+                for p in color_planes(rgb, np.uint16))
+    cases += [("color 96x96 u8 fA s5 g6", color_planes(rgb, np.uint8),
+               (5, 0, 6, None)),
+              ("color 96x96 raw u8 fA s5 g6", raw, (5, 0, 6, None))]
+    return cases
+
+
+def read_config_pins(path) -> tuple:
+    """({label: (stream sha, pixels sha)}, {label: IcerStatus name}) of a
+    pin file written by scripts/pin_configs.py."""
+    good, bad = {}, {}
+    for ln in Path(path).read_text().splitlines():
+        head, label = ln.split("  ", 1)
+        fields = head.split()
+        if len(fields) == 2:
+            good[label] = tuple(fields)
+        else:
+            bad[label] = fields[0]
+    return good, bad
 
 
 # phase 22: boat's 64x64 centre crop, whose faulted streams kernel 2 also
@@ -2089,6 +2206,425 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
     return res
 
 
+# phase 26: kernel W1's integer work per step (two multiply-adds, a
+# multiply, two adds, the shift, the high-pass add, two range compares and
+# the three-op wrap), for its bound
+W1_OPS_PER_STEP = 12
+# phase 26's fuzz: a fixed count of trials from a fixed seed against the
+# native host codec (400 took 53-58 s on an H100, which keeps the phase
+# near two minutes)
+FUZZ_TRIALS = 400
+FUZZ_SEED = 26
+
+
+def w1_bound(lines: int, half: int, n_l: int):
+    """Kernel W1: highs and r in, d out (int32), the overflow word; ops
+    per step of every line."""
+    return bound(4 * lines * (2 * half + n_l) + 4,
+                 W1_OPS_PER_STEP * lines * half)
+
+
+def lifting_semantics(dev) -> int:
+    """The integer steps of the lifting path on the card against the host:
+    floored division by 2, 4, 8 and 16 and ``>>`` on negative int32,
+    ``_wrap`` at mag_bits 7 and 15, and ``forward_1d`` / ``inverse_1d``
+    of every filter at both sample widths on odd and even lines (the card
+    runs W1 inside the inverse).  Returns the number of values held."""
+    from icer_compression_tpu_torch.ops import wavelet as WV
+    from icer_compression_tpu_torch.ops.bitutils import floor_div
+    v = torch.arange(-(1 << 18), 1 << 18, 37, dtype=torch.int32)
+    v = torch.cat([v, torch.tensor([-(1 << 31), (1 << 31) - 1, -1, 0, 1],
+                                   dtype=torch.int32)])
+    n = 0
+    for name, fn in [(f"floor_div {d}", lambda t, d=d: floor_div(t, d))
+                     for d in (2, 4, 8, 16)] \
+            + [(f">> {s}", lambda t, s=s: t >> s) for s in (1, 2, 3, 4)] \
+            + [(f"_wrap {m}", lambda t, m=m: WV._wrap(t, m)) for m in (7, 15)]:
+        assert_equal(f"lifting {name} on the card", fn(v.to(dev)).cpu(),
+                     fn(v))
+        n += v.numel()
+    rng = np.random.default_rng(26)
+    for filt in range(7):
+        for mag_bits in (7, 15):
+            for size in (5, 6, 9, 64, 255):
+                x = torch.from_numpy(rng.integers(
+                    -(1 << mag_bits), 1 << mag_bits, (9, size))
+                    .astype(np.int32))
+                for fn in (WV.forward_1d, WV.inverse_1d):
+                    got, gov = fn(x.to(dev), filt, mag_bits)
+                    want, wov = fn(x, filt, mag_bits)
+                    assert_equal(f"{fn.__name__} f{FILTERS[filt]} "
+                                 f"mag_bits {mag_bits} N {size}", got.cpu(),
+                                 want)
+                    if bool(gov) != bool(wov):
+                        raise AssertionError(
+                            f"{fn.__name__} f{FILTERS[filt]} overflow flag "
+                            f"{bool(gov)} on the card, {bool(wov)} on the "
+                            "host")
+                    n += x.numel()
+    return n
+
+
+def stage1_passes(dev, image, filt):
+    """(label, highs, r) of the inverse DWT's last stage on
+    ``image`` transformed at one stage by ``filt``: its column pass, then
+    its row pass, as ``inverse_2d`` forms them."""
+    from icer_compression_tpu_torch.ops import wavelet as WV
+    img, _ov = WV.forward_stages(torch.as_tensor(
+        image.astype(np.int32), device=dev), 1, filt, 15)
+    out = []
+    x = img.transpose(-1, -2)
+    for label in ("column", "row"):
+        n = x.shape[-1]
+        nl = n // 2 + n % 2
+        xi = x.to(torch.int32)
+        out.append((label, xi[..., nl:], WV._diffs(xi[..., :nl])))
+        x = WV.inverse_1d(x, filt, 15)[0].transpose(-1, -2)
+    return out
+
+
+def kernel_ms(fn, name: str, reps: int = 5) -> float:
+    """Median device time in ms of the kernel ``name`` over ``reps`` calls
+    of fn(), from the profiler's records of the card (the call's other
+    launches and its host time left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if name in e.name
+             and e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(times) != reps:
+        raise AssertionError(f"the profiler saw {len(times)} launches of "
+                             f"{name}, not {reps}")
+    return statistics.median(times)
+
+
+def count_launches(fn):
+    """(kernels the profiler saw on the card, or None if it saw none; ops
+    dispatched on the card's tensors; fn()'s result)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with Count():
+            out = fn()
+        torch.cuda.synchronize()
+    kern = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+    return kern or None, Count.ops, out
+
+
+def w1_phase(dev, card, boat):
+    """Phase 26, first half: kernel W1 bit-equal to its plain version on
+    the card (every filter it serves, both sample widths, lines of 2-9
+    samples, boat 512's stage-1 column and row passes), the lifting path's
+    integer steps on the card against the host, and the inverse DWT's
+    launches and walls: filter A, filter B through W1 and filter B
+    through the plain loop (once, the figure before W1)."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import wavelet as WV
+    res = {"err": 0}
+    held = lifting_semantics(dev)
+    log(f"lifting on the card: floor_div, >>, _wrap and forward_1d / "
+        f"inverse_1d of every filter at mag_bits 7 and 15 equal the host's "
+        f"({held} values)")
+    rng = np.random.default_rng(2026)
+    cases = 0
+    for filt in range(1, 7):
+        for mag_bits in (7, 15):
+            for n in range(2, 10):
+                x = torch.from_numpy(rng.integers(
+                    -(1 << mag_bits), 1 << mag_bits, (64, n))
+                    .astype(np.int32)).to(dev)
+                nl = n // 2 + n % 2
+                hi, r = x[:, nl:], WV._diffs(x[:, :nl])
+                got = WV.inverse_recurrence(hi, r, filt, mag_bits)
+                want = WV.inverse_recurrence_plain(hi, r, filt, mag_bits)
+                res["err"] = max(res["err"], assert_equal(
+                    f"W1 f{FILTERS[filt]} mag_bits {mag_bits} N {n} d",
+                    got[0], want[0]))
+                if bool(got[1]) != bool(want[1]):
+                    raise AssertionError(f"W1 f{FILTERS[filt]} N {n}: "
+                                         "overflow flag differs")
+                cases += 1
+    log(f"W1 bit-equal to its plain version on the card (tolerance 0): "
+        f"{cases} blocks of 64 lines, filters B-F and Q, mag_bits 7 and "
+        f"15, lengths 2-9")
+    res["passes"] = {}
+    big = _tiled(boat, 2048, 2048)[0]
+    for name, img, filt in (("boat 512", boat, 1), ("boat 512", boat, 2),
+                            ("2048x2048", big, 5)):
+        for label, hi, r in stage1_passes(dev, img, filt):
+            tag = f"{name} f{FILTERS[filt]} stage-1 {label} pass"
+            got = WV.inverse_recurrence(hi, r, filt, 15)
+            want, plain_s = sync_time(lambda: WV.inverse_recurrence_plain(
+                hi, r, filt, 15))
+            res["err"] = max(res["err"], assert_equal(f"W1 {tag}", got[0],
+                                                      want[0]))
+            if bool(got[1]) != bool(want[1]):
+                raise AssertionError(f"W1 {tag}: overflow flag differs")
+            ms = kernel_ms(lambda: WV.inverse_recurrence(hi, r, filt, 15),
+                           "inverse_recurrence_kernel")
+            call_ms = event_ms(lambda: WV.inverse_recurrence(hi, r, filt, 15))
+            lines, half = hi.numel() // hi.shape[-1], hi.shape[-1]
+            bd = w1_bound(lines, half, r.shape[-1])
+            res["passes"][tag] = {
+                "lines": lines, "half": half, "ms": ms, "call_ms": call_ms,
+                "plain_ms": 1e3 * plain_s, "bound": bd}
+            log(f"W1 {tag} ({lines} lines of {half} steps): bit-equal to "
+                f"plain; kernel {ms:.4f} ms on the card (profiler, median of "
+                f"5; bound {bd[0]:.5f} ms, {bd[1]}; {1e6 * ms / half:.1f} ns "
+                f"per step), the wrapper's call with its n-major copies "
+                f"{call_ms:.4f} ms (CUDA events), plain on the card "
+                f"{1e3 * plain_s:.1f} ms | {card}")
+
+    # the inverse DWT's launches and walls: filter A, filter B through W1
+    # and through the plain loop (swapped in for the wrapper)
+    x = torch.as_tensor(boat.astype(np.int32), device=dev)[None]
+    w1 = WV.inverse_recurrence
+    inv = {}
+    for label, filt, plain in (("fA", 0, False), ("fB", 1, False),
+                               ("fB plain loop", 1, True)):
+        img, _ov = WV.forward_stages(x, 4, filt, 15)
+        WV.inverse_recurrence = WV.inverse_recurrence_plain if plain else w1
+        w1.launches = 0
+        try:
+            kern, ops, (out, _ov) = count_launches(
+                lambda: WV.inverse_stages(img, 4, filt, 15))
+            n_w1 = w1.launches
+            _o, secs = sync_time(lambda: WV.inverse_stages(img, 4, filt, 15))
+        finally:
+            WV.inverse_recurrence = w1
+        if not torch.equal(out, x):
+            raise AssertionError(f"inverse DWT {label} of boat's forward "
+                                 "transform differs from boat")
+        # W1 is no aten op: its launches join the dispatched ops
+        inv[label] = {"kernels": kern, "ops": ops + n_w1, "w1": n_w1,
+                      "ms": 1e3 * secs}
+    res["inverse"] = inv
+    a, b = inv["fA"], inv["fB"]
+    use = "kernels" if a["kernels"] and b["kernels"] else "ops"
+    if not b["w1"] or b[use] > 2 * a[use]:
+        raise AssertionError(f"filter B's inverse DWT: {b} against filter "
+                             f"A's {a} (at most twice, W1 launched)")
+    for label, r in inv.items():
+        log(f"inverse DWT boat 512 s4 {label}: {r['kernels']} kernels on "
+            f"the card (profiler), {r['ops']} launches counted by dispatch, "
+            f"W1 {r['w1']}; {r['ms']:.2f} ms | {card}")
+    # the filter-B decode through W1, once through the plain loop, and
+    # through W1 again
+    cfg = T.CodecConfig(4, 1, 6, None)
+    s = T.compress(boat, cfg, device=dev)
+    walls = {"W1": [], "plain loop": []}
+    for label in ("W1", "plain loop", "W1"):
+        if label != "W1":
+            WV.inverse_recurrence = WV.inverse_recurrence_plain
+        try:
+            px, secs = sync_time(lambda: T.decompress(s, cfg, np.uint16,
+                                                      device=dev))
+        finally:
+            WV.inverse_recurrence = w1
+        if not np.array_equal(px, boat):
+            raise AssertionError(f"filter-B decode ({label}) differs")
+        walls[label].append(secs)
+    res["decode_fb"] = {k: min(v) for k, v in walls.items()}
+    log(f"boat 512 s4 fB g6 lossless decode wall: through W1 "
+        f"{1e3 * res['decode_fb']['W1']:.1f} ms (best of 2), through the "
+        f"plain loop {1e3 * res['decode_fb']['plain loop']:.1f} ms (once) | "
+        f"{card}")
+    return res
+
+
+def w1_entry(w1r, cfr) -> dict:
+    """Kernel W1's entry of the kernels line: its launches on the
+    filter-B 512x512 decode of the configuration sweep, its time on boat's
+    stage-1 column pass beside its bound and its plain version's."""
+    col = w1r["passes"]["boat 512 fB stage-1 column pass"]
+    return {
+        "name": "wavelet_inverse", "route": "cuda",
+        "source": "icer_compression_tpu_torch/csrc/wavelet.cu",
+        "replaces": "icer_compression_tpu/ops/wavelet.py:282",
+        "replaces_kind": "an XLA lax.scan (_inverse_recurrence_jax, called "
+                         "at :227), no pl.pallas_call",
+        "launches": cfr["launches"]["boat512 u16 fB s4 g6 lossless"]["W1"],
+        "max_abs_err": w1r["err"], "equal_to_plain": True,
+        "shape": f"lines={col['lines']} half={col['half']} (boat 512 fB "
+                 "stage-1 column pass)",
+        "ms": col["ms"], "plain_ms": col["plain_ms"],
+        "bound_ms": col["bound"][0], "bound_by": col["bound"][1],
+        "library_ms": None,
+        "ns_per_step": 1e6 * col["ms"] / col["half"],
+        "step": "one high-pass index of a line",
+        "call_ms": col["call_ms"],
+        "passes": {k: {"lines": v["lines"], "half": v["half"], "ms": v["ms"],
+                       "call_ms": v["call_ms"], "plain_ms": v["plain_ms"],
+                       "bound_ms": v["bound"][0]}
+                   for k, v in w1r["passes"].items()},
+        "inverse_dwt_boat_s4": w1r["inverse"],
+        "decode_fb_ms": {k: 1e3 * v for k, v in w1r["decode_fb"].items()},
+        "launches_by_path": {k: n["W1"] for k, n in cfr["launches"].items()},
+        "path": "decompress of boat 512 at s4 fB g6, lossless"}
+
+
+def config_phase(dev, card, boat, pins, errors):
+    """Phase 26, second half: every configuration of ``config_sweep``
+    through ``compress`` (the ``auto`` coder) / ``decompress`` or
+    ``compress_yuv`` / ``decompress_yuv`` on the card must equal its pin
+    from the JAX package (tests/data/golden_configs.sha256), and its
+    lossless decode the input (filter C's excepted: its prediction from
+    the stored high[1] makes the reference's lossless decode differ from
+    the input, and the pin holds the reference's); every case of
+    ``error_sweep`` must be refused with the pinned IcerStatus; a batch of
+    3 noisy boat variants at filter B equals the single calls; the CLI's
+    ``compress -f D -s 3 -g 7`` / ``decompress`` equals the API; then a
+    fixed-seed fuzz against the native host codec with no mismatch."""
+    from icer_compression_tpu_torch import cli
+    from icer_compression_tpu_torch.core.status import IcerError
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_full as EF
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.ops import wavelet as WV
+    from icer_compression_tpu_torch.utils import fuzz
+    from icer_compression_tpu_torch.utils.image_io import read_png, write_png
+
+    counted = {"K1": (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word),
+               "K4": (EF.encode_lanes_full,), "K2": (PDc.decode_planes,),
+               "W1": (WV.inverse_recurrence,)}
+
+    def reset():
+        for fns in counted.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def counts():
+        return {k: sum(fn.launches for fn in fns)
+                for k, fns in counted.items()}
+
+    res = {"launches": {}, "walls": {}}
+    for label, img, dtype, cfg_t in config_sweep(boat):
+        cfg = T.CodecConfig(*cfg_t)
+        color = isinstance(img, tuple)
+        reset()
+        if color:
+            s, enc_s = sync_time(lambda: TC.compress_yuv(*img, cfg,
+                                                         device=dev))
+            out, dec_s = sync_time(lambda: TC.decompress_yuv(
+                s, cfg, dtype, device=dev))
+            digest = planes_sha(out)
+            h, w = img[0].shape
+        else:
+            s, enc_s = sync_time(lambda: T.compress(img, cfg, device=dev))
+            out, dec_s = sync_time(lambda: T.decompress(
+                s, cfg, dtype, device=dev))
+            digest = pixels_sha(out)
+            h, w = img.shape
+        got = (hashlib.sha256(s).hexdigest(), digest)
+        if got != pins[label]:
+            raise AssertionError(f"{label}: {got} != pins {pins[label]}")
+        lossless = cfg.byte_quota is None
+        if lossless and cfg.filt != 2 and digest != (
+                planes_sha(img) if color else pixels_sha(img)):
+            raise AssertionError(f"{label}: lossless decode differs from "
+                                 "the input")
+        n = counts()
+        if not n["K2"] or (cfg.filt != 0 and not n["W1"]) \
+                or not (n["K1"] or n["K4"]):
+            raise AssertionError(f"{label}: a kernel of its path did not "
+                                 f"launch: {n}")
+        coders = T.make_encoder(w, h, cfg, dtype, dev).bucket_coders
+        res["launches"][label] = n
+        res["walls"][label] = (enc_s, dec_s)
+        log(f"config {label}: {len(s)} B, stream and decode equal the pins"
+            f"{', decode returns the input' if lossless and cfg.filt != 2 else ''}"
+            f"; encode {1e3 * enc_s:.1f} ms, decode {1e3 * dec_s:.1f} ms; "
+            f"coders {coders}; launches {n} | {card}")
+    for label, img, cfg_t in error_sweep(boat):
+        try:
+            if isinstance(img, tuple):
+                TC.compress_yuv(*img, T.CodecConfig(*cfg_t), device=dev)
+            else:
+                T.compress(img, T.CodecConfig(*cfg_t), device=dev)
+        except IcerError as e:
+            if e.status.name != errors[label]:
+                raise AssertionError(f"{label}: {e.status.name} != "
+                                     f"{errors[label]}") from e
+        else:
+            raise AssertionError(f"{label}: encoded, the JAX package "
+                                 f"raises {errors[label]}")
+    log(f"refusals: {len(errors)} error cases raise the JAX package's "
+        f"IcerStatus ({', '.join(sorted(set(errors.values())))})")
+
+    rng = np.random.default_rng(1234)
+    batch = np.clip(boat[None].astype(np.int32) + rng.integers(
+        -6, 7, (3,) + boat.shape), 0, 255).astype(np.uint16)
+    bcfg = T.CodecConfig(4, 1, 6, None)
+    reset()
+    streams = T.compress_batch(batch, bcfg, device=dev)
+    decs = D.decompress_batch(streams, bcfg, np.uint16, device=dev)
+    res["launches"]["batch of 3 fB"] = counts()
+    for i, img in enumerate(batch):
+        if streams[i] != T.compress(img, bcfg, device=dev):
+            raise AssertionError(f"fB batch stream {i} differs from compress")
+        if not np.array_equal(decs[i], img):
+            raise AssertionError(f"fB batch decode {i} differs")
+    with no_host_sync():
+        collect = D.decompress_batch(streams, bcfg, np.uint16, device=dev,
+                                     defer=True)
+    if not all(np.array_equal(a, b) for a, b in zip(collect(), batch)):
+        raise AssertionError("deferred fB batch decode differs")
+    log(f"batch of 3 noisy boat variants, s4 fB g6: streams equal compress, "
+        f"decodes the inputs (also deferred, no host sync in its dispatch "
+        f"half); launches {res['launches']['batch of 3 fB']}")
+
+    h, w = boat.shape
+    args = ["-f", "D", "-s", "3", "-g", "7", "-G", "--device", dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_png(tmp / "boat.png", boat.astype(np.uint8))
+        for op, src, dst in (("compress", "boat.png", "b.icer"),
+                             ("decompress", "b.icer", "b.png")):
+            if cli.main([op, str(tmp / src), str(tmp / dst)] + args) != 0:
+                raise AssertionError(f"cli {op} -f D -s 3 -g 7 failed")
+        ccfg = T.CodecConfig(3, 3, 7, h * w)
+        s = T.compress(boat, ccfg, device=dev)
+        px = np.clip(T.decompress(s, ccfg, np.uint16, device=dev), 0,
+                     255).astype(np.uint8)
+        if (tmp / "b.icer").read_bytes() != s:
+            raise AssertionError("cli -f D -s 3 -g 7 stream differs")
+        if not np.array_equal(read_png(tmp / "b.png"), px):
+            raise AssertionError("cli -f D -s 3 -g 7 decode differs")
+    log("cli compress / decompress -f D -s 3 -g 7 -G on boat: stream and "
+        "decode equal the API's")
+
+    out = fuzz.run(fuzz.port_codec(dev), fuzz.native_codec(),
+                   trials=FUZZ_TRIALS, seed=FUZZ_SEED, log=log)
+    res["fuzz"] = out
+    log(f"fuzz, seed {FUZZ_SEED}, against the native host codec: "
+        f"{out['trials']} trials in {out['seconds']:.1f} s, per filter "
+        f"{out['per_filter']}, per kind {out['per_kind']}, per type "
+        f"{out['per_dtype']}, {len(out['mismatches'])} mismatches | {card}")
+    if out["mismatches"]:
+        raise AssertionError(f"fuzz mismatches: {out['mismatches']}")
+    return res
+
+
 def guard_rerun(kernels, name):
     """Remove library ``name`` from build/ and load it again: the rebuild
     must run the first-use check, pass it and leave the library under its
@@ -2478,7 +3014,7 @@ def main() -> int:
 
 
 def smoke(host) -> int:
-    """Phases 1-25 on the card; ``host`` runs the plain versions that are
+    """Phases 1-26 on the card; ``host`` runs the plain versions that are
     checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
@@ -2800,6 +3336,9 @@ def smoke(host) -> int:
         (data / "golden_big_images.sha256").read_text().splitlines()),
         host, big_k4)
     del big_k4
+    w1r = w1_phase(dev, card, boat)
+    cfr = config_phase(dev, card, boat,
+                       *read_config_pins(data / "golden_configs.sha256"))
     # phase 1's long blocks against their plain versions (host CPU)
     late_s = {}
     for name, kout, blk in (("K1 two-word long", kl, lw),
@@ -2948,6 +3487,7 @@ def smoke(host) -> int:
              "plain_cpu_ms": 1e3 * k1w_huge_plain_s, "top_ordinal": top_h},
          "path": "compress of a 1024x1024 image at the CLI's defaults: the "
                  "stage-1 bucket"},
+        w1_entry(w1r, cfr),
     ] + new
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
         f"decode_ms {1e3 * dec_med:.2f}; color_encode_ms "
@@ -2977,7 +3517,12 @@ def smoke(host) -> int:
             f"{r['host_s']:.3f}, {r['enc_peak'] / 1e9:.2f}"
             for k, r in large["images"].items() if "host" in r)
         + f"; kernel-4 pass bytes per coder word "
-        f"{large['bytes_per_word']:.1f}, sorted {large['sorted'][3]:.1f}")
+        f"{large['bytes_per_word']:.1f}, sorted {large['sorted'][3]:.1f}"
+        + "; config sweep (encode ms, decode ms) " + "; ".join(
+            f"{k} {1e3 * e:.1f}, {1e3 * d:.1f}"
+            for k, (e, d) in cfr["walls"].items())
+        + f"; fuzz {cfr['fuzz']['trials']} trials, "
+        f"{cfr['fuzz']['seconds']:.1f} s, 0 mismatches")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

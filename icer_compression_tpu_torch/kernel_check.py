@@ -8,7 +8,9 @@ the library holds runs once on a small fixed input, made from a seed with
 numpy, and its outputs must equal the plain PyTorch version's on CPU copies
 of the same input, at tolerance 0.  The inputs are small (coder blocks of
 256 steps x 8 lanes, one 16x11 decode unit of 4 lanes and 9 rounds), so
-the check costs seconds, mostly the plain versions on the host.
+the check costs seconds, mostly the plain versions on the host.  Kernel W1
+(the inverse DWT's recurrence) runs on seeded lines of every filter it
+serves, at both sample widths and at odd and even lengths.
 
 This module imports the kernel wrappers, which import ``kernels``; it is
 imported lazily by ``kernels.build_all`` for that reason.
@@ -26,11 +28,15 @@ import torch
 from .ops import entropy_full as EF
 from .ops import entropy_slim as ES
 from .ops import plane_decode as PD
+from .ops import wavelet as WV
 
 SEED = 20261017
 L, LANES = 256, 8                 # coder check blocks
 UNIT_H, UNIT_W = 32, 22           # one stage: four 16x11 subbands
 UNIT_QUOTA = 1600                 # cuts the stream inside its last plane
+W1_LINES = 8                      # lines per W1 case
+W1_LENGTHS = (5, 6, 7, 8, 9, 16, 17, 64)
+W1_FILTERS = (1, 2, 3, 4, 5, 6)   # B-F, Q: the filters W1 serves
 
 
 class KernelMismatch(RuntimeError):
@@ -128,6 +134,36 @@ def _k3(dev):
                                   8 - (R - 1), 15)
 
 
+@functools.lru_cache(maxsize=None)
+def recurrence_lines():
+    """[(filt, mag_bits, highs, r)]: W1_LINES seeded lines of each
+    length of W1_LENGTHS for each filter and sample width, high-pass
+    values and low-pass samples across the whole signed range at every
+    other length (most of those lines overflow) and across an eighth of
+    it at the others."""
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for filt in W1_FILTERS:
+        for mag_bits in (7, 15):
+            for i, n in enumerate(W1_LENGTHS):
+                half, is_odd = n // 2, bool(n & 1)
+                amp = 1 << (mag_bits - 3 * (i & 1))
+                x = rng.integers(-amp, amp, (W1_LINES, n)).astype(np.int32)
+                lows = torch.from_numpy(x[:, :half + is_odd])
+                r = torch.cat([torch.ones((W1_LINES, 1), dtype=torch.int32),
+                               lows[:, :-1] - lows[:, 1:]], dim=1)
+                cases.append((filt, mag_bits,
+                              torch.from_numpy(x[:, half + is_odd:]), r))
+    return cases
+
+
+def _w1(dev):
+    outs = [WV.inverse_recurrence(h.to(dev), r.to(dev), filt, mag_bits)
+            for filt, mag_bits, h, r in recurrence_lines()]
+    return (torch.cat([d.reshape(-1) for d, _ov in outs]),
+            torch.stack([ov for _d, ov in outs]).to(torch.int32))
+
+
 _SLIM = ("rec", "fstate", "misc", "ev")
 _TWO_WORD = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2")
 _FULL = ("code", "nbits", "open")
@@ -147,12 +183,15 @@ CHECKS = {
                  lambda dev: EF.encode_lanes_full(*_split(dev))),
         Instance("K5", "full_encode_tiled_launch", _FULL,
                  lambda dev: EF.encode_lanes_full_tiled(*_split(dev)))),
+    "wavelet": (
+        Instance("W1", "wavelet_inverse_launch", ("d", "overflow"), _w1),),
 }
 
 # the wrappers' launch counts, which the check leaves as it found them
 _COUNTED = (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word,
             EF.encode_lanes_full, EF.encode_lanes_full_tiled,
-            PD.decode_planes, PD.decode_plane_seeded)
+            PD.decode_planes, PD.decode_plane_seeded,
+            WV.inverse_recurrence)
 
 
 def first_difference(label: str, name: str, got: torch.Tensor,

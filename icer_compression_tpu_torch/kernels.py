@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-KERNELS = ("slim_encode", "plane_decode", "full_encode")
+KERNELS = ("slim_encode", "plane_decode", "full_encode", "wavelet")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

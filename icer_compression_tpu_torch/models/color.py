@@ -130,7 +130,16 @@ def compress_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         return _compress_yuv_host((y, u, v), config, mag_bits, backend,
                                   encode_plane or encode_plane_payload)
     dev = resolve_device(device)
-    classes = yuv_quota_classes(w, h, config.stages, bitplanes)
+    try:
+        classes = yuv_quota_classes(w, h, config.stages, bitplanes)
+    except IcerError as e:
+        if e.status != IcerStatus.PACKET_COUNT_EXCEEDED:
+            raise
+        # the reference transforms the channels before it builds the
+        # packet list (icer_color.c), so a DWT or LL-mean overflow is
+        # refused first: the full encode raises it, else the allocation
+        # raises the packet count
+        return compress_yuv_batch([y], [u], [v], config, device=dev)[0]
     quota = config.byte_quota
     if quota is None:
         ci = len(classes) - 1

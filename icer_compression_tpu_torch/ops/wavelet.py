@@ -6,7 +6,9 @@ Counterpart: ``icer_compression_tpu/ops/wavelet.py`` (``forward_stages``,
 transforms as one batched tensor op along the last axis; leading axes are
 batch axes.  The inverse of the filters with a non-zero beta (or filter C's
 self-referential term) is a backward recurrence over the high-pass index:
-here a Python loop over that index, vectorised over rows and batch.
+kernel W1 (``inverse_recurrence``, ``csrc/wavelet.cu``) on the card, one
+thread per line, and its plain version, a Python loop over that index
+vectorised over the lines, on CPU tensors.
 
 The overflow flag stays a 0-d bool tensor on the input's device, so a
 caller can test it once per image instead of syncing per stage.  The
@@ -16,11 +18,13 @@ from the stored high[1], and the skewed uint8 odd-length interleave.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core import constants as C
 from ..core.status import IcerError, IcerStatus
 from ..core.subbands import dim_low
@@ -133,29 +137,7 @@ def inverse_1d(x: torch.Tensor, filt: int, mag_bits: int):
         overflow = _out_of_range(d_rec, mag_bits)
         d_rec = _wrap(d_rec, mag_bits)
     else:
-        # backward recurrence: d[n] from the restored d[n+1]
-        overflow = torch.zeros((), dtype=torch.bool, device=x.device)
-        cols: list = [None] * half
-        dn1 = _zeros1(highs)
-        for n in range(half - 1, -1, -1):
-            if n == 0:
-                add = floor_div(_col(r, 1), 4)
-            elif n == 1 and a_n1 != 0:
-                d2v = (_zeros1(highs) if (is_odd and half == 2)
-                       else _col(highs, 1))
-                add = floor_div(2 * _col(r, 1) + 3 * _col(r, 2)
-                                - 2 * d2v + 4, 8)
-            elif (not is_odd) and n == half - 1:
-                add = floor_div(_col(r, half - 1), 4)
-            else:
-                add = floor_div(a_n1 * _col(r, n - 1) + a_0 * _col(r, n)
-                                + a_1 * _col(r, n + 1) - beta * dn1 + 8,
-                                C.FILTER_DENOMINATOR)
-            v = _col(highs, n) + add
-            overflow = overflow | _out_of_range(v, mag_bits)
-            dn1 = _wrap(v, mag_bits)
-            cols[n] = dn1
-        d_rec = torch.cat(cols, dim=-1)
+        d_rec, overflow = inverse_recurrence(highs, r, filt, mag_bits)
 
     tmp = lows[..., :half] + floor_div(d_rec + 1, 2)
     even = tmp
@@ -170,6 +152,103 @@ def inverse_1d(x: torch.Tensor, filt: int, mag_bits: int):
     else:
         y = torch.cat([even, odd], dim=-1)
     return y[..., _interleave_perm_t(N, mag_bits, str(x.device))], overflow
+
+
+def inverse_recurrence_plain(highs: torch.Tensor, r: torch.Tensor,
+                             filt: int, mag_bits: int):
+    """W1's plain version: the backward prediction recurrence of
+    ``inverse_1d`` for the filters whose prediction reads the restored
+    d[n+1] (beta != 0) or, filter C, the stored high[1].
+
+    ``highs`` (..., half) and ``r`` (..., nL) int32, nL = half + 1 for a
+    line of odd length and half for an even one, r[0] = 1 and r[n] =
+    L[n-1] - L[n]; r reads as 0 past nL (as the JAX
+    package's ``lax.scan`` pads it, so lines of 2 to 4 samples are
+    defined).  From n = half-1 down to 0, d[n] = wrap(high[n] + add[n]):
+    add[0] = floor(r[1] / 4); filter C's add[1] = floor((2 r[1] + 3 r[2]
+    - 2 high[1] + 4) / 8), with high[1] read as 0 when N = 5 (the
+    reference predicts from the stored value); an even line's
+    add[half-1] = floor(r[half-1] / 4); otherwise floor((a_n1 r[n-1] +
+    a_0 r[n] + a_1 r[n+1] - beta d[n+1] + 8) / 16).  Returns (d (...,
+    half) int32, overflow: a 0-d bool tensor, set where an unwrapped
+    value leaves the sample range).  A loop over n of about 55 small ops
+    a step, vectorised over the lines."""
+    a_n1, a_0, a_1, beta = (int(v) for v in C.WAVELET_FILTER_PARAMETERS[filt])
+    half = highs.shape[-1]
+    is_odd = r.shape[-1] > half
+    rp = torch.cat([r, _zeros1(r), _zeros1(r)], dim=-1)
+    overflow = torch.zeros((), dtype=torch.bool, device=highs.device)
+    cols: list = [None] * half
+    dn1 = _zeros1(highs)
+    for n in range(half - 1, -1, -1):
+        if n == 0:
+            add = floor_div(_col(rp, 1), 4)
+        elif n == 1 and a_n1 != 0:
+            d2v = (_zeros1(highs) if (is_odd and half == 2)
+                   else _col(highs, 1))
+            add = floor_div(2 * _col(rp, 1) + 3 * _col(rp, 2)
+                            - 2 * d2v + 4, 8)
+        elif (not is_odd) and n == half - 1:
+            add = floor_div(_col(rp, half - 1), 4)
+        else:
+            add = floor_div(a_n1 * _col(rp, n - 1) + a_0 * _col(rp, n)
+                            + a_1 * _col(rp, n + 1) - beta * dn1 + 8,
+                            C.FILTER_DENOMINATOR)
+        v = _col(highs, n) + add
+        overflow = overflow | _out_of_range(v, mag_bits)
+        dn1 = _wrap(v, mag_bits)
+        cols[n] = dn1
+    return torch.cat(cols, dim=-1), overflow
+
+
+def _check_recurrence(highs, r):
+    if highs.dtype != torch.int32 or r.dtype != torch.int32:
+        raise ValueError(f"W1 takes int32, not {highs.dtype} / {r.dtype}")
+    half = highs.shape[-1]
+    if half < 1 or r.shape[:-1] != highs.shape[:-1] \
+            or r.shape[-1] not in (half, half + 1):
+        raise ValueError(f"W1: highs {tuple(highs.shape)} and r "
+                         f"{tuple(r.shape)} do not form lines")
+    if r.device != highs.device:
+        raise ValueError(f"W1: highs on {highs.device}, r on {r.device}")
+
+
+def inverse_recurrence(highs: torch.Tensor, r: torch.Tensor, filt: int,
+                       mag_bits: int):
+    """Kernel W1: the backward recurrence of ``inverse_recurrence_plain``
+    (contract there), every leading index of ``highs`` one line.
+
+    CUDA tensors launch ``csrc/wavelet.cu``, one thread per line, on
+    n-major copies of the inputs (a warp's lines side by side at each
+    step); CPU tensors run the plain version.  The overflow flag stays on
+    the device (no host sync)."""
+    if highs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {highs.device}")
+    _check_recurrence(highs, r)
+    if highs.device.type == "cpu":
+        return inverse_recurrence_plain(highs, r, filt, mag_bits)
+    fn = kernels.load("wavelet").wavelet_inverse_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    half = highs.shape[-1]
+    h_t = highs.movedim(-1, 0).contiguous()
+    r_t = r.movedim(-1, 0).contiguous()
+    lines = h_t.numel() // half
+    d_t = torch.empty_like(h_t)
+    ov = torch.zeros(1, dtype=torch.int32, device=highs.device)
+    a_n1, a_0, a_1, beta = (int(v) for v in C.WAVELET_FILTER_PARAMETERS[filt])
+    with torch.cuda.device(highs.device):
+        cs = torch.cuda.current_stream(highs.device).cuda_stream
+        status = fn(h_t.data_ptr(), r_t.data_ptr(), d_t.data_ptr(),
+                    ov.data_ptr(), lines, half, r.shape[-1], a_n1, a_0, a_1,
+                    beta, mag_bits, cs)
+    kernels.check(status, "wavelet_inverse")
+    inverse_recurrence.launches += 1
+    return d_t.movedim(0, -1), ov[0] != 0
+
+
+inverse_recurrence.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

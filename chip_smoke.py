@@ -17,9 +17,13 @@ the check and pass it; builds the native host runtime
      version on boat 512's stage-1 emission words, on a noisy block that
      overflows the eviction side buffer and on a block whose lanes need
      the reorder-window eviction; its two-word instance on that eviction
-     block and on a block of 33,024 steps whose allocation ordinals pass
-     2^15 (the wrapper picks that mode there itself; that block's plain
-     version runs on the host CPU);
+     block, on a block of 33,024 steps whose allocation ordinals pass
+     2^15, on the first-use check's block of 133,120 steps whose
+     ordinals pass 2^17 and whose evictions pass 32, with the side buffer
+     the encoder sizes, and on the noisy block with the TPU kernel's 32
+     side-buffer rows, which flags the lanes past them as the fused-key
+     instance does (those three blocks' plain versions run on the host
+     CPU);
   2. holds kernel 2 (multi-round plane decoder) bit-equal to its plain
      version on a crop of boat, lossless and at a truncating quota;
   3. drives the main path: boat 512 lossless (stages 4, filter A, 6
@@ -68,7 +72,7 @@ the check and pass it; builds the native host runtime
      bit-equal to the shared-memory placement on every unit of boat's
      plan;
  15. encodes boat at one stage and one segment (256x256 lanes, through
-     the ``pallas`` coder: the slim coder refuses lanes that long) and
+     the ``pallas`` coder, whose block kernel 5 is held to) and
      decodes it with kernel 2 on a canvas too large for shared memory:
      pixel-exact; kernel 5 equals kernel 4 on that encode's block, whose
      opening emissions pass 2^16.
@@ -108,9 +112,10 @@ the check and pass it; builds the native host runtime
      stream and decode equals its pin (tests/data/golden_long_lanes
      .sha256, made with the JAX package by scripts/pin_long_lanes.py);
      kernel 2's canvas placement on the 1024x1024 stage-1 unit (held
-     equal to device memory), kernel 1's two-word stage-1 launch time and
-     its plain version there (on the host CPU), and the peak device memory
-     per coder word of an encode pass in each record mode;
+     equal to device memory), kernel 1's two-word stage-1 launch time
+     (beside the earlier instance's 15.484 ms, PERF.md) and its plain
+     version there (on the host CPU), and the peak device memory per
+     coder word of an encode pass in each record mode;
  21. the CLI's batch-compress and batch-decompress at their defaults
      (``--batch-size 56 --pipeline 4``) on 8 colour 1024x1024 PNGs: the
      outputs equal the API's; peak device memory of each;
@@ -143,20 +148,25 @@ the check and pass it; builds the native host runtime
      ``ShardedGrayscaleDecoder`` pixels the inputs, its
      ``ShardedColorEncoder`` streams of phase 17's colour batch
      ``compress_yuv_batch``'s, and it must launch kernels 1 and 2.
- 25. frames whose lanes reach kernel 1's limit of 2^17 slots, at the
-     CLI's defaults, through the default ``auto`` coder (kernel 1 on the
-     short buckets, kernel 4 on the long ones): boat tiled to 1600x1200
-     and to 2048x2048 (lossless and quota 200,000), a batch of 3 at
-     2048x2048 in device passes, colour 1600x1200 through
-     ``compress_yuv``/``decompress_yuv``, one 5120x3840 image lossless, and
-     the CLI's batch-compress / batch-decompress -c at their defaults on 4
-     colour 1600x1200 PNGs: every stream and decode equals its pin
+ 25. frames whose lanes pass 2^17 slots, at the CLI's defaults, through
+     the default ``auto`` coder (kernel 1 on every bucket: the two-word
+     instance on the long ones, with its side buffer sized so that no
+     lane overflows it): boat tiled to 1600x1200 and to 2048x2048
+     (lossless and quota 200,000), a batch of 3 at 2048x2048 in device
+     passes, colour 1600x1200 through ``compress_yuv``/``decompress_yuv``,
+     one 5120x3840 image lossless, and the CLI's batch-compress /
+     batch-decompress -c at their defaults on 4 colour 1600x1200 PNGs:
+     every stream and decode equals its pin
      (tests/data/golden_big_images.sha256, made with the JAX package by
      scripts/pin_big_images.py), lossless decodes return the input, and
-     kernel 4 launches on every image; each kernel-4 launch's time beside
-     its bound, the host lanes, the walls and the peak device memory; the
-     ``sorted`` backend's wall on 1600x1200; kernel 4 bit-equal to its
-     plain version (on the host CPU) on 1600x1200's stage-1 block.
+     kernel 1 launches on every image and kernel 4 on none; each kernel-1
+     launch's time beside its bound, the host lanes with their causes (no
+     lane may be there for an eviction), the walls and the peak device
+     memory; each lossless frame also through ``entropy="pallas"``
+     (kernel 4 and the host re-encode of its flush lanes), the
+     ``sorted`` backend's wall on 1600x1200; kernel 1's two-word instance
+     bit-equal to its plain version (on the host CPU) on 1600x1200's
+     stage-1 bucket and kernel 4 on its compacted block.
  26. every filter (A-F, Q), stage count (1-6), segment count (1-32) and
      sample type (uint8, uint16) that the JAX package encodes: kernel W1
      (the inverse DWT's backward recurrence, csrc/wavelet.cu) bit-equal to
@@ -180,7 +190,7 @@ the check and pass it; builds the native host runtime
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
 (LDL/STL) in its SASS (``cuobjdump -sass``): kernels 4 and 5 and kernel
-1's two-word instance must have none.
+1's two-word instance (``slim_encode_wide_kernel``) must have none.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object {"kernels": [...]}; the last line is
@@ -286,8 +296,8 @@ def long_lane_images(boat: np.ndarray) -> dict:
             "color1024": color_boat(big.astype(np.uint8))}
 
 
-# phase 25: frames whose stage-1 lanes (and at 5120x3840 stage 2's) reach
-# kernel 1's limit of 2^17 slots, at the CLI's defaults and these quotas,
+# phase 25: frames whose stage-1 lanes (and at 5120x3840 stage 2's) pass
+# 2^17 slots, at the CLI's defaults and these quotas,
 # pinned in tests/data/golden_big_images.sha256; a batch of BIG_BATCH at
 # 2048x2048, and the CLI's batch operations on BIG_CLI colour PNGs
 BIG_QUOTAS = (None, 200000)
@@ -506,16 +516,17 @@ def assert_equal(name, a, b) -> int:
     return err
 
 
-def _plain_job(kind, ins):
+def _plain_job(kind, ins, nev):
     """One plain version on the host CPU, in a worker of ``HostPlain``:
-    kernel 1's two-word instance (``"k1w"``) or kernel 4 (``"k4"``) on
-    CPU tensors.  Returns (outputs, seconds)."""
+    kernel 1's two-word instance (``"k1w"``, with ``nev`` side-buffer
+    rows) or kernel 4 (``"k4"``) on CPU tensors.  Returns (outputs,
+    seconds)."""
     from icer_compression_tpu_torch.ops import entropy_full as EF
     from icer_compression_tpu_torch.ops import entropy_slim as ES
     torch.set_num_threads(1)
     t0 = time.perf_counter()
     if kind == "k1w":
-        out = ES.encode_lanes_slim_plain(*ins, two_word=True)
+        out = ES.encode_lanes_slim_plain(*ins, two_word=True, nev=nev)
     else:
         out = EF.encode_lanes_full_plain(*ins)
     return out, time.perf_counter() - t0
@@ -542,9 +553,9 @@ class HostPlain:
     def __exit__(self, *exc):
         self.pool.shutdown(wait=True, cancel_futures=True)
 
-    def submit(self, name, kind, ins):
+    def submit(self, name, kind, ins, nev=None):
         self.jobs[name] = self.pool.submit(_plain_job, kind,
-                                           tuple(t.cpu() for t in ins))
+                                           tuple(t.cpu() for t in ins), nev)
 
     def check(self, name, outs, names):
         """(max abs error, plain seconds) of the kernel's ``outs`` against
@@ -581,14 +592,18 @@ def bound(nbytes: int, ops: int):
                                        else "operations")
 
 
-def k1_bound(words, misc, two_word=False):
+def k1_bound(words, misc, nev=None, nvalid=None):
     """Kernel 1: words in, records out (one word per step, two in the
-    two-word mode), state rows out; ops from this run's valid emissions
-    and allocations."""
-    L, lanes = words.shape
-    nrec, nev = (2, 64) if two_word else (1, 32)
-    nbytes = 4 * ((1 + nrec) * L * lanes + (17 + 8 + nev) * lanes)
-    ops = (K1_OPS_PER_VALID * int((words & 1).sum())
+    two-word mode), state rows out (the two-word mode with ``nev`` rows of
+    each side-buffer output and the open ordinals); ops from this run's
+    valid emissions (``nvalid``, else counted in ``words``; with
+    ``nvalid``, ``words`` may be its shape) and allocations."""
+    L, lanes = getattr(words, "shape", words)
+    rows = 17 + 8 + 32 if nev is None else 17 + 8 + 2 * nev + 17
+    nbytes = 4 * ((2 if nev is None else 3) * L * lanes + rows * lanes)
+    if nvalid is None:
+        nvalid = int((words & 1).sum())
+    ops = (K1_OPS_PER_VALID * nvalid
            + K1_OPS_PER_ALLOC * int(misc[1].sum()))
     return bound(nbytes, ops)
 
@@ -643,13 +658,13 @@ def long_ordinal_words(rng, L=33024):
     return torch.from_numpy((1 | (ctx << 1) | (bit << 6)).astype(np.int32))
 
 
-TWO_WORD_OUTS = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2")
+TWO_WORD_OUTS = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2", "fopen")
 
 
 def top_ordinal(out) -> int:
     """Largest allocation ordinal that kernel 1's two-word outputs write:
     over the completed records and the evictions."""
-    rec1, rec2, _fs, _misc, ev1, ev2 = out
+    rec1, rec2, _fs, _misc, ev1, ev2, _fopen = out
     return max(int(torch.where(rec1 != 0, rec2, 0).max()),
                int(torch.where(ev1 != 0, ev2, 0).max()))
 
@@ -777,25 +792,28 @@ def watch_host_lanes(enc) -> list:
     return seen
 
 
-def check_host_lanes(name, seen) -> int:
+def check_host_lanes(name, seen, lanes=None) -> int:
     """Each native payload recorded by ``watch_host_lanes`` equals the
     sequential coder's (``backend/sequential.encode_emissions``, the
     encoder's host path before the native runtime) on the same words;
-    returns (lanes checked, seconds of the sequential coder)."""
+    returns (lanes checked, seconds of the sequential coder).  ``lanes``,
+    a list, gets (bucket, row, bits, evictions) of each lane."""
     from icer_compression_tpu_torch.backend import sequential
     n, secs = 0, 0.0
     for words, rows, res in seen:
         for (bi, r), got in zip(rows, res):
             w = words[bi][r].cpu().numpy()
             t0 = time.perf_counter()
-            pl, nb, _ = sequential.encode_emissions(w & 1, (w >> 1) & 31,
-                                                    (w >> 6) & 1)
+            pl, nb, nflush = sequential.encode_emissions(
+                w & 1, (w >> 1) & 31, (w >> 6) & 1)
             secs += time.perf_counter() - t0
             if got != (pl, nb):
                 raise AssertionError(
                     f"{name}: native host re-encode of bucket {bi} row {r} "
                     f"differs from the sequential coder ({got[1]} against "
                     f"{nb} bits)")
+            if lanes is not None:
+                lanes.append((bi, r, nb, nflush))
             n += 1
     return n, secs
 
@@ -1791,23 +1809,26 @@ def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
         f"device-memory placement")
 
     # kernel 1's two-word instance on the 1024x1024 stage-1 bucket
-    # (``long_lane_block``), against its plain version at that shape, run
-    # on the host CPU since the script's start
+    # (``long_lane_block``) with the side buffer the encoder sizes, against
+    # its plain version at that shape, run on the host CPU since the
+    # script's start
     h, w = images["gray1024"].shape[1:]
-    kw = ES.encode_lanes_slim_two_word(bw)
+    nev = ES.eviction_rows(bw.shape[0])
+    kw = ES.encode_lanes_slim_two_word(bw, nev)
     res["k1w_err"], plain_s = host.check("K1 two-word 1024x1024 stage-1",
                                          kw, TWO_WORD_OUTS)
     res["k1w_plain_ms"] = 1e3 * plain_s
     res["k1w_top"] = top_ordinal(kw)
-    res["k1w_ms"] = event_ms(lambda: ES.encode_lanes_slim_two_word(bw))
-    res["k1w_bound"] = k1_bound(bw, kw[3], two_word=True)
+    res["k1w_ms"] = event_ms(lambda: ES.encode_lanes_slim_two_word(bw, nev))
+    res["k1w_bound"] = k1_bound(bw, kw[3], nev)
     res["k1w_shape"] = tuple(bw.shape)
-    log(f"K1 two-word instance, 1024x1024 stage-1 launch {tuple(bw.shape)}: "
-        f"rec1/rec2/fstate/misc/ev1/ev2 bit-equal to plain (tolerance 0); "
+    log(f"K1 two-word instance, 1024x1024 stage-1 launch {tuple(bw.shape)}, "
+        f"{nev} side-buffer rows: outputs bit-equal to plain (tolerance 0); "
         f"largest ordinal written {res['k1w_top']}, most allocations in a "
         f"lane {int(kw[3][1].max())}, evictions max {int(kw[3][2].max())}, "
         f"lanes flagged {int((kw[3][0] != 0).sum())}; kernel "
-        f"{res['k1w_ms']:.3f} ms (bound {res['k1w_bound'][0]:.4f} ms, "
+        f"{res['k1w_ms']:.3f} ms (the earlier instance's 15.484 ms, "
+        f"PERF.md; bound {res['k1w_bound'][0]:.4f} ms, "
         f"{res['k1w_bound'][1]}; {1e6 * res['k1w_ms'] / bw.shape[0]:.1f} ns "
         f"per step), plain on the host CPU {plain_s:.1f} s | {card}")
     del kw
@@ -1906,10 +1927,11 @@ def cli_defaults_phase(dev, card, boat):
     return res
 
 
-def big_k4_block(dev, boat):
-    """Kernel 4's input in phase 25: the compacted stage-1 bucket (valid,
-    ctx, bit), each (L, lanes), of the 1600x1200 image at the CLI's
-    defaults."""
+def big_blocks(dev, boat):
+    """Phase 25's kernel inputs from the 1600x1200 image at the CLI's
+    defaults, on the host: kernel 1's stage-1 bucket words (L, lanes) and
+    kernel 4's compacted block of the same bucket, (valid, ctx, bit), each
+    (Lc, lanes)."""
     from icer_compression_tpu_torch.models import grayscale as T
     from icer_compression_tpu_torch.ops import encode as E
     img = _tiled(boat, 1200, 1600)
@@ -1918,30 +1940,35 @@ def big_k4_block(dev, boat):
     x = torch.as_tensor(img.astype(np.int32), device=dev)
     em = [enc.emit(g, enc.transform(x)[0]) for g in enc.groups]
     b0 = enc.buckets[0]
-    cw, _over = E.compact_words(enc.bucket_words(b0, em),
-                                E.bucket_sizes(b0["L"])[1])
-    return [t.t().contiguous() for t in E._split_words(cw)]
+    words = enc.bucket_words(b0, em)
+    cw, _over = E.compact_words(words, E.bucket_sizes(b0["L"])[1])
+    return words.t().contiguous().cpu(), [
+        t.t().contiguous().cpu() for t in E._split_words(cw)]
 
 
-def big_image_phase(dev, card, boat, pins, host, k4_ins):
-    """Phase 25: frames whose lanes reach kernel 1's 2^17-slot limit, at
-    the CLI's defaults (stages 4, filter A, 6 segments), through the
-    default ``auto`` coder: kernel 1 on the short buckets, kernel 4 on the
-    long ones.  1600x1200 and the first 2048x2048 variant through
-    ``compress_batch`` with ``make_encoder``'s encoder (lossless) and
-    ``compress`` (quota 200,000), then ``decompress``; the 2048x2048 batch
-    through ``compress_batch`` / ``decompress_batch`` (device passes under
-    ``PASS_WORDS``); colour 1600x1200 through ``compress_yuv`` /
-    ``decompress_yuv``; 5120x3840 lossless once; the CLI's
-    ``batch-compress -c`` / ``batch-decompress -c`` at their defaults on
-    ``BIG_CLI`` colour PNGs.  Every stream and decode equals its pin from
-    the JAX package, lossless decodes return the input, and kernel 4
-    launches on every image.  Logs each bucket's coder, each kernel-4
-    launch's CUDA-event time beside its bound, the host lanes and their
-    seconds, the walls and the peak device memory; the ``sorted`` backend's
-    wall on 1600x1200; kernel 4 against its plain version (on the host
-    CPU) on 1600x1200's stage-1 block; device bytes per coder word of a
-    kernel-4 pass."""
+def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
+    """Phase 25: frames whose lanes pass 2^17 slots, at the CLI's defaults
+    (stages 4, filter A, 6 segments), through the default ``auto`` coder:
+    kernel 1 on every bucket, its two-word instance (side buffer sized by
+    ``eviction_rows``) on the long ones.  1600x1200 and the first
+    2048x2048 variant through ``compress_batch`` with ``make_encoder``'s
+    encoder (lossless) and ``compress`` (quota 200,000), then
+    ``decompress``; the 2048x2048 batch through ``compress_batch`` /
+    ``decompress_batch`` (device passes under ``PASS_WORDS``); colour
+    1600x1200 through ``compress_yuv`` / ``decompress_yuv``; 5120x3840
+    lossless once; the CLI's ``batch-compress -c`` / ``batch-decompress
+    -c`` at their defaults on ``BIG_CLI`` colour PNGs.  Every stream and
+    decode equals its pin from the JAX package, lossless decodes return
+    the input, kernel 1 launches on every image and kernel 4 on none.
+    Logs each bucket's coder and instance, each kernel-1 launch's
+    CUDA-event time beside its bound, the host lanes with their causes
+    (none may be an eviction), the walls and the peak device memory; each
+    lossless frame again through ``entropy="pallas"`` (kernel 4 and the
+    host re-encode of its flush lanes) in the same run; the ``sorted``
+    backend's wall on 1600x1200; kernel 1's two-word instance against its
+    plain version (on the host CPU) on 1600x1200's stage-1 bucket, kernel
+    4 on its compacted block; device bytes per coder word of the largest
+    two-word pass."""
     from icer_compression_tpu_torch import cli
     from icer_compression_tpu_torch.models import color as TC
     from icer_compression_tpu_torch.models import decode as D
@@ -1953,19 +1980,19 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
     from icer_compression_tpu_torch.utils.image_io import read_png, write_png
 
     images = big_images(boat)
-    k4, launch = EF.encode_lanes_full, EF._launch
-    seen = []      # (shape, valid steps (device), start, end) per K4 launch
-    res = {"launches": {}, "images": {}}
+    k4, launch = EF.encode_lanes_full, ES._launch
+    seen = []   # (shape, nev, valid steps, misc, start, end) per K1 launch
+    res = {"launches": {}, "images": {}, "pallas": {}}
 
-    def timed_launch(entry, valid, ctx, bit):
-        """Kernel 4's launches on the path, bracketed by CUDA events."""
+    def timed_launch(words, nev):
+        """Kernel 1's launches on the path, bracketed by CUDA events."""
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = launch(entry, valid, ctx, bit)
+        out = launch(words, nev)
         b.record()
-        if entry == "full_encode_launch":
-            seen.append((tuple(valid.shape), valid.sum(), a, b))
+        seen.append((tuple(words.shape), nev, (words & 1).sum(),
+                     out[2 if nev is None else 3], a, b))
         return out
 
     def reset():
@@ -1986,16 +2013,18 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
             raise AssertionError(f"{label}: {digest} != pin {pins[label]}")
 
     def check_launches(label, c):
-        if c["full_encode"] <= 0 or c["plane_decode"] <= 0 or \
+        if c["full_encode"] or c["plane_decode"] <= 0 or \
                 c["slim_encode"] + c["slim_encode_two_word"] <= 0:
-            raise AssertionError(f"{label}: a kernel did not launch: {c}")
+            raise AssertionError(f"{label}: kernel 1 and 2 must launch and "
+                                 f"kernel 4 not: {c}")
         res["launches"][label] = c
 
-    def k4_launches():
-        """[(shape, ms, bound)] of the K4 launches since ``reset``."""
+    def k1_launches():
+        """[(shape, nev, ms, bound)] of the K1 launches since ``reset``."""
         torch.cuda.synchronize()
-        return [(shape, a.elapsed_time(b), k4_bound(shape, int(nv)))
-                for shape, nv, a, b in seen]
+        return [(shape, nev, a.elapsed_time(b),
+                 k1_bound(shape, misc, nev, int(nv)))
+                for shape, nev, nv, misc, a, b in seen]
 
     def peak(fn):
         """(result, seconds, peak device bytes above the baseline)."""
@@ -2006,29 +2035,65 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
         return out, secs, torch.cuda.max_memory_allocated() - base
 
     def plan(enc):
-        """Each bucket's (Lk, coder); the auto rule holds on every one."""
+        """Each bucket's (Lk, instance); the auto rule holds on every one:
+        kernel 1, fused-key where ``fused_key_ok``, else two-word."""
         out = []
         for b in enc.buckets:
             Lk = E.bucket_sizes(b["L"])[0]
-            want = "slim" if Lk < ES.MAX_L else "pallas"
-            if b["coder"] != want:
+            if b["coder"] != "slim":
                 raise AssertionError(f"bucket of {Lk} slots planned on "
-                                     f"{b['coder']}, not {want}")
-            out.append((Lk, b["coder"]))
+                                     f"{b['coder']}, not slim")
+            out.append((Lk, "fused" if ES.fused_key_ok(Lk) else "two-word"))
         return out
+
+    def causes(enc, lanes):
+        """{cause: lanes} of the host lanes (bucket, row, bits, evictions):
+        a payload past its bucket's cap, more evictions than the side
+        buffer holds, else more records than the compacted length."""
+        out = {}
+        for bi, _r, nb, nflush in lanes:
+            Lk, _Lc, cap = E.bucket_sizes(enc.buckets[bi]["L"])
+            nev = ES.NEV if ES.fused_key_ok(Lk) else ES.eviction_rows(Lk)
+            cause = ("cap" if nb > cap else "eviction" if nflush > nev
+                     else "slice")
+            out[cause] = out.get(cause, 0) + 1
+        return out
+
+    def pallas(key, img, cfg, want):
+        """The same lossless frame through ``entropy="pallas"``: wall,
+        kernel-4 launches, host lanes and their seconds (the stream must
+        equal the default path's; the sequential coder, seconds a lane
+        at these lengths, is not run on its hundreds of host lanes:
+        phases 7-9 hold the native runtime to it)."""
+        h, w = img.shape
+        penc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="pallas")
+        reset()
+        s, secs, pk = peak(lambda: T.compress_batch(img[None], cfg,
+                                                    encoder=penc)[0])
+        if s != want:
+            raise AssertionError(f"{key}: pallas stream differs from auto")
+        r = {"enc_s": secs, "k4_launches": k4.launches,
+             "host": penc.fallback_lanes, "host_s": penc.fallback_seconds,
+             "enc_peak": pk}
+        res["pallas"][key] = r
+        log(f"{key} lossless through entropy=pallas (K4 and the host): "
+            f"stream equal; encode wall (run once) {secs:.3f} s, K4 "
+            f"launches {k4.launches}, host re-encode lanes {r['host']} in "
+            f"{r['host_s']:.3f} s, peak {pk / 1e9:.2f} GB | {card}")
 
     def gray(key, img, q):
         h, w = img.shape
         cfg = T.CodecConfig(4, 0, 6, q)
         tag = "unlimited" if q is None else f"quota {q}"
         enc = T.make_encoder(w, h, cfg, np.uint16, dev)
+        hseen = watch_host_lanes(enc)
         reset()
         if q is None:
             s, enc_s, enc_pk = peak(lambda: T.compress_batch(
                 img[None], cfg, encoder=enc)[0])
         else:
             s, enc_s, enc_pk = peak(lambda: T.compress(img, cfg, device=dev))
-        launches = k4_launches()
+        launches = k1_launches()
         d, dec_s, dec_pk = peak(lambda: T.decompress(s, cfg, np.uint16,
                                                      device=dev))
         c = counts()
@@ -2039,31 +2104,40 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
         check_launches(f"{key} {tag}", c)
         coders = plan(enc)
         r = {"enc_s": enc_s, "dec_s": dec_s, "enc_peak": enc_pk,
-             "k4": launches}
+             "k1": launches}
         if q is None:
             calls = sum(-(-b["rows"] // b["call_rows"]) for b in enc.buckets
-                        if b["coder"] == "pallas")
-            if c["full_encode"] != calls:
-                raise AssertionError(f"{key}: {c['full_encode']} K4 "
-                                     f"launches, {calls} planned")
+                        if not ES.fused_key_ok(E.bucket_sizes(b["L"])[0]))
+            if c["slim_encode_two_word"] != calls:
+                raise AssertionError(f"{key}: {c['slim_encode_two_word']} "
+                                     f"two-word launches, {calls} planned")
+            lanes = []
+            check_host_lanes(f"{key} auto", hseen, lanes)
+            why = causes(enc, lanes)
+            if "eviction" in why:
+                raise AssertionError(f"{key}: host lanes for an eviction: "
+                                     f"{why}")
             r.update(host=enc.fallback_lanes, host_s=enc.fallback_seconds,
-                     rows=sum(b["rows"] for b in enc.buckets))
+                     causes=why, rows=sum(b["rows"] for b in enc.buckets))
         res["images"][f"{key} {tag}"] = r
         log(f"{key} ({w}x{h}) {tag}: {len(s)} B stream and decoded pixels "
             f"match the pins" + (", decode returns the image"
                                  if q is None else "")
-            + f"; buckets (Lk, coder) {coders}; K4 launches "
-            + ", ".join(f"{sh}: {ms:.3f} ms (bound {bd[0]:.4f} ms, {bd[1]}; "
-                        f"{1e6 * ms / sh[0]:.1f} ns per step)"
-                        for sh, ms, bd in launches)
+            + f"; buckets (Lk, instance) {coders}; K1 launches "
+            + ", ".join(f"{sh} nev {nev}: {ms:.3f} ms (bound {bd[0]:.4f} "
+                        f"ms, {bd[1]}; {1e6 * ms / sh[0]:.1f} ns per step)"
+                        for sh, nev, ms, bd in launches)
             + (f"; host re-encode lanes {r['host']} of {r['rows']} in "
-               f"{r['host_s']:.3f} s" if q is None else "")
+               f"{r['host_s']:.3f} s, causes {r['causes']}"
+               if q is None else "")
             + f"; wall (run once) encode {enc_s:.3f} s, decode {dec_s:.3f} "
             f"s; peak device memory above the baseline encode "
             f"{enc_pk / 1e9:.2f} GB, decode {dec_pk / 1e9:.2f} GB; "
             f"launches {c} | {card}")
+        if q is None:
+            pallas(key, img, cfg, s)
 
-    EF._launch = timed_launch
+    ES._launch = timed_launch
     try:
         for q in BIG_QUOTAS:
             gray("gray1600x1200", images["gray1600x1200"][0], q)
@@ -2147,7 +2221,8 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
                     (tmp / "enc" / f"c{i}.icer").read_bytes()).hexdigest())
                 check_pin(f"cli1600x1200 c{i} decoded rgb",
                           pixels_sha(read_png(tmp / "dec" / f"c{i}.png")))
-        if res["cli batch-compress"][2]["full_encode"] <= 0 or \
+        cc = res["cli batch-compress"][2]
+        if cc["slim_encode_two_word"] <= 0 or cc["full_encode"] or \
                 res["cli batch-decompress"][2]["plane_decode"] <= 0:
             raise AssertionError(f"cli: a kernel did not launch: {res}")
         for op in ("batch-compress", "batch-decompress"):
@@ -2157,7 +2232,7 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
                 f"PNGs: outputs match the pins; wall {secs:.3f} s, peak "
                 f"device memory {pk / 1e9:.2f} GB; launches {c} | {card}")
     finally:
-        EF._launch = launch
+        ES._launch = launch
 
     # the sorted backend (the JAX package's default coder) on 1600x1200
     img = images["gray1600x1200"][0]
@@ -2178,9 +2253,28 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
         f"{res['images']['gray1600x1200 unlimited']['enc_s']:.3f} s) | "
         f"{card}")
 
-    # kernel 4 on 1600x1200's stage-1 block (``big_k4_block``) against its
-    # plain version, run on the host CPU since the script's start; device
-    # bytes per coder word of a kernel-4 pass
+    # kernel 1's two-word instance on 1600x1200's stage-1 bucket and kernel
+    # 4 on its compacted block (``big_blocks``), against their plain
+    # versions, run on the host CPU since the script's start
+    words = k1_block.to(dev)
+    nev = ES.eviction_rows(words.shape[0])
+    kout = ES.encode_lanes_slim_two_word(words, nev)
+    err, plain_s = host.check("K1 two-word 1600x1200 stage-1", kout,
+                              TWO_WORD_OUTS)
+    ms = event_ms(lambda: ES.encode_lanes_slim_two_word(words, nev), reps=3)
+    bd = k1_bound(words, kout[3], nev)
+    res["k1w"] = {"shape": tuple(words.shape), "ms": ms, "bound": bd,
+                  "plain_ms": 1e3 * plain_s, "err": err, "nev": nev,
+                  "top": top_ordinal(kout),
+                  "evictions": int(kout[3][2].max())}
+    log(f"K1 two-word 1600x1200 stage-1 bucket {tuple(words.shape)}, {nev} "
+        f"side-buffer rows: outputs bit-equal to plain on the host CPU "
+        f"(tolerance 0), plain {plain_s:.1f} s; largest ordinal "
+        f"{res['k1w']['top']}, evictions max {res['k1w']['evictions']}, "
+        f"lanes flagged {int((kout[3][0] != 0).sum())}; kernel {ms:.3f} ms "
+        f"(median of 3; bound {bd[0]:.4f} ms, {bd[1]}; "
+        f"{1e6 * ms / words.shape[0]:.1f} ns per step) | {card}")
+    del words, kout
     ins = [t.to(dev) for t in k4_ins]
     kout = k4(*ins)
     err, plain_s = host.check("K4 1600x1200 stage-1", kout,
@@ -2200,9 +2294,10 @@ def big_image_phase(dev, card, boat, pins, host, k4_ins):
     pk, words = coder_bytes_per_word(T.make_encoder(
         bw, bh, cfg, np.uint16, dev), images["gray2048"][:1])
     res["bytes_per_word"] = pk / words
-    log(f"encode pass, kernel 4 on the largest bucket (one 2048x2048 image, "
-        f"{words} coder words): peak {pk / 1e9:.2f} GB above the baseline, "
-        f"{pk / words:.1f} B per coder word | {card}")
+    log(f"encode pass, kernel 1's two-word instance on the largest bucket "
+        f"(one 2048x2048 image, {words} coder words): peak "
+        f"{pk / 1e9:.2f} GB above the baseline, {pk / words:.1f} B per "
+        f"coder word | {card}")
     return res
 
 
@@ -2619,7 +2714,9 @@ def config_phase(dev, card, boat, pins, errors):
     log(f"fuzz, seed {FUZZ_SEED}, against the native host codec: "
         f"{out['trials']} trials in {out['seconds']:.1f} s, per filter "
         f"{out['per_filter']}, per kind {out['per_kind']}, per type "
-        f"{out['per_dtype']}, {len(out['mismatches'])} mismatches | {card}")
+        f"{out['per_dtype']}, {out['two_word']} with the fused-key limit "
+        f"lowered, {out['tiny_quota']} at quotas of 28-63 bytes, "
+        f"{len(out['mismatches'])} mismatches | {card}")
     if out["mismatches"]:
         raise AssertionError(f"fuzz mismatches: {out['mismatches']}")
     return res
@@ -3024,6 +3121,7 @@ def smoke(host) -> int:
     from icer_compression_tpu_torch.ops import plane_decode as PDc
     from icer_compression_tpu_torch.utils.image_io import read_png
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
@@ -3054,7 +3152,7 @@ def smoke(host) -> int:
     if len(k45) != 2 or any(r.get("ldl_stl") or r.get("spill_st")
                             or r.get("spill_ld") for r in k45.values()):
         raise AssertionError(f"kernels 4/5 use local memory: {k45}")
-    k1w_res = res.get("slim_encode_kernel<1>")
+    k1w_res = res.get("slim_encode_wide_kernel")
     if not k1w_res or k1w_res.get("ldl_stl") or k1w_res.get("spill_st") \
             or k1w_res.get("spill_ld"):
         raise AssertionError(f"kernel 1's two-word instance is missing or "
@@ -3071,18 +3169,28 @@ def smoke(host) -> int:
 
     # the plain versions checked on the host CPU start now, beside the
     # card phases: kernel 1's two-word instance on phase 1's blocks whose
-    # ordinals pass 2^15 and 2^16 and on phase 20's 1024x1024 stage-1
-    # bucket, kernel 4 on phase 25's 1600x1200 stage-1 block
+    # ordinals pass 2^15 and 2^17, on its noisy block with the TPU
+    # kernel's 32 side-buffer rows (lanes past them flagged), on phase 20's
+    # 1024x1024 stage-1 bucket and on phase 25's 1600x1200 stage-1 bucket
+    # (the last three with the side buffer the encoder sizes), kernel 4 on
+    # that bucket compacted
+    from icer_compression_tpu_torch import kernel_check
     lw = long_ordinal_words(np.random.default_rng(3))
-    hw = long_ordinal_words(np.random.default_rng(4), L=ES.MAX_L - ES.CHUNK)
-    host.submit("K1 two-word long", "k1w", (lw,))
-    host.submit("K1 two-word longest", "k1w", (hw,))
-    lw, hw = lw.to(dev), hw.to(dev)
+    hw = kernel_check.wide_words()
+    hw_nev = ES.eviction_rows(hw.shape[0])
+    nw = noisy_eviction_words(np.random.default_rng(7))
+    host.submit("K1 two-word long", "k1w", (lw,), ES.NEV)
+    host.submit("K1 two-word past 2^17", "k1w", (hw,), hw_nev)
+    host.submit("K1 two-word noisy", "k1w", (nw,), ES.NEV)
+    lw, hw, nw = lw.to(dev), hw.to(dev), nw.to(dev)
     long_bw = long_lane_block(dev, boat)
-    host.submit("K1 two-word 1024x1024 stage-1", "k1w", (long_bw,))
+    host.submit("K1 two-word 1024x1024 stage-1", "k1w", (long_bw,),
+                ES.eviction_rows(long_bw.shape[0]))
     # kept on the host until phase 25, off the device peaks of the phases
     # between
-    big_k4 = [t.cpu() for t in big_k4_block(dev, boat)]
+    big_k1, big_k4 = big_blocks(dev, boat)
+    host.submit("K1 two-word 1600x1200 stage-1", "k1w", (big_k1,),
+                ES.eviction_rows(big_k1.shape[0]))
     host.submit("K4 1600x1200 stage-1", "k4", big_k4)
 
     # ---- phase 1: kernel 1 vs its plain version ------------------------
@@ -3102,7 +3210,6 @@ def smoke(host) -> int:
         f"(tolerance 0); "
         f"evictions max {int(k1[2][2].max())}, lanes evicting "
         f"{int((k1[2][2] > 0).sum())}, plain {plain_s:.1f} s")
-    nw = noisy_eviction_words(np.random.default_rng(7)).to(dev)
     kn = ES.encode_lanes_slim(nw)
     pn = ES.encode_lanes_slim_plain(nw)
     for nm, a, b in zip(("rec", "fstate", "misc", "ev"), kn, pn):
@@ -3141,7 +3248,7 @@ def smoke(host) -> int:
         f"evictions max {int(pw[3][2].max())}, plain "
         f"{k1w_short_plain_s:.1f} s")
     # (their plain versions run on the host CPU, checked at the end)
-    kl = ES.encode_lanes_slim_two_word(lw)
+    kl = ES.encode_lanes_slim_two_word(lw, ES.NEV)
     top = int(torch.where(kl[0] != 0, kl[1], 0).max())
     if not (top >= 1 << 15 and int(kl[3][1].min()) > 1 << 15
             and bool((kl[3][2][1:] > 0).all())):
@@ -3149,20 +3256,38 @@ def smoke(host) -> int:
                              f"allocations {kl[3][1].tolist()}, evictions "
                              f"{kl[3][2].tolist()}")
     k1w_long_ms = event_ms(lambda: ES.encode_lanes_slim_two_word(lw))
-    k1w_long_b = k1_bound(lw, kl[3], two_word=True)
+    k1w_long_b = k1_bound(lw, kl[3], ES.NEV)
     log(f"K1 two-word instance, block {tuple(lw.shape)} with allocation "
         f"ordinals up to {top} (allocations {kl[3][1].tolist()}, evictions "
         f"{kl[3][2].tolist()}): kernel {k1w_long_ms:.3f} ms (bound "
         f"{k1w_long_b[0]:.5f} ms, {k1w_long_b[1]}) | {card}")
-    # the longest lanes kernel 1 takes (the bin state's 17-bit ordinal
-    # field)
-    kh = ES.encode_lanes_slim_two_word(hw)
+    # the noisy block with the TPU kernel's 32 side-buffer rows: the lanes
+    # past them flagged, as the fused-key instance flags them
+    knw = ES.encode_lanes_slim_two_word(nw, ES.NEV)
+    if not (torch.equal(knw[3][0] != 0, knw[3][2] > ES.NEV)
+            and torch.equal(knw[3][0], kn[2][0])):
+        raise AssertionError(f"two-word noisy block: flags "
+                             f"{knw[3][0].tolist()}, evictions "
+                             f"{knw[3][2].tolist()}")
+    log(f"K1 two-word instance, noisy block {tuple(nw.shape)} with "
+        f"{ES.NEV} side-buffer rows: evictions max {int(knw[3][2].max())}, "
+        f"lanes flagged {int((knw[3][0] != 0).sum())} (the fused-key "
+        f"instance's)")
+    # ordinals past the 17-bit field of the TPU kernel's bin state and
+    # evictions past its 32 rows, with the side buffer the encoder sizes
+    kh = ES.encode_lanes_slim_two_word(hw, hw_nev)
     top_h = top_ordinal(kh)
-    if top_h < 1 << 16:
-        raise AssertionError(f"longest block: ordinals reach only {top_h}")
+    if not (top_h > 1 << 17 and int(kh[6].max()) > 1 << 17
+            and bool((kh[3][2] > ES.NEV).all()) and not kh[3][0].any()):
+        raise AssertionError(f"block past 2^17: ordinals reach {top_h}, "
+                             f"evictions {kh[3][2].tolist()}, flagged "
+                             f"{kh[3][0].tolist()}")
+    k1w_wide_ms = event_ms(lambda: ES.encode_lanes_slim_two_word(hw, hw_nev))
     log(f"K1 two-word instance, block {tuple(hw.shape)} with allocation "
         f"ordinals up to {top_h} (allocations {kh[3][1].tolist()}, "
-        f"evictions {kh[3][2].tolist()}, flagged {kh[3][0].tolist()})")
+        f"evictions {kh[3][2].tolist()} in {hw_nev} side-buffer rows, "
+        f"flagged {kh[3][0].tolist()}, open ordinals up to "
+        f"{int(kh[6].max())}): kernel {k1w_wide_ms:.3f} ms | {card}")
 
     # ---- phase 2: kernel 2 vs its plain version ------------------------
     crop = np.ascontiguousarray(boat[200:296, 180:276])
@@ -3334,22 +3459,23 @@ def smoke(host) -> int:
     large = big_image_phase(dev, card, boat, dict(
         ln.split(None, 1)[::-1] for ln in
         (data / "golden_big_images.sha256").read_text().splitlines()),
-        host, big_k4)
-    del big_k4
+        host, big_k1, big_k4)
+    del big_k1, big_k4
     w1r = w1_phase(dev, card, boat)
     cfr = config_phase(dev, card, boat,
                        *read_config_pins(data / "golden_configs.sha256"))
     # phase 1's long blocks against their plain versions (host CPU)
     late_s = {}
     for name, kout, blk in (("K1 two-word long", kl, lw),
-                            ("K1 two-word longest", kh, hw)):
+                            ("K1 two-word past 2^17", kh, hw),
+                            ("K1 two-word noisy", knw, nw)):
         err, late_s[name] = host.check(name, kout, two_word_outs)
         k1w_err = max(k1w_err, err)
         log(f"{name} block {tuple(blk.shape)} (phase 1): "
-            f"rec1/rec2/fstate/misc/ev1/ev2 bit-equal to plain on the host "
-            f"CPU (tolerance 0), plain {late_s[name]:.1f} s")
+            f"outputs bit-equal to plain on the host CPU (tolerance 0), "
+            f"plain {late_s[name]:.1f} s")
     k1w_plain_s = late_s["K1 two-word long"]
-    k1w_huge_plain_s = late_s["K1 two-word longest"]
+    k1w_huge_plain_s = late_s["K1 two-word past 2^17"]
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
              "plane_decode": {}, "full_encode": {}}
     for path, counts in (
@@ -3370,36 +3496,27 @@ def smoke(host) -> int:
         for k, n in counts.items():
             paths[k][path] = n
 
-    # kernel 4 runs on the default path since phase 25: its entry reads
-    # that path's launches and the 1600x1200 stage-1 block; the pallas
-    # backend's numbers on boat (phases 6, 7 and 12) move under
-    # "pallas_backend"
+    # kernel 4 left the default path in phase 25 (kernel 1 codes every
+    # bucket): its entry keeps the pallas backend's numbers on boat
+    # (phases 6, 7 and 12), and beside them the large frames through
+    # entropy="pallas" and the 1600x1200 stage-1 block against its plain
+    # version
     k4e, bk = new[0], large["k4"]
-    k4e["pallas_backend"] = {k: k4e.pop(k) for k in (
-        "shape", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
-        "path", "stage1_ms", "stage1_bound_ms", "stage1_tiles_skipped",
-        "ms_per_image", "bound_ms_per_image")}
-    paths["full_encode"]["pallas boat 512"] = \
-        k4e["pallas_backend"]["launches"]
+    paths["full_encode"]["pallas boat 512"] = k4e["launches"]
     k4e.update(
-        launches=large["launches"]["gray1600x1200 unlimited"]["full_encode"],
         max_abs_err=max(k4e["max_abs_err"], bk["err"]),
-        shape="L={} lanes={} (1600x1200 stage 1, compacted)".format(
-            *bk["shape"]),
-        ms=bk["ms"], plain_ms=bk["plain_ms"], plain_on="host CPU",
-        bound_ms=bk["bound"][0], bound_by=bk["bound"][1],
-        ns_per_step=1e6 * bk["ms"] / bk["shape"][0],
-        step="one emission slot of a 1600x1200 stage-1 lane",
-        ns_per_valid_step=1e6 * bk["ms"] / bk["chain"],
-        valid_step="one valid emission of the longest 1600x1200 stage-1 "
-                   "lane",
         launches_by_path=paths["full_encode"],
-        large_image_launches={
-            label: [{"shape": list(sh), "ms": ms, "bound_ms": bd[0]}
-                    for sh, ms, bd in r["k4"]]
-            for label, r in large["images"].items() if r.get("k4")},
-        path="compress of a 1600x1200 image at the CLI's defaults (the "
-             "auto coder): the stage-1 bucket")
+        default_path_launches=sum(paths["full_encode"][f"large {label}"]
+                                  for label in large["launches"]),
+        large_frames_pallas=large["pallas"],
+        block_1600x1200={
+            "shape": "L={} lanes={} (1600x1200 stage 1, compacted)".format(
+                *bk["shape"]),
+            "ms": bk["ms"], "plain_cpu_ms": bk["plain_ms"],
+            "bound_ms": bk["bound"][0], "bound_by": bk["bound"][1],
+            "ns_per_step": 1e6 * bk["ms"] / bk["shape"][0],
+            "ns_per_valid_step": 1e6 * bk["ms"] / bk["chain"]})
+    kw = large["k1w"]
 
     kern = [
         {"name": "slim_encode", "route": "cuda",
@@ -3464,7 +3581,8 @@ def smoke(host) -> int:
          "mode": "two-word records (fused_key=False, call :845)",
          "launches": lng["launches"]["gray1024 unlimited"][
              "slim_encode_two_word"],
-         "max_abs_err": max(k1w_err, lng["k1w_err"]), "equal_to_plain": True,
+         "max_abs_err": max(k1w_err, lng["k1w_err"], kw["err"]),
+         "equal_to_plain": True,
          "shape": "L={} lanes={} (1024x1024 stage 1)".format(
              *lng["k1w_shape"]),
          "ms": lng["k1w_ms"], "plain_ms": lng["k1w_plain_ms"],
@@ -3481,10 +3599,23 @@ def smoke(host) -> int:
                       "2^15)",
              "ms": k1w_long_ms, "plain_cpu_ms": 1e3 * k1w_plain_s,
              "bound_ms": k1w_long_b[0], "top_ordinal": top},
-         "longest_plain_check": {
+         "wide_plain_check": {
              "shape": f"L={hw.shape[0]} lanes={hw.shape[1]} (ordinals past "
-                      "2^16)",
-             "plain_cpu_ms": 1e3 * k1w_huge_plain_s, "top_ordinal": top_h},
+                      f"2^17, {hw_nev} side-buffer rows)",
+             "ms": k1w_wide_ms, "plain_cpu_ms": 1e3 * k1w_huge_plain_s,
+             "top_ordinal": top_h,
+             "evictions": kh[3][2].tolist()},
+         "bucket_1600x1200": {
+             "shape": "L={} lanes={} (1600x1200 stage 1, {} side-buffer "
+                      "rows)".format(*kw["shape"], kw["nev"]),
+             "ms": kw["ms"], "plain_cpu_ms": kw["plain_ms"],
+             "bound_ms": kw["bound"][0], "bound_by": kw["bound"][1],
+             "top_ordinal": kw["top"], "evictions_max": kw["evictions"]},
+         "large_frame_launches": {
+             label: [{"shape": list(sh), "nev": nev, "ms": ms,
+                      "bound_ms": bd[0]} for sh, nev, ms, bd in r["k1"]
+                     if nev is not None]
+             for label, r in large["images"].items() if r.get("k1")},
          "path": "compress of a 1024x1024 image at the CLI's defaults: the "
                  "stage-1 bucket"},
         w1_entry(w1r, cfr),
@@ -3512,17 +3643,20 @@ def smoke(host) -> int:
         + "; sharded world walls s " + ", ".join(
             f"{k} {v['wall_s']:.1f}" for k, v in shd.items())
         + "; large images (encode s, decode s, host lanes, host s, peak "
-        "encode GB) " + ", ".join(
+        "encode GB; pallas encode s, host lanes, host s) " + ", ".join(
             f"{k} {r['enc_s']:.3f}, {r['dec_s']:.3f}, {r['host']}, "
-            f"{r['host_s']:.3f}, {r['enc_peak'] / 1e9:.2f}"
-            for k, r in large["images"].items() if "host" in r)
-        + f"; kernel-4 pass bytes per coder word "
+            f"{r['host_s']:.3f}, {r['enc_peak'] / 1e9:.2f}; "
+            f"{p['enc_s']:.3f}, {p['host']}, {p['host_s']:.3f}"
+            for k, r in large["images"].items() if "host" in r
+            for p in [large["pallas"][k.split()[0]]])
+        + f"; two-word pass bytes per coder word "
         f"{large['bytes_per_word']:.1f}, sorted {large['sorted'][3]:.1f}"
         + "; config sweep (encode ms, decode ms) " + "; ".join(
             f"{k} {1e3 * e:.1f}, {1e3 * d:.1f}"
             for k, (e, d) in cfr["walls"].items())
         + f"; fuzz {cfr['fuzz']['trials']} trials, "
-        f"{cfr['fuzz']['seconds']:.1f} s, 0 mismatches")
+        f"{cfr['fuzz']['seconds']:.1f} s, 0 mismatches; phases 1-26 "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

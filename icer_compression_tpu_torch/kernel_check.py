@@ -8,9 +8,14 @@ the library holds runs once on a small fixed input, made from a seed with
 numpy, and its outputs must equal the plain PyTorch version's on CPU copies
 of the same input, at tolerance 0.  The inputs are small (coder blocks of
 256 steps x 8 lanes, one 16x11 decode unit of 4 lanes and 9 rounds), so
-the check costs seconds, mostly the plain versions on the host.  Kernel W1
-(the inverse DWT's recurrence) runs on seeded lines of every filter it
-serves, at both sample widths and at odd and even lengths.
+the check costs seconds, mostly the plain versions on the host.  Kernel
+1's two-word instance also runs on a block of 133,120 steps whose
+allocation ordinals pass 2**17 and whose evictions pass 32 rows, with the
+side buffer the encoder sizes; its plain version takes a minute there, so
+its outputs are held to pinned digests of the plain version's
+(``WIDE_DIGESTS``, which the CPU tests recompute).  Kernel W1 (the inverse
+DWT's recurrence) runs on seeded lines of every filter it serves, at both
+sample widths and at odd and even lengths.
 
 This module imports the kernel wrappers, which import ``kernels``; it is
 imported lazily by ``kernels.build_all`` for that reason.
@@ -19,6 +24,7 @@ imported lazily by ``kernels.build_all`` for that reason.
 from __future__ import annotations
 
 import functools
+import hashlib
 from dataclasses import dataclass
 from collections.abc import Callable
 
@@ -32,6 +38,7 @@ from .ops import wavelet as WV
 
 SEED = 20261017
 L, LANES = 256, 8                 # coder check blocks
+WIDE_L = 133120                   # the two-word block past 2**17 ordinals
 UNIT_H, UNIT_W = 32, 22           # one stage: four 16x11 subbands
 UNIT_QUOTA = 1600                 # cuts the stream inside its last plane
 W1_LINES = 8                      # lines per W1 case
@@ -49,6 +56,7 @@ class Instance:
     symbol: str                   # the library's launch function
     outputs: tuple[str, ...]
     run: Callable                 # device -> tuple of output tensors
+    pinned: dict | None = None    # the plain version's output digests
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,6 +107,34 @@ def _k1(dev):
 
 def _k1_two_word(dev):
     return ES.encode_lanes_slim_two_word(coder_words().to(dev))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_words() -> torch.Tensor:
+    """(WIDE_L, 2) int32 emission words whose allocation ordinals pass
+    2**17 and whose evictions pass 32 rows: uncoded emissions (each one
+    allocates a codeword), and a zero fed every 150 (400) steps to one
+    (one of two) coded contexts, which skew into golomb bins whose runs
+    stay open until the reorder window evicts them."""
+    rng = np.random.default_rng(SEED)
+    t = np.arange(WIDE_L)[:, None]
+    feed = np.array([[150, 400]])
+    fed = t % feed == 0
+    ctx = np.where(fed, (t // feed) % np.array([[1, 2]]), 17)
+    bit = np.where(fed, 0, rng.integers(0, 2, (WIDE_L, 2)))
+    return torch.from_numpy((1 | (ctx << 1) | (bit << 6)).astype(np.int32))
+
+
+def _k1_wide(dev):
+    return ES.encode_lanes_slim_two_word(wide_words().to(dev),
+                                         ES.eviction_rows(WIDE_L))
+
+
+def digest(t: torch.Tensor) -> str:
+    """A short digest of a tensor's shape, type and values."""
+    t = t.cpu().contiguous()
+    return hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode()
+                          + t.numpy().tobytes()).hexdigest()[:16]
 
 
 def _split(dev):
@@ -165,7 +201,14 @@ def _w1(dev):
 
 
 _SLIM = ("rec", "fstate", "misc", "ev")
-_TWO_WORD = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2")
+_TWO_WORD = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2", "fopen")
+# ``digest`` of each output of the plain version on ``wide_words`` (largest
+# ordinal 132,850, evictions 70 and 54)
+WIDE_DIGESTS = {
+    "rec1": "1020222683451c9d", "rec2": "d11bfd0ff4627abb",
+    "fstate": "544691770cc1429a", "misc": "f938ab6c4148f003",
+    "ev1": "8e9868f99d8f1134", "ev2": "6d4ba91385b48d7d",
+    "fopen": "bdb7501232e7e689"}
 _FULL = ("code", "nbits", "open")
 _DECODE = ("out", "err", "pos")
 
@@ -174,7 +217,9 @@ CHECKS = {
     "slim_encode": (
         Instance("K1 fused-key", "slim_encode_launch", _SLIM, _k1),
         Instance("K1 two-word", "slim_encode_two_word_launch", _TWO_WORD,
-                 _k1_two_word)),
+                 _k1_two_word),
+        Instance("K1 two-word past 2^17", "slim_encode_two_word_launch",
+                 _TWO_WORD, lambda dev: _k1_wide(dev), WIDE_DIGESTS)),
     "plane_decode": (
         Instance("K2", "plane_decode_launch", _DECODE, _k2),
         Instance("K3", "plane_decode_seeded_launch", _DECODE, _k3)),
@@ -214,12 +259,21 @@ def first_difference(label: str, name: str, got: torch.Tensor,
 
 def check_library(name: str, device="cuda") -> tuple[str, ...]:
     """Run every instance of library ``name`` on ``device`` and hold each
-    output equal to the plain version on the host.  Returns the instances
+    output equal to the plain version on the host (or, for a pinned
+    instance, its digest to the plain version's).  Returns the instances
     checked; raises ``KernelMismatch`` at the first difference."""
     counts = [fn.launches for fn in _COUNTED]
     try:
         for inst in CHECKS[name]:
             got = inst.run(torch.device(device))
+            if inst.pinned is not None:
+                for out, a in zip(inst.outputs, got, strict=True):
+                    if digest(a) != inst.pinned[out]:
+                        raise KernelMismatch(
+                            f"{inst.label}: output {out} differs from the "
+                            f"plain version (digest {digest(a)}, the plain "
+                            f"version's {inst.pinned[out]})")
+                continue
             want = inst.run(torch.device("cpu"))
             for out, a, b in zip(inst.outputs, got, want, strict=True):
                 problem = first_difference(inst.label, out, a, b)

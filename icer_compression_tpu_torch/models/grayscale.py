@@ -119,8 +119,8 @@ def assemble_stream(encoded: dict, order) -> bytes:
 def make_encoder(w: int, h: int, config: CodecConfig, dtype, device=None,
                  entropy: str = "auto", plane_cuts: tuple | None = None):
     """An encoder for (h, w) images of ``dtype`` on ``device``, with the
-    coder backend ``entropy`` (``auto``: kernel 1 on buckets below 2^17
-    slots and kernel 4 from there; ``slim``, ``pallas`` or ``sorted``)
+    coder backend ``entropy`` (``auto``: kernel 1 on every bucket, as
+    ``slim``; ``pallas`` or ``sorted``)
     over the plane windows ``plane_cuts`` (None: every plane)."""
     from ..ops.encode import TorchGrayscaleEncoder
     return TorchGrayscaleEncoder(w, h, config.stages, config.filt,

@@ -14,12 +14,12 @@ into one padded lane batch and its emission words for every bitplane of
 the group's plane window, then per length bucket the coder backend, all on
 the device:
 
-  ``auto``   per bucket, from its kernel length alone: ``slim`` below
-             2^17 slots, ``pallas`` from there (the default);
+  ``auto``   ``slim`` on every bucket (the default);
   ``slim``   kernel 1 over the interleaved words, then the sort/rebuild/
              pack tail (ops/entropy_slim): fused-key records where a
              bucket's allocation ordinals stay below 2^15, two-word records
-             for longer lanes (below 2^17 slots);
+             for longer lanes, at any length, with the reorder-window
+             evictions on the card;
   ``pallas`` the valid-first compaction, kernel 4, then the record tail
              (ops/entropy_full);
   ``sorted`` the valid-first compaction, then the sort-centric coder in
@@ -29,9 +29,10 @@ Rate allocation and stream assembly stay on the host (models/grayscale).
 ``encode_batch`` uploads from pinned host memory and copies its results
 back the same way, so its dispatch half never waits for the card
 (``defer`` returns the collector instead of collecting).
-Lanes that a backend flags (kernel 1's eviction side buffer overflow, a
-reorder-window flush that kernel 4 and the sorted coder leave to the host,
-more valid emissions than the compacted length, a payload past its cap)
+Lanes that a backend flags (kernel 1's fused-key eviction side buffer
+overflow, a reorder-window flush that kernel 4 and the sorted coder leave
+to the host, more records or valid emissions than the compacted length, a
+payload past its cap)
 re-encode exactly on the host: the collect half gathers a pass's flagged
 rows on the device, copies them back at once and codes them in one
 threaded batch of the native runtime (backend/native_backend, held equal
@@ -67,14 +68,15 @@ ENTROPY_BACKENDS = ("auto", "slim", "pallas", "sorted")
 # such word with fused-key records and 140 with two-word records (an H100,
 # chip_smoke.py phase 20), so a pass of 2^27 words peaks near 17 or 19 GB;
 # one pass over 168 canvases of 512x512, 6.0e8 words, ran an 80 GB card
-# out of memory.
+# out of memory.  The two-word tail's side buffer, eviction_rows(L) rows,
+# adds under 1% to its L + 17 sort rows.
 PASS_WORDS = 1 << 27
 # Coder words of one coder call at most: a pass's bucket past it (one
 # image's, where that alone passes PASS_WORDS) is coded in runs of rows.
 # Lanes are independent, so the payloads do not change.  One 5120x3840
 # image's stage-1 bucket (2.66e8 words) runs as two calls.  Kernel 4's
 # path peaks at 113 bytes per coder word (chip_smoke.py phase 25), below
-# slim's, so both bounds hold for the ``auto`` coder.
+# slim's.
 CALL_WORDS = PASS_WORDS
 
 
@@ -183,8 +185,8 @@ class TorchGrayscaleEncoder:
 
     ``entropy`` picks the coder backend (``auto``, ``slim``, ``pallas`` or
     ``sorted``); ``bucket_coders`` holds the one each bucket runs
-    (``auto``: ``slim`` below ``entropy_slim.MAX_L`` slots, ``pallas``
-    from there, planned here and never swapped at run time).
+    (``auto``: ``slim`` on every bucket, planned here and never swapped
+    at run time).
     ``plane_cuts`` bounds the bitplanes encoded per stage group, as in the
     JAX encoder: one entry per stage, an int ``lo`` (the planes lo .. all)
     or a ``(lo, hi)`` window; ``encode_batch`` then returns only those
@@ -219,15 +221,7 @@ class TorchGrayscaleEncoder:
             else (int(c), self.bitplanes) for c in plane_cuts)
         for b in self.buckets:
             Lk = bucket_sizes(b["L"])[0]
-            if entropy == "slim" and Lk >= ES.MAX_L:
-                raise IcerError(
-                    IcerStatus.INVALID_INPUT,
-                    f"segment lanes of {Lk} emission slots reach the "
-                    "slim coder's limit of 2^17 (its bin state holds "
-                    "17-bit allocation ordinals); use more segments or "
-                    "another entropy backend")
-            b["coder"] = entropy if entropy != "auto" else (
-                "slim" if Lk < ES.MAX_L else "pallas")
+            b["coder"] = "slim" if entropy == "auto" else entropy
             b["rows"] = sum(max(0, hi - lo) * len(self.groups[gi]["lanes"])
                             for gi in b["groups"]
                             for lo, hi in [self.plane_cuts[gi]])

@@ -6,10 +6,10 @@ its tails ``slim_sort_operand_packed``, ``slim_decode_packed`` and
 ``order_and_pack_lane_packed`` (fused key) and ``slim_sort_operands``,
 ``slim_decode_op`` and ``order_and_pack_lane_slim`` (two words).
 
-Contract of kernel 1 (kept bit for bit from the TPU kernel):
+Contract of kernel 1 (kept bit for bit from the TPU kernel where a lane's
+allocation ordinals fit 17 bits and its evictions 32 rows):
   in      words  (L, lanes) int32 emission words valid | ctx<<1 | bit<<6,
-                 L a multiple of CHUNK and below 2**17 (the bin state holds
-                 17-bit allocation ordinals)
+                 L a multiple of CHUNK
   fused-key mode, while L + 17 + NEV < 2**15 (``fused_key_ok``):
   out     rec    (L, lanes) one fused-key record per step:
                  [30:16] allocation ordinal (0x7FFF: no record), [15:11]
@@ -21,18 +21,23 @@ Contract of kernel 1 (kept bit for bit from the TPU kernel):
           ev     (32, lanes) fused-key records of the codewords evicted by
                  the CIRC_BUF_SIZE reorder window (rows past the count are
                  0x7FFF << 16)
-  two-word mode, for longer lanes:
+  two-word mode, for longer lanes (any L), with a side buffer of ``nev``
+  rows (32 in the TPU kernel; ``eviction_rows(L)`` rows, which no lane can
+  overflow, on the encoder's path):
   out     rec1   (L, lanes) 1 | bin<<1 | k<<6 | cb<<16 | (nb&7)<<17 when a
                  codeword completes, else 0
           rec2   (L, lanes) its allocation ordinal, else BIG
-          fstate, misc as above
-          ev1    (32, lanes) the evicted codewords, already built:
+          fstate as above, its ordinal field the open ordinal's low 17
+                 bits; misc as above (row 0: more than nev evictions)
+          ev1    (nev, lanes) the evicted codewords, already built:
                  1 | code<<1 | nbits<<17 | 1<<22 (rows past the count 0)
-          ev2    (32, lanes) their allocation ordinals (else BIG)
+          ev2    (nev, lanes) their allocation ordinals (else BIG)
+          fopen  (17, lanes) each bin's open ordinal + 1 (0: closed), the
+                 full-width counterpart of fstate's ordinal field
 Each lane is one segment-bitplane stream.  ``encode_lanes_slim`` runs the
-fused-key mode and ``encode_lanes_slim_two_word`` the two-word mode (at
-any L); ``code_lanes_slim`` picks the mode from L and runs the kernel and
-its tail.  The wrappers run the CUDA kernel on a CUDA tensor and the
+fused-key mode and ``encode_lanes_slim_two_word`` the two-word mode;
+``code_lanes_slim`` picks the mode from L and runs the kernel and its
+tail.  The wrappers run the CUDA kernel on a CUDA tensor and the
 plain PyTorch version ``encode_lanes_slim_plain`` on a CPU tensor; the
 sort, codeword rebuild and bit packing after it are PyTorch ops on either
 device.
@@ -53,7 +58,7 @@ from .pack import bitrev16, pack_records
 BIG = 2 ** 30
 BIG15 = 0x7FFF
 BIGPK = BIG15 << 16
-NEV = 32            # eviction side-buffer rows per lane
+NEV = 32            # eviction side-buffer rows per lane (TPU kernel)
 CHUNK = 256         # stream lengths are padded to a multiple of this
 
 # LUT layout shared with csrc/slim_encode.cu and csrc/full_encode.cu
@@ -68,12 +73,20 @@ LUT_GI = 2354       # 17 golomb i per bin (0 below bin 8)
 LUT_COUT = 2371     # 8 x 32 custom output codes, bin-major
 LUT_COBITS = 2627   # 8 x 32 custom output code lengths
 LUT_SIZE = 2883     # the two-word instance and kernels 4/5 read all of it
-MAX_L = 1 << 17     # allocation ordinals are 17-bit fields of the bin state
 
 
 def fused_key_ok(L: int) -> bool:
     """Fused-key records need every allocation ordinal below 2**15."""
     return L + 17 + NEV < (1 << 15)
+
+
+def eviction_rows(L: int) -> int:
+    """Side-buffer rows that no lane of L steps overflows: after bin q is
+    evicted, its next codeword opens at an ordinal no smaller than the
+    allocation count then, so it is evicted again only CIRC_BUF_SIZE
+    allocations later; bin 0 never stays open, and a lane allocates at
+    most L codewords."""
+    return 16 * (L // C.CIRC_BUF_SIZE + 1)
 
 
 def _build_luts() -> np.ndarray:
@@ -116,11 +129,13 @@ def slim_luts(device: str) -> torch.Tensor:
     return torch.as_tensor(_LUT_NP, device=device)
 
 
-def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
+def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False,
+                            nev: int = NEV):
     """Plain PyTorch version of kernel 1: a loop over the L steps,
     vectorised over lanes.  Returns the fused-key outputs (rec, fstate,
-    misc, ev), or with ``two_word`` (rec1, rec2, fstate, misc, ev1, ev2),
-    as described in the module docstring."""
+    misc, ev), or with ``two_word`` (rec1, rec2, fstate, misc, ev1, ev2,
+    fopen) with ``nev`` side-buffer rows, as described in the module
+    docstring."""
     L, lanes = words.shape
     dev = words.device
     lut = slim_luts(str(dev)).to(torch.int64)
@@ -134,13 +149,14 @@ def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
     zt = torch.full((17, lanes), C.DEFAULT_CONTEXT_TOTAL_COUNT
                     | (C.DEFAULT_CONTEXT_ZERO_COUNT << 16),
                     dtype=torch.int64, device=dev)
-    bs = torch.zeros((17, lanes), dtype=torch.int64, device=dev)
+    bo = torch.zeros((17, lanes), dtype=torch.int64, device=dev)  # open+1
+    bs = torch.zeros((17, lanes), dtype=torch.int64, device=dev)  # k|nb<<16
     alloc = torch.zeros(lanes, dtype=torch.int64, device=dev)
     flg = torch.zeros(lanes, dtype=torch.int64, device=dev)
     ec = torch.zeros(lanes, dtype=torch.int64, device=dev)
-    evbuf = torch.full((NEV + 1, lanes), 0 if two_word else BIGPK,
+    evbuf = torch.full((nev + 1, lanes), 0 if two_word else BIGPK,
                        dtype=torch.int64, device=dev)
-    evbuf2 = torch.full((NEV + 1, lanes), BIG, dtype=torch.int64,
+    evbuf2 = torch.full((nev + 1, lanes), BIG, dtype=torch.int64,
                         device=dev)
     rec = torch.empty((L, lanes), dtype=torch.int32, device=dev)
     rec2 = torch.empty((L, lanes), dtype=torch.int32, device=dev)
@@ -173,20 +189,20 @@ def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
 
         # ---- bin state and reorder-window eviction
         bsb = bs[bn, ar]
-        op1 = bsb & 0x1FFFF
-        k = (bsb >> 17) & 1023
-        nb = (bsb >> 27) & 31
+        bob = bo[bn, ar]
+        op1 = bob
+        k = bsb & 0xFFFF
+        nb = (bsb >> 16) & 31
         newly = op1 == 0
         opening = v & newly
-        opq = bs & 0x1FFFF
-        amin = torch.where(opq > 0, opq - 1, BIG).min(0).values
+        amin = torch.where(bo > 0, bo - 1, BIG).min(0).values
         ev = opening & (amin + C.CIRC_BUF_SIZE <= alloc)
         if bool(ev.any()):
-            ise = (opq == (amin + 1)[None, :]) & (rows >= 1)
+            ise = (bo == (amin + 1)[None, :]) & (rows >= 1)
             ebin = (ise.to(torch.int64) * rows).max(0).values
             erow = bs[ebin, ar]
-            ek = (erow >> 17) & 1023
-            enb = (erow >> 27) & 31
+            ek = erow & 0xFFFF
+            enb = (erow >> 16) & 31
             if two_word:
                 ecode, ebits = _flush_code(ebin, ek, enb)
                 eo = 1 | (ecode << 1) | (ebits << 17) | (1 << 22)
@@ -201,10 +217,11 @@ def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
                                  (ebin << 11) | (final << 6))
                 eo = (amin << 16) | pl
             bs[ebin, ar] = torch.where(ev, 0, erow)
-            slot = torch.where(ev & (ec < NEV), ec, NEV)
+            bo[ebin, ar] = torch.where(ev, 0, bo[ebin, ar])
+            slot = torch.where(ev & (ec < nev), ec, nev)
             evbuf[slot, ar] = torch.where(ev, eo, evbuf[slot, ar])
             evbuf2[slot, ar] = torch.where(ev, amin, evbuf2[slot, ar])
-            flg = flg | (ev & (ec >= NEV)).to(torch.int64)
+            flg = flg | (ev & (ec >= nev)).to(torch.int64)
             ec = ec + ev.to(torch.int64)
         op1 = torch.where(newly, alloc + 1, op1)
         alloc = alloc + opening.to(torch.int64)
@@ -222,9 +239,10 @@ def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
         complete = v & ((isg & g_complete) | (isc & c_complete)
                         | (~isg & ~isc))
         newk = torch.where(isg, kz, val)
-        newrow = torch.where(complete, 0,
-                             op1 | (newk << 17) | ((nb2 & 31) << 27))
-        bs[bn, ar] = torch.where(v, newrow, bsb)
+        bs[bn, ar] = torch.where(v, torch.where(complete, 0,
+                                                newk | ((nb2 & 31) << 16)),
+                                 bsb)
+        bo[bn, ar] = torch.where(v, torch.where(complete, 0, op1), bob)
         if two_word:
             rec[i] = torch.where(complete, 1 | (bn << 1) | (k << 6)
                                  | (cb << 16) | ((nb & 7) << 17), 0)
@@ -241,10 +259,13 @@ def encode_lanes_slim_plain(words: torch.Tensor, two_word: bool = False):
     misc[0] = flg
     misc[1] = alloc
     misc[2] = ec
-    state = (_to_i32(bs), misc.to(torch.int32))
-    ev_rows = evbuf[:NEV].to(torch.int32)
+    fstate = _to_i32((bo & 0x1FFFF) | ((bs & 0xFFFF) << 17)
+                     | (((bs >> 16) & 31) << 27))
+    state = (fstate, misc.to(torch.int32))
+    ev_rows = evbuf[:nev].to(torch.int32)
     if two_word:
-        return (rec, rec2) + state + (ev_rows, evbuf2[:NEV].to(torch.int32))
+        return (rec, rec2) + state + (ev_rows, evbuf2[:nev].to(torch.int32),
+                                      bo.to(torch.int32))
     return (rec,) + state + (ev_rows,)
 
 
@@ -260,15 +281,13 @@ def _check_words(words: torch.Tensor) -> None:
     L = words.shape[0]
     if L % CHUNK:
         raise ValueError(f"stream length {L} is not a multiple of {CHUNK}")
-    if L >= MAX_L:
-        raise ValueError(f"stream length {L} does not fit the 17-bit "
-                         "allocation ordinals of the bin state")
     if words.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {words.device}")
 
 
-def _launch(words: torch.Tensor, two_word: bool):
-    """One launch of kernel 1's fused-key or two-word instance."""
+def _launch(words: torch.Tensor, nev: int | None):
+    """One launch of kernel 1's fused-key instance (``nev`` None) or its
+    two-word one with ``nev`` side-buffer rows."""
     words = words.contiguous()
     L, lanes = words.shape
     dev = words.device
@@ -276,19 +295,22 @@ def _launch(words: torch.Tensor, two_word: bool):
     def out(rows):
         return torch.empty((rows, lanes), dtype=torch.int32, device=dev)
 
-    outs = ([out(L), out(L)] if two_word else [out(L)]) + [out(17), out(8)] \
-        + ([out(NEV), out(NEV)] if two_word else [out(NEV)])
-    luts = slim_luts(str(dev))
     lib = kernels.load("slim_encode")
-    fn = (lib.slim_encode_two_word_launch if two_word
-          else lib.slim_encode_launch)
+    if nev is None:
+        outs = [out(L), out(17), out(8), out(NEV)]
+        fn, sizes = lib.slim_encode_launch, (L, lanes)
+    else:
+        outs = [out(L), out(L), out(17), out(8), out(nev), out(nev),
+                out(17)]
+        fn, sizes = lib.slim_encode_two_word_launch, (L, lanes, nev)
+    luts = slim_luts(str(dev))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * (len(outs) + 2) \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * (len(sizes) + 1) + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(words.data_ptr(), *(t.data_ptr() for t in outs),
-                    luts.data_ptr(), L, lanes, LUT_SIZE, stream)
+                    luts.data_ptr(), *sizes, LUT_SIZE, stream)
     kernels.check(status, "slim_encode")
     return tuple(outs)
 
@@ -306,7 +328,7 @@ def encode_lanes_slim(words: torch.Tensor):
                          "fused-key limit; use the two-word mode")
     if words.device.type == "cpu":
         return encode_lanes_slim_plain(words)
-    res = _launch(words, two_word=False)
+    res = _launch(words, None)
     encode_lanes_slim.launches += 1
     return res
 
@@ -314,15 +336,19 @@ def encode_lanes_slim(words: torch.Tensor):
 encode_lanes_slim.launches = 0
 
 
-def encode_lanes_slim_two_word(words: torch.Tensor):
-    """Kernel 1 in its two-word mode, at any length below 2**17: returns
-    (rec1, rec2, fstate, misc, ev1, ev2).  A CUDA tensor launches the
+def encode_lanes_slim_two_word(words: torch.Tensor, nev: int = NEV):
+    """Kernel 1 in its two-word mode, at any length, with ``nev`` rows of
+    eviction side buffer (a lane past them sets its flag): returns (rec1,
+    rec2, fstate, misc, ev1, ev2, fopen).  A CUDA tensor launches the
     two-word instance of ``csrc/slim_encode.cu``; a CPU tensor runs the
     plain version."""
     _check_words(words)
+    if not (1 <= nev and words.shape[0] + 17 + nev < BIG):
+        raise ValueError(f"side buffer of {nev} rows for a stream of "
+                         f"{words.shape[0]} steps")
     if words.device.type == "cpu":
-        return encode_lanes_slim_plain(words, two_word=True)
-    res = _launch(words, two_word=True)
+        return encode_lanes_slim_plain(words, two_word=True, nev=nev)
+    res = _launch(words, nev)
     encode_lanes_slim_two_word.launches += 1
     return res
 
@@ -336,18 +362,21 @@ def code_lanes_slim(words: torch.Tensor, max_bits: int, slice_to: int):
     otherwise (as ``encode_jax.py`` picks it per bucket).  Returns per
     lane (payload uint8 (lanes, max_bits // 8), total bits int64, flag
     bool): the flag marks a lane past ``slice_to`` records, past
-    ``max_bits`` bits or past the eviction side buffer, which the caller
-    re-encodes on the host."""
+    ``max_bits`` bits or past the fused-key side buffer, which the caller
+    re-encodes on the host.  The two-word mode sizes its side buffer by
+    ``eviction_rows``, so its evictions flag no lane."""
     _check_words(words)
-    if fused_key_ok(words.shape[0]):
+    L = words.shape[0]
+    if fused_key_ok(L):
         rec, fstate, misc, ev = encode_lanes_slim(words)
         payload, total, over = order_and_pack_lanes(
             slim_sort_operand_packed(rec, fstate, ev), max_bits, slice_to)
     else:
-        rec1, rec2, fstate, misc, ev1, ev2 = encode_lanes_slim_two_word(words)
+        rec1, rec2, fstate, misc, ev1, ev2, fopen = \
+            encode_lanes_slim_two_word(words, eviction_rows(L))
         payload, total, over = order_and_pack_lanes_two_word(
-            *slim_sort_operands(rec1, rec2, fstate, ev1, ev2), max_bits,
-            slice_to)
+            *slim_sort_operands(rec1, rec2, fstate, fopen, ev1, ev2),
+            max_bits, slice_to)
     return payload, total, over | (misc[0] != 0)
 
 
@@ -461,15 +490,16 @@ def order_and_pack_lanes(ops: torch.Tensor, max_bits: int, slice_to: int):
 
 # ---- two-word tail (lanes past the fused-key limit) ---------------------
 
-def slim_sort_operands(rec1, rec2, fstate, ev1, ev2):
-    """Two-word kernel outputs -> (ops, keys), each (L + 17 + NEV, lanes)
+def slim_sort_operands(rec1, rec2, fstate, fopen, ev1, ev2):
+    """Two-word kernel outputs -> (ops, keys), each (L + 17 + nev, lanes)
     int32: the records, then the 17 end-of-plane flush rows of the
-    still-open codewords, built from the final bin state and marked with
-    bit 22 (1 | code<<1 | nbits<<17 | 1<<22, key = their ordinal), then
-    the evictions, which arrive built from the kernel.  Keys are
+    still-open codewords, built from the final bin state (k and nb from
+    ``fstate``, the open ordinal from ``fopen``, at full width) and marked
+    with bit 22 (1 | code<<1 | nbits<<17 | 1<<22, key = their ordinal),
+    then the evictions, which arrive built from the kernel.  Keys are
     allocation ordinals, BIG for rows without a codeword."""
     f = fstate.to(torch.int64)
-    fop1 = f & 0x1FFFF
+    fop1 = fopen.to(torch.int64)
     b = torch.arange(17, device=f.device)[:, None].expand_as(f)
     code, nbits = _flush_code(b, (f >> 17) & 1023, (f >> 27) & 31)
     is_open = fop1 > 0

@@ -13,9 +13,9 @@ The codec's own parallel axes, one device per rank:
     every lane codes with state of its own.
 
 Each rank runs the single-card machinery on its own device: the
-transform, emission words, buckets and coders (kernel 1, and kernel 4 on
-buckets of 2^17 slots or more) of ``ops/encode.TorchGrayscaleEncoder``, with the exact native re-encode of
-the lanes it flags.  The one collective of the encode is the ordered
+transform, emission words, buckets and coders (kernel 1 on every bucket
+under the ``auto`` coder) of ``ops/encode.TorchGrayscaleEncoder``, with
+the exact native re-encode of the lanes it flags.  The one collective of the encode is the ordered
 gather of the per-lane payload tables (the JAX ``_host``): an all_gather
 of bit lengths, then of the padded payload bytes, in (data, seg) rank
 order, so that every rank returns the whole batch's tables.  The decode

@@ -17,15 +17,22 @@ Sampling (``fuzz_oracle.py:41-61``): sides 8-160, and up to ``big_side``
 on a share of trials; stages 1-6 with an LL of at least 3 pixels a side;
 segments 1 to min(32, the smallest subband's pixels); filters A-F and Q;
 content kinds 0-3 (uniform noise, a ramp with noise, sparse spikes, a
-constant); quota factors 0.05-2.0 of 2 bytes a pixel; uint8 and uint16.
-A share of trials is colour (three planes) and a share a batch of 2-4
-images of one geometry.  uint8 content is mostly held to 0-127, the
-signed range the 8-bit DWT keeps, so that most uint8 trials encode; the
-rest overflow, and their refusals are compared.
+constant) and, beyond ``fuzz_oracle.py``, kind 4: uniform noise of 10 to
+16 bits (past the 9 coded bitplanes of uint16, the reference's MSB loss;
+``tests/test_extremes.py``); quota factors 0.05-2.0 of 2 bytes a pixel,
+and on a share of trials a quota of 28-63 bytes (the JAX package pins
+quotas from 29 bytes); uint8 and uint16.  A share of trials is colour
+(three planes) and a share a batch of 2-4 images of one geometry.  uint8
+content is mostly held to 0-127, the signed range the 8-bit DWT keeps, so
+that most uint8 trials encode; the rest overflow, and their refusals are
+compared.  On a share of trials the port runs with kernel 1's fused-key
+limit lowered (``Trial.two_word_from``), so that buckets of small images
+take the two-word instance and its sized side buffer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
@@ -41,11 +48,15 @@ from ..core.subbands import dim_low, subband_view
 from ..models import color as CL
 from ..models import grayscale as T
 from ..models.decode import decompress_batch
+from ..ops import entropy_slim as ES
 
 QUOTA_FACTORS = (0.05, 0.2, 0.6, 1.0, 2.0)
 BIG_SHARE = 1 / 16            # trials whose sides reach big_side
 COLOR_SHARE = 1 / 8
 BATCH_SHARE = 1 / 8
+TINY_QUOTA_SHARE = 1 / 16     # trials with a quota of 28-63 bytes
+TWO_WORD_SHARE = 1 / 4        # trials with the fused-key limit lowered
+TWO_WORD_FROM = (256, 1024, 4096)
 
 
 @dataclass
@@ -99,6 +110,9 @@ class Trial:
     dtype: type
     content: list = field(default_factory=list)
     images: list = field(default_factory=list)   # arrays, or 3 planes
+    # buckets of this many slots or more take kernel 1's two-word
+    # instance in the port's run (None: the fused-key limit as it is)
+    two_word_from: int | None = None
 
     @property
     def config(self):
@@ -109,13 +123,27 @@ class Trial:
         return {"index": self.index, "kind": self.kind, "w": self.w,
                 "h": self.h, "stages": self.stages, "filt": self.filt,
                 "segments": self.segments, "quota": self.quota,
-                "dtype": np.dtype(self.dtype).name, "content": self.content}
+                "dtype": np.dtype(self.dtype).name, "content": self.content,
+                "two_word_from": self.two_word_from}
+
+
+@contextlib.contextmanager
+def fused_key_limit(two_word_from: int | None):
+    """Inside, buckets of ``two_word_from`` slots or more take kernel 1's
+    two-word instance (None: no change)."""
+    real = ES.fused_key_ok
+    if two_word_from is not None:
+        ES.fused_key_ok = lambda L: L < two_word_from and real(L)
+    try:
+        yield
+    finally:
+        ES.fused_key_ok = real
 
 
 def content(rng, h: int, w: int, kind: int, dtype) -> np.ndarray:
-    """One image of content ``kind`` (``fuzz_oracle.py``'s four), in
-    ``dtype``: uint8 content is cut to 0-255 and, on 9 of 10 images,
-    halved into 0-127."""
+    """One image of content ``kind`` (``fuzz_oracle.py``'s four, and
+    noise of 10 to 16 bits), in ``dtype``: uint8 content is cut to 0-255
+    and, on 9 of 10 images, halved into 0-127."""
     if kind == 0:
         img = rng.integers(0, 256, (h, w))
     elif kind == 1:
@@ -123,8 +151,10 @@ def content(rng, h: int, w: int, kind: int, dtype) -> np.ndarray:
         img = base + rng.integers(0, 40, (h, w))
     elif kind == 2:
         img = (rng.random((h, w)) < rng.random()) * int(rng.integers(1, 512))
-    else:
+    elif kind == 3:
         img = np.full((h, w), int(rng.integers(0, 500)))
+    else:
+        img = rng.integers(0, 1 << int(rng.integers(10, 17)), (h, w))
     if np.dtype(dtype) == np.uint8:
         img = np.minimum(img, 255) >> int(rng.random() < 0.9)
     return img.astype(dtype)
@@ -158,12 +188,16 @@ def sample(rng, index: int, max_side: int = 160, big_side: int = 1024,
     kind = "color" if u < color else ("batch" if u < color + batch
                                       else "gray")
     n = {"gray": 1, "color": 3, "batch": int(rng.integers(2, 5))}[kind]
-    kinds = [int(rng.integers(0, 4)) for _ in range(n)]
+    kinds = [int(rng.integers(0, 5)) for _ in range(n)]
     images = [content(rng, h, w, k, dtype) for k in kinds]
     per_image = 6 if kind == "color" else 2
     quota = max(64, int(h * w * per_image * qf))
+    if rng.random() < TINY_QUOTA_SHARE:
+        quota = int(rng.integers(28, 64))
+    two_word_from = int(rng.choice(TWO_WORD_FROM)) \
+        if rng.random() < TWO_WORD_SHARE else None
     return Trial(index, kind, w, h, stages, filt, segments, quota, dtype,
-                 kinds, images)
+                 kinds, images, two_word_from)
 
 
 def _call(fn, *args):
@@ -205,6 +239,11 @@ def compare(trial: Trial, port: Codec, ref: Codec) -> tuple[str | None,
                                                            dict]:
     """Run one trial through both codecs: (None, streams) when they agree,
     else (what differs, the streams made)."""
+    with fused_key_limit(trial.two_word_from):
+        return _compare(trial, port, ref)
+
+
+def _compare(trial: Trial, port: Codec, ref: Codec):
     cfg, dt = trial.config, trial.dtype
     if trial.kind == "color":
         enc = (_call(port.compress_yuv, *trial.images, cfg),
@@ -259,8 +298,15 @@ def _compare_batch(trial: Trial, port: Codec, ref: Codec):
         return f"batch streams differ at images {bad}", streams
     dec = _call(port.decompress_batch, ref_streams, cfg, dt)
     want = [_call(ref.decompress, s, cfg, dt) for s in ref_streams]
-    if dec[0] != "ok" or not all(k == "ok" for k, _ in want) \
-            or not _same(list(dec[1]), [px for _k, px in want]):
+    failed = {s for k, s in want if k != "ok"}
+    if failed:
+        # the batch decode is refused with one of its streams' statuses
+        # (a stream that a tiny quota leaves without a segment)
+        if dec[0] != "error" or dec[1] not in failed:
+            return (f"batch decode: port {dec[0]} {_short(dec[1])}, "
+                    f"reference refusals {sorted(failed)}"), streams
+        return None, streams
+    if dec[0] != "ok" or not _same(list(dec[1]), [px for _k, px in want]):
         return "batch decode differs", streams
     return None, streams
 
@@ -271,11 +317,12 @@ def run(port: Codec, ref: Codec, trials: int | None = None,
     """Sample and compare trials until ``trials`` have run or ``seconds``
     have passed (whichever is given; both: the first reached).  Returns
     {"trials", "mismatches": [(index, problem, dump dir)], "per_filter",
-    "per_kind", "per_dtype", "seconds"}."""
+    "per_kind", "per_dtype", "two_word", "tiny_quota", "seconds"}."""
     if trials is None and seconds is None:
         raise ValueError("give trials or seconds")
     rng = np.random.default_rng(seed)
     per_filter, per_kind, per_dtype = Counter(), Counter(), Counter()
+    two_word = tiny_quota = 0
     mismatches = []
     t0 = time.perf_counter()
     n = 0
@@ -286,6 +333,8 @@ def run(port: Codec, ref: Codec, trials: int | None = None,
         per_filter["ABCDEFQ"[trial.filt]] += 1
         per_kind[trial.kind] += 1
         per_dtype[np.dtype(trial.dtype).name] += 1
+        two_word += trial.two_word_from is not None
+        tiny_quota += trial.quota < 64
         if problem:
             where = _dump(trial, problem, streams)
             mismatches.append((n, problem, where))
@@ -295,4 +344,5 @@ def run(port: Codec, ref: Codec, trials: int | None = None,
     return {"trials": n, "mismatches": mismatches,
             "per_filter": dict(sorted(per_filter.items())),
             "per_kind": dict(per_kind), "per_dtype": dict(per_dtype),
+            "two_word": two_word, "tiny_quota": tiny_quota,
             "seconds": time.perf_counter() - t0}

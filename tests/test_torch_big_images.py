@@ -1,14 +1,15 @@
-"""The ``auto`` coder on the CPU: buckets below kernel 1's 2^17-slot limit
-on kernel 1 (``slim``), the others on kernel 4 (``pallas``), planned per
-bucket from its length alone.
+"""The ``auto`` coder on the CPU: kernel 1 (``slim``) on every bucket, its
+fused-key instance where ``entropy_slim.fused_key_ok`` holds and its
+two-word instance, with the side buffer sized by ``eviction_rows``, on
+longer lanes, at any length.
 
-Lanes of 2^17 slots cost minutes through the plain kernels, so most tests
-lower kernel 1's limit (``entropy_slim.MAX_L``) with ``monkeypatch``: boat
-crops then have buckets on both coders, and every entry point must still
-give the JAX package's stream byte for byte.  The one encode at the real
-limit is tests/test_torch_big_images_limit.py.  The pins of
-``chip_smoke.py``'s large-image phase are recomputed here with the JAX
-package's host codec."""
+Long lanes cost minutes through the plain kernels, so most tests lower
+the fused-key limit (``entropy_slim.fused_key_ok``) with ``monkeypatch``:
+boat crops then have buckets on both instances, and every entry point
+must still give the JAX package's stream byte for byte.  The one encode
+with lanes of 2^17 slots is tests/test_torch_big_images_limit.py.  The
+pins of ``chip_smoke.py``'s large-image phase are recomputed here with
+the JAX package's host codec."""
 
 import os
 import sys
@@ -25,7 +26,6 @@ from icer_compression_tpu_torch.core.status import IcerError, IcerStatus
 from icer_compression_tpu_torch.models import color as TC
 from icer_compression_tpu_torch.models import grayscale as T
 from icer_compression_tpu_torch.ops import encode as E
-from icer_compression_tpu_torch.ops import entropy_full as EF
 from icer_compression_tpu_torch.ops import entropy_slim as ES
 from icer_compression_tpu_torch.utils import image_io as IO
 from icer_compression_tpu_torch.utils.colorspace import rgb_to_ycbcr
@@ -33,7 +33,7 @@ from test_torch_entropy_slim import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
-LOW = 512           # kernel 1's limit, lowered: 64x64 stage 1 is past it
+LOW = 512           # the fused-key limit, lowered: 64x64 stage 1 is past it
 
 
 def _boat(dtype=np.uint16):
@@ -45,75 +45,82 @@ def _crop(side=64, dtype=np.uint16):
                                              224:224 + side])
 
 
+def _lower_fused_key_limit(monkeypatch):
+    monkeypatch.setattr(ES, "fused_key_ok", lambda L: L < LOW)
+
+
 @pytest.fixture()
 def low_limit(monkeypatch):
-    """Kernel 1's limit lowered to ``LOW`` slots, a fresh encoder cache,
-    and the coder calls counted: {"slim": kernel 1 calls, "pallas":
-    kernel 4 calls}."""
-    monkeypatch.setattr(ES, "MAX_L", LOW)
+    """The fused-key limit lowered to ``LOW`` slots, a fresh encoder
+    cache, and kernel 1's calls counted per instance: {"fused": ...,
+    "two_word": ...}."""
+    _lower_fused_key_limit(monkeypatch)
     monkeypatch.setattr(T, "_ENCODERS", {})
-    calls = {"slim": 0, "pallas": 0}
-    for mod, name, key in ((ES, "code_lanes_slim", "slim"),
-                           (EF, "encode_lanes_full", "pallas")):
-        real = getattr(mod, name)
+    calls = {"fused": 0, "two_word": 0}
+    for name, key in (("encode_lanes_slim", "fused"),
+                      ("encode_lanes_slim_two_word", "two_word")):
+        real = getattr(ES, name)
 
         def counted(*a, real=real, key=key):
             calls[key] += 1
             return real(*a)
 
-        monkeypatch.setattr(mod, name, counted)
+        monkeypatch.setattr(ES, name, counted)
     return calls
 
 
 S4G6 = (4, 6, np.uint16)
+F, W = "fused", "two-word"
 
 
-@pytest.mark.parametrize("w,h,geometry,coders", [
-    (512, 512, S4G6, ("slim",) * 4),
-    (1024, 1024, S4G6, ("slim",) * 4),
-    (1600, 1200, S4G6, ("pallas", "slim", "slim", "slim")),
-    (2048, 2048, S4G6, ("pallas", "slim", "slim", "slim")),
-    (5120, 3840, S4G6, ("pallas", "pallas", "slim", "slim")),
-    (512, 512, (1, 1, np.uint16), ("pallas",)),
-    (512, 512, (1, 1, np.uint8), ("pallas",)),
+@pytest.mark.parametrize("w,h,geometry,modes", [
+    (512, 512, S4G6, (F, F, F, F)),
+    (1024, 1024, S4G6, (W, F, F, F)),
+    (1600, 1200, S4G6, (W, W, F, F)),
+    (2048, 2048, S4G6, (W, W, F, F)),
+    (5120, 3840, S4G6, (W, W, W, F)),
+    (512, 512, (1, 1, np.uint16), (W,)),
+    (512, 512, (1, 1, np.uint8), (W,)),
 ])
-def test_auto_plans_each_bucket_from_its_length(w, h, geometry, coders):
-    """Kernel 1 below 2^17 slots, kernel 4 from there, at the CLI's
-    defaults (s4 fA g6) and at one stage and one segment (boat 512's
-    lanes of exactly 2^17 slots); ``slim`` refuses the same geometries
-    at construction.  One 5120x3840 image's stage-1 bucket passes
-    ``CALL_WORDS`` and is coded in two calls."""
+def test_auto_plans_each_bucket_from_its_length(w, h, geometry, modes):
+    """Kernel 1 on every bucket at the CLI's defaults (s4 fA g6) and at
+    one stage and one segment (boat 512's lanes of exactly 2^17 slots):
+    the fused-key instance where ``fused_key_ok`` holds, the two-word one
+    elsewhere; ``slim`` plans the same geometries the same way.  One
+    5120x3840 image's stage-1 bucket passes ``CALL_WORDS`` and is coded
+    in two calls."""
     stages, segments, dtype = geometry
     cfg = T.CodecConfig(stages, 0, segments, None)
     enc = T.make_encoder(w, h, cfg, dtype, "cpu")
-    assert enc.entropy == "auto" and enc.bucket_coders == coders
-    for b, coder in zip(enc.buckets, coders):
-        assert (E.bucket_sizes(b["L"])[0] >= ES.MAX_L) == (coder == "pallas")
+    assert enc.entropy == "auto" and enc.bucket_coders == ("slim",) * len(
+        modes)
+    assert tuple(F if ES.fused_key_ok(E.bucket_sizes(b["L"])[0]) else W
+                 for b in enc.buckets) == modes
     calls = [-(-b["rows"] // b["call_rows"]) for b in enc.buckets]
     assert calls == ([2, 1, 1, 1] if w == 5120 else [1] * len(calls))
-    if "pallas" in coders:
-        with pytest.raises(IcerError, match="2\\^17") as err:
-            T.make_encoder(w, h, cfg, dtype, "cpu", entropy="slim")
-        assert err.value.status == IcerStatus.INVALID_INPUT
+    slim = T.make_encoder(w, h, cfg, dtype, "cpu", entropy="slim")
+    assert slim.bucket_coders == enc.bucket_coders
+    assert [b["L"] for b in slim.buckets] == [b["L"] for b in enc.buckets]
 
 
 def test_auto_compress_equals_jax_package(low_limit):
-    """``compress`` and its encoder at the lowered limit: stage 1 on
-    kernel 4, the rest on kernel 1, the JAX package's stream."""
+    """``compress`` and its encoder at the lowered limit: stage 1 on the
+    two-word instance, the rest on the fused-key one, the JAX package's
+    stream."""
     crop = _crop()
     cfg = T.CodecConfig(4, 0, 6, None)
     enc = T.make_encoder(64, 64, cfg, np.uint16, "cpu")
-    assert enc.bucket_coders == ("pallas", "slim", "slim", "slim")
+    assert enc.bucket_coders == ("slim",) * 4
     assert T.compress(crop, cfg, device="cpu") \
         == G.compress(crop, G.CodecConfig(4, 0, 6, None))
-    assert low_limit == {"slim": 3, "pallas": 1}
+    assert low_limit == {"fused": 3, "two_word": 1}
 
 
 def test_auto_compress_batch_widening_equals_jax_package(low_limit):
     """A batch at a quota whose prefix class has to widen (the flat image
     of tests/test_torch_codec.py at one stage, whose one bucket is past
-    the lowered limit): each window's encoder plans kernel 4, and the
-    streams equal the JAX package's."""
+    the lowered limit): each window's encoder runs the two-word instance,
+    and the streams equal the JAX package's."""
     rng = np.random.default_rng(3)
     img = (100 + (rng.random((64, 64)) < 0.01)).astype(np.uint8)
     imgs = np.stack([img, img[::-1]])
@@ -123,11 +130,11 @@ def test_auto_compress_batch_widening_equals_jax_package(low_limit):
     assert stats["escalations"] > 0
     assert out == [G.compress(im, G.CodecConfig(1, 0, 1, 816))
                    for im in imgs]
-    assert low_limit["pallas"] == 1 + stats["escalations"]
+    assert low_limit == {"fused": 0, "two_word": 1 + stats["escalations"]}
 
 
 def test_auto_compress_yuv_equals_jax_package(low_limit):
-    """The colour codec's three canvases through both coders."""
+    """The colour codec's three canvases through both instances."""
     rgb = np.stack([_crop(dtype=np.uint8), _crop(dtype=np.uint8).T,
                     np.roll(_crop(dtype=np.uint8), 7, axis=1)], axis=-1)
     planes = tuple(c.astype(np.uint16) for c in rgb_to_ycbcr(rgb))
@@ -136,7 +143,7 @@ def test_auto_compress_yuv_equals_jax_package(low_limit):
     assert out == CL.compress_yuv(*planes, G.CodecConfig(4, 0, 6, None))
     assert TC.compress_yuv_batch([planes[0]], [planes[1]], [planes[2]], cfg,
                                  device="cpu") == [out]
-    assert low_limit["pallas"] > 0 and low_limit["slim"] > 0
+    assert low_limit["two_word"] > 0 and low_limit["fused"] > 0
 
 
 def test_auto_cli_batch_compress_equals_jax_package(low_limit, tmp_path):
@@ -156,7 +163,7 @@ def test_auto_cli_batch_compress_equals_jax_package(low_limit, tmp_path):
     for i, im in enumerate(imgs):
         assert (tmp_path / "enc" / f"g{i}.icer").read_bytes() \
             == G.compress(im.astype(np.uint16), cfg)
-    assert low_limit["pallas"] > 0 and low_limit["slim"] > 0
+    assert low_limit["two_word"] > 0 and low_limit["fused"] > 0
 
 
 def test_auto_sharded_one_by_one_equals_jax_package(low_limit, monkeypatch):
@@ -168,20 +175,21 @@ def test_auto_sharded_one_by_one_equals_jax_package(low_limit, monkeypatch):
     mesh = sharded.make_mesh(device="cpu")
     crop = _crop()
     enc = sharded.ShardedGrayscaleEncoder(mesh, 64, 64, 4, 0, 6)
-    assert enc.enc.bucket_coders == ("pallas", "slim", "slim", "slim")
+    assert enc.enc.bucket_coders == ("slim",) * 4
     cfg = G.CodecConfig(4, 0, 6, None)
     assert enc.compress_batch(np.stack([crop, crop.T]), cfg) \
         == [G.compress(crop, cfg), G.compress(np.ascontiguousarray(crop.T),
                                               cfg)]
-    assert low_limit["pallas"] > 0
+    assert low_limit["two_word"] > 0
 
 
 @pytest.mark.parametrize("entropy", ["auto", "sorted"])
 def test_bucket_calls_in_runs_of_rows_give_the_same_tables(monkeypatch,
                                                            entropy):
     """A bucket past ``CALL_WORDS`` is coded in runs of rows: the tables
-    equal one call's (here with both coders of ``auto``)."""
-    monkeypatch.setattr(ES, "MAX_L", LOW)
+    equal one call's (here with both instances of kernel 1 under
+    ``auto``)."""
+    _lower_fused_key_limit(monkeypatch)
     crop = _crop()
     cfg = T.CodecConfig(4, 0, 6, None)
     whole = T.make_encoder(64, 64, cfg, np.uint16, "cpu", entropy=entropy)
@@ -195,21 +203,20 @@ def test_bucket_calls_in_runs_of_rows_give_the_same_tables(monkeypatch,
 
 def test_dwt_overflow_comes_before_the_coder(low_limit):
     """A uint8 image at one stage and one segment overflows the DWT: under
-    ``auto`` that raises INTEGER_OVERFLOW even where its lanes are past
-    kernel 1's limit, as ``compress_jax`` does (the coder limit is no
-    longer checked at construction: boat 512 at s1 g1 plans kernel 4,
-    and only ``slim`` refuses it)."""
+    ``auto`` that raises INTEGER_OVERFLOW, as ``compress_jax`` does, after
+    the coder (here the two-word instance past the lowered limit) has
+    run: the collect half reads the overflow flag."""
     crop = _crop(dtype=np.uint8)
     cfg = T.CodecConfig(1, 0, 1, None)
     with pytest.raises(JaxIcerError) as jax_err:
         G.compress_jax(crop, G.CodecConfig(1, 0, 1, None))
     assert jax_err.value.status.name == "INTEGER_OVERFLOW"
     assert T.make_encoder(64, 64, cfg, np.uint8,
-                          "cpu").bucket_coders == ("pallas",)
+                          "cpu").bucket_coders == ("slim",)
     with pytest.raises(IcerError) as err:
         T.compress(crop, cfg, device="cpu")
     assert err.value.status == IcerStatus.INTEGER_OVERFLOW
-    assert low_limit["pallas"] == 1
+    assert low_limit == {"fused": 0, "two_word": 1}
 
 
 def test_pinned_big_image_references():

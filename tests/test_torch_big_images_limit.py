@@ -1,7 +1,8 @@
 """Boat 512 at one stage and one segment: lanes of 2^17 emission slots,
-past kernel 1's limit, which the port refused before its ``auto`` coder.
-Alone in its file (about 80 s through the plain kernel 4 on a CPU), so
-that test workers that split by file run it beside the others."""
+past the 17-bit ordinals of the JAX package's slim coder, through kernel
+1's two-word instance.  Alone in its file (about a minute through the
+plain kernel 1 on a CPU), so that test workers that split by file run it
+beside the others."""
 
 import os
 
@@ -22,7 +23,7 @@ def test_boat_at_kernel_1s_limit_equals_jax_package():
     boat = IO.read_png(os.path.join(DATA, "boat.512.png")).astype(np.uint16)
     cfg = T.CodecConfig(1, 0, 1, None)
     assert T.make_encoder(512, 512, cfg, np.uint16,
-                          "cpu").bucket_coders == ("pallas",)
+                          "cpu").bucket_coders == ("slim",)
     stream = T.compress(boat, cfg, device="cpu")
     jcfg = G.CodecConfig(1, 0, 1, None)
     assert stream == G.compress(boat, jcfg)

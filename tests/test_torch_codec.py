@@ -335,9 +335,9 @@ def test_long_lanes_need_a_backend_without_the_fused_key_limit(entropy):
     them in its two-word mode (boat's centre crop, byte for byte the JAX
     package's stream), the other two backends take them as they are
     (construction only).  Lanes of 2**17 slots (512x512 at one stage and
-    one segment) are past both slim modes, as in the JAX package: that
-    encoder raises."""
-    from icer_compression_tpu_torch.core.status import IcerError
+    one segment), which the JAX package's slim coder refuses, take the
+    two-word mode too: its ordinals and side buffer have no length
+    limit."""
     cfg = T.CodecConfig(1, 0, 1, None)
     enc = T.make_encoder(256, 256, cfg, np.uint16, "cpu", entropy=entropy)
     assert enc.buckets[0]["L"] == 2 * 128 * 128
@@ -345,8 +345,8 @@ def test_long_lanes_need_a_backend_without_the_fused_key_limit(entropy):
         crop = np.ascontiguousarray(_boat()[128:384, 128:384])
         assert T.compress(crop, cfg, device="cpu") \
             == G.compress(crop, G.CodecConfig(1, 0, 1, None))
-        with pytest.raises(IcerError, match="2\\^17"):
-            T.make_encoder(512, 512, cfg, np.uint16, "cpu", entropy=entropy)
+        assert T.make_encoder(512, 512, cfg, np.uint16, "cpu",
+                              entropy=entropy).bucket_coders == ("slim",)
 
 
 def test_pinned_long_lane_references():

@@ -2,6 +2,7 @@
 on the CPU against the JAX package's host codec: a seeded run, its
 sampling envelope, colour and batch trials, and what a mismatch leaves."""
 
+import dataclasses
 import json
 import os
 import tempfile
@@ -37,8 +38,12 @@ def test_sampler_stays_in_the_envelope():
             for img in t.images)
         if t.kind == "batch":
             assert 2 <= len(t.images) <= 4
-        assert t.quota >= 64
+        assert t.quota >= 28
+        assert t.two_word_from in (None,) + fuzz.TWO_WORD_FROM
     assert {t.filt for t in trials} == set(range(7))
+    assert any(t.quota < 64 for t in trials)
+    assert {k for t in trials for k in t.content} == set(range(5))
+    assert any(t.two_word_from for t in trials)
     assert {t.stages for t in trials} == set(range(1, 7))
     assert {t.kind for t in trials} == {"gray", "color", "batch"}
     assert {np.dtype(t.dtype).name for t in trials} == {"uint8", "uint16"}
@@ -59,6 +64,26 @@ def test_colour_and_batch_trials_agree(shares):
         assert trial.kind == ("color" if shares[1] else "batch")
         problem, _streams = fuzz.compare(trial, port, ref)
         assert problem is None
+
+
+def test_a_batch_with_a_refused_decode_agrees():
+    """A quota of 45 bytes leaves a noisy image's stream without a
+    segment: the reference refuses its decode (DECODER_OUT_OF_DATA), so
+    the port's batch decode must be refused with that status, as the
+    JAX package's batch decode is; a batch decode that returns pixels
+    there is a mismatch."""
+    noise = fuzz.content(np.random.default_rng(1), 133, 129, 4, np.uint16)
+    flat = np.full((133, 129), 7, np.uint16)
+    trial = fuzz.Trial(0, "batch", 129, 133, 1, 0, 30, 45, np.uint16,
+                       [3, 4], [flat, noise])
+    port, ref = fuzz.port_codec("cpu"), fuzz_torch.jax_codec()
+    assert ref.compress(noise, trial.config) == b""
+    assert fuzz.compare(trial, port, ref)[0] is None
+    lenient = dataclasses.replace(port, decompress_batch=lambda ss, cfg, dt: [
+        ref.decompress(s, cfg, dt) if s else np.zeros((133, 129), dt)
+        for s in ss])
+    problem, _streams = fuzz.compare(trial, lenient, ref)
+    assert problem and "reference refusals ['DECODER_OUT_OF_DATA']" in problem
 
 
 def test_a_mismatch_is_dumped_and_counted(tmp_path, monkeypatch):

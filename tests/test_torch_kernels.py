@@ -157,23 +157,38 @@ def test_guard_failing_twice_raises_and_keeps_nothing(stub_build, tmp_path):
 
 def test_guard_covers_every_kernel_instance():
     """The first-use check has an instance for every launch function that
-    each library of ``KERNELS`` exports, and no other."""
+    each library of ``KERNELS`` exports, and no other (kernel 1's two-word
+    launch has two: the small block and the block past 2**17)."""
     from icer_compression_tpu_torch import kernel_check
     assert sorted(kernel_check.CHECKS) == sorted(kernels.KERNELS)
     for name in kernels.KERNELS:
         exported = re.findall(r'extern "C" int (\w+)\(',
                               (kernels.CSRC / f"{name}.cu").read_text())
-        assert sorted(i.symbol for i in kernel_check.CHECKS[name]) \
+        assert sorted({i.symbol for i in kernel_check.CHECKS[name]}) \
             == sorted(exported)
+
+
+@pytest.fixture(scope="module")
+def wide_plain():
+    """The plain version's outputs on the first-use check's block past
+    2**17 ordinals (about a minute), once for the module."""
+    import torch
+    from icer_compression_tpu_torch import kernel_check as K
+    return K._k1_wide(torch.device("cpu"))
 
 
 @pytest.mark.parametrize("name", ["slim_encode", "plane_decode",
                                   "full_encode"])
-def test_guard_inputs_run_through_every_wrapper(name):
+def test_guard_inputs_run_through_every_wrapper(name, request, monkeypatch):
     """The check's fixed inputs are valid for each instance's wrapper (here
-    the plain versions on both sides) and leave the launch counts alone."""
+    the plain versions on both sides; the block past 2**17 ordinals, run
+    once for the module, against its pinned digests) and leave the launch
+    counts alone."""
     import torch
     from icer_compression_tpu_torch import kernel_check as K
+    if name == "slim_encode":
+        out = request.getfixturevalue("wide_plain")
+        monkeypatch.setattr(K, "_k1_wide", lambda dev: out)
     before = [fn.launches for fn in K._COUNTED]
     assert K.check_library(name, device="cpu") \
         == tuple(i.label for i in K.CHECKS[name])
@@ -187,6 +202,39 @@ def test_guard_inputs_run_through_every_wrapper(name):
         == (16, 11)
     err = K._k2(torch.device("cpu"))[1]
     assert 0 < int(err.sum()) < 4          # the cut retires some lanes
+
+
+def test_wide_check_block_passes_2_17_ordinals_and_32_evictions(
+        wide_plain):
+    """The first-use check's pinned block: the plain version's digests are
+    the pinned ones; its ordinals pass 2**17 (records, evictions and open
+    ordinals, whose 17-bit field in fstate wraps), its evictions pass 32
+    and sit within the sized buffer unflagged, and its packed payloads
+    equal the sequential coder's."""
+    import torch
+    from icer_compression_tpu_torch import kernel_check as K
+    from icer_compression_tpu_torch.backend import sequential as TS
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    rec1, rec2, fstate, misc, ev1, ev2, fopen = wide_plain
+    assert {n: K.digest(t) for n, t in zip(K._TWO_WORD, wide_plain)} \
+        == K.WIDE_DIGESTS
+    assert int(torch.where(rec1 != 0, rec2, 0).max()) > 1 << 17
+    assert int(torch.where(ev1 != 0, ev2, 0).max()) > 1 << 16
+    assert int(fopen.max()) > 1 << 17
+    assert torch.equal(fstate & 0x1FFFF, fopen & 0x1FFFF)
+    assert bool((misc[2] > ES.NEV).all()) and not misc[0].any()
+    ops, keys = ES.slim_sort_operands(rec1, rec2, fstate, fopen, ev1, ev2)
+    L = K.WIDE_L
+    payload, total, over = ES.order_and_pack_lanes_two_word(
+        ops, keys, ((2 * L + 170 + 255) // 256) * 256, ops.shape[0])
+    w = K.wide_words().numpy()
+    for lane in range(w.shape[1]):
+        seq = TS.encode_emissions(w[:, lane] & 1, (w[:, lane] >> 1) & 31,
+                                  (w[:, lane] >> 6) & 1)
+        assert int(misc[2, lane]) == seq[2] and not bool(over[lane])
+        nb = int(total[lane])
+        assert (bytes(payload[lane, :(nb + 7) // 8].numpy()), nb) \
+            == seq[:2], lane
 
 
 def test_first_difference_names_the_index():

@@ -29,8 +29,8 @@ the check and pass it; builds the native host runtime
   3. drives the main path: boat 512 lossless (stages 4, filter A, 6
      segments) must hash to tests/data/golden_boat512.sha256 and decode to
      the input; quota 50,000 must match tests/data/golden_boat512_q50000
-     .sha256 for the stream and the decoded pixels; both kernels must have
-     launched, and every bucket of boat must stay on kernel 1;
+     .sha256 for the stream and the decoded pixels; kernels 1, 2 and W1
+     must have launched, and every bucket of boat must stay on kernel 1;
   4. encodes and decodes a batch of 8 noisy variants of boat, pixel-exact;
   5. times encode, decode and kernels 1-2 (CUDA events) beside their
      bounds; kernel 2 over all four units of the decode at once, against
@@ -169,23 +169,28 @@ the check and pass it; builds the native host runtime
      stage-1 bucket and kernel 4 on its compacted block.
  26. every filter (A-F, Q), stage count (1-6), segment count (1-32) and
      sample type (uint8, uint16) that the JAX package encodes: kernel W1
-     (the inverse DWT's backward recurrence, csrc/wavelet.cu) bit-equal to
-     its plain version on every filter it serves at mag_bits 7 and 15 and
-     lengths 2-9 and on boat 512's stage-1 column and row passes; the
-     lifting path's integer steps (floor_div, >> on negative int32,
-     _wrap) and forward_1d / inverse_1d on the card equal to the host's;
-     the inverse DWT's kernel launches at filter B (through W1, at most
-     twice filter A's) and through the plain loop, and the filter-B decode
-     wall both ways; the 32 configurations of ``config_sweep`` through
-     ``compress`` / ``decompress`` and ``compress_yuv`` /
-     ``decompress_yuv`` equal to tests/data/golden_configs.sha256 (made
-     with the JAX package by scripts/pin_configs.py), lossless decodes
-     returning the input (filter C's excepted, as in the reference), and
-     the ``error_sweep`` cases refused with the pinned IcerStatus; a
-     filter-B batch of 3 equal to the single calls (and its deferred
-     decode with no host sync); the CLI's ``-f D -s 3 -g 7`` equal to the
-     API; a fixed-seed differential fuzz (``utils/fuzz.py``) against the
-     native host codec with no mismatch.
+     (one axis of one inverse DWT stage, csrc/wavelet.cu) bit-equal to
+     its plain version, overflow word included, at every filter,
+     mag_bits 7 and 15, lines of 2-9 samples on both axes, on boat 512's
+     stage-1 passes at fA, fB and fC, 2048x2048's at fF and a 5120x3840
+     stage-1 row pass, each timed beside its bound; the lifting path's
+     integer steps (floor_div, >> on negative int32, _wrap) and
+     forward_1d / inverse_1d on the card equal to the host's; boat's s4
+     inverse DWT at fA and fB through W1 (8 W1 launches, at most 16
+     kernels on the card) and through the plain chain, and boat's fA and
+     fB decode walls both ways, in turns; a ``torch.profiler`` trace of
+     the main path's encode and decode, each launch put in its layer
+     (device ms, launches, host ms, idle share); the 32 configurations of
+     ``config_sweep`` through ``compress`` / ``decompress`` and
+     ``compress_yuv`` / ``decompress_yuv`` equal to
+     tests/data/golden_configs.sha256 (made with the JAX package by
+     scripts/pin_configs.py), lossless decodes returning the input
+     (filter C's excepted, as in the reference), W1 launched on every
+     decode, and the ``error_sweep`` cases refused with the pinned
+     IcerStatus; a filter-B batch of 3 equal to the single calls (and its
+     deferred decode with no host sync); the CLI's ``-f D -s 3 -g 7``
+     equal to the API; a fixed-seed differential fuzz
+     (``utils/fuzz.py``) against the native host codec with no mismatch.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -201,6 +206,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -1472,6 +1478,7 @@ def deferred_phase(dev, card, boat):
     from icer_compression_tpu_torch.models import grayscale as T
     from icer_compression_tpu_torch.ops import entropy_slim as ES
     from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.ops import wavelet as WV
 
     h, w = boat.shape
     rng = np.random.default_rng(1234)
@@ -1512,9 +1519,11 @@ def deferred_phase(dev, card, boat):
 
     ES.encode_lanes_slim.launches = 0
     PDc.decode_planes.launches = 0
+    WV.inverse_pass.launches = 0
     outs = [(4, run(4))]
     launches = {"slim_encode": ES.encode_lanes_slim.launches,
-                "plane_decode": PDc.decode_planes.launches}
+                "plane_decode": PDc.decode_planes.launches,
+                "wavelet_inverse": WV.inverse_pass.launches}
     order = (4, 1, 1, 4, 4, 1, 1, 4)
     outs += [(K, run(K)) for K in order[1:]]
     for K, (streams, pixels, _e, _d) in outs:
@@ -2301,10 +2310,16 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
     return res
 
 
-# phase 26: kernel W1's integer work per step (two multiply-adds, a
-# multiply, two adds, the shift, the high-pass add, two range compares and
-# the three-op wrap), for its bound
-W1_OPS_PER_STEP = 12
+# phase 26: kernel W1's integer work per restored pair (the difference
+# r[n+1]; the prediction's three multiply-adds, its d[n+1] term and shift;
+# the high-pass add; the even sample's add, shift and add and the odd
+# sample's subtract; three range checks of two compares; three wraps of
+# three ops), for its bound
+W1_OPS_PER_STEP = 27
+# phase 26: at most this many kernels reach the card per boat s4 inverse
+# DWT through W1 (8 passes, the canvas copy, the overflow word's zeroing
+# and its test, with room to spare)
+W1_INVERSE_KERNELS = 16
 # phase 26's fuzz: a fixed count of trials from a fixed seed against the
 # native host codec (400 took 53-58 s on an H100, which keeps the phase
 # near two minutes)
@@ -2312,19 +2327,20 @@ FUZZ_TRIALS = 400
 FUZZ_SEED = 26
 
 
-def w1_bound(lines: int, half: int, n_l: int):
-    """Kernel W1: highs and r in, d out (int32), the overflow word; ops
-    per step of every line."""
-    return bound(4 * lines * (2 * half + n_l) + 4,
-                 W1_OPS_PER_STEP * lines * half)
+def w1_bound(nc: int, lines: int, n: int):
+    """Kernel W1, one pass: the block of ``nc`` canvases, ``lines`` lines
+    of ``n`` samples, read once and written once (int32), and the
+    overflow word; ops per restored pair of every line."""
+    return bound(8 * nc * lines * n + 4,
+                 W1_OPS_PER_STEP * nc * lines * (n // 2))
 
 
 def lifting_semantics(dev) -> int:
     """The integer steps of the lifting path on the card against the host:
     floored division by 2, 4, 8 and 16 and ``>>`` on negative int32,
     ``_wrap`` at mag_bits 7 and 15, and ``forward_1d`` / ``inverse_1d``
-    of every filter at both sample widths on odd and even lines (the card
-    runs W1 inside the inverse).  Returns the number of values held."""
+    (the plain chain) of every filter at both sample widths on odd and
+    even lines.  Returns the number of values held."""
     from icer_compression_tpu_torch.ops import wavelet as WV
     from icer_compression_tpu_torch.ops.bitutils import floor_div
     v = torch.arange(-(1 << 18), 1 << 18, 37, dtype=torch.int32)
@@ -2360,42 +2376,60 @@ def lifting_semantics(dev) -> int:
     return n
 
 
-def stage1_passes(dev, image, filt):
-    """(label, highs, r) of the inverse DWT's last stage on
-    ``image`` transformed at one stage by ``filt``: its column pass, then
-    its row pass, as ``inverse_2d`` forms them."""
+def w1_against_plain(name, src, low_h, low_w, axis, filt, mag_bits):
+    """W1's pass against its plain version on the same card, both into
+    copies of ``src``: the canvases and the overflow word bit-equal.
+    Returns (max abs difference, the plain version's seconds, the
+    overflow word)."""
     from icer_compression_tpu_torch.ops import wavelet as WV
-    img, _ov = WV.forward_stages(torch.as_tensor(
-        image.astype(np.int32), device=dev), 1, filt, 15)
-    out = []
-    x = img.transpose(-1, -2)
-    for label in ("column", "row"):
-        n = x.shape[-1]
-        nl = n // 2 + n % 2
-        xi = x.to(torch.int32)
-        out.append((label, xi[..., nl:], WV._diffs(xi[..., :nl])))
-        x = WV.inverse_1d(x, filt, 15)[0].transpose(-1, -2)
-    return out
+    got, gov = WV.inverse_pass(src, low_h, low_w, axis, filt, mag_bits)
+    want = src.clone()
+    wov = torch.zeros(1, dtype=torch.int32, device=src.device)
+    _n, plain_s = sync_time(lambda: WV.inverse_pass_plain(
+        src, low_h, low_w, axis, filt, mag_bits, want, wov))
+    err = assert_equal(f"W1 {name}", got, want)
+    if int(gov) != int(wov):
+        raise AssertionError(f"W1 {name}: overflow word {int(gov)}, the "
+                             f"plain version's {int(wov)}")
+    return err, plain_s, int(gov)
+
+
+def stage1_passes(dev, image, filt, axes=(0, 1)):
+    """[(label, axis, canvases)] of the inverse DWT's last stage on
+    ``image`` transformed at one stage by ``filt`` (mag_bits 15): the
+    column pass reads the transformed canvas, the row pass that pass's
+    output, as ``inverse_stages`` runs them."""
+    from icer_compression_tpu_torch.ops import wavelet as WV
+    x, _ov = WV.forward_stages(torch.as_tensor(
+        image.astype(np.int32), device=dev)[None], 1, filt, 15)
+    x = x.contiguous()
+    cols, _ov = WV.inverse_pass(x, *x.shape[1:], 0, filt, 15,
+                                torch.empty_like(x))
+    return [(label, axis, src) for label, axis, src in
+            (("column", 0, x), ("row", 1, cols)) if axis in axes]
 
 
 def kernel_ms(fn, name: str, reps: int = 5) -> float:
     """Median device time in ms of the kernel ``name`` over ``reps`` calls
     of fn(), from the profiler's records of the card (the call's other
-    launches and its host time left out)."""
+    launches and its host time left out).  The profiler has been seen to
+    drop a record of a long launch: a window that does not hold ``reps``
+    records of ``name`` is profiled again, twice at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if name in e.name
-             and e.device_type == torch.autograd.DeviceType.CUDA]
-    if len(times) != reps:
-        raise AssertionError(f"the profiler saw {len(times)} launches of "
-                             f"{name}, not {reps}")
-    return statistics.median(times)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if name in e.name
+                 and e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(times) == reps:
+            return statistics.median(times)
+    raise AssertionError(f"the profiler saw {len(times)} launches of "
+                         f"{name}, not {reps}, in three windows")
 
 
 def count_launches(fn):
@@ -2423,13 +2457,27 @@ def count_launches(fn):
     return kern or None, Count.ops, out
 
 
+@contextlib.contextmanager
+def swapped(owner, name, value):
+    """``owner.name`` replaced by ``value`` inside the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
 def w1_phase(dev, card, boat):
     """Phase 26, first half: kernel W1 bit-equal to its plain version on
-    the card (every filter it serves, both sample widths, lines of 2-9
-    samples, boat 512's stage-1 column and row passes), the lifting path's
-    integer steps on the card against the host, and the inverse DWT's
-    launches and walls: filter A, filter B through W1 and filter B
-    through the plain loop (once, the figure before W1)."""
+    the card, overflow word included (every filter, both sample widths,
+    lines of 2-9 samples on both axes of stage blocks inside larger
+    canvases; boat 512's stage-1 passes at fA, fB and fC, 2048x2048's at
+    fF and a 5120x3840 stage-1 row pass at fB, each timed beside its
+    bound), the lifting path's integer steps on the card against the
+    host, and the inverse DWT's kernels, W1 launches and walls through W1
+    and through the plain chain, alone and inside boat's fA and fB
+    decodes."""
     from icer_compression_tpu_torch.models import grayscale as T
     from icer_compression_tpu_torch.ops import wavelet as WV
     res = {"err": 0}
@@ -2438,141 +2486,306 @@ def w1_phase(dev, card, boat):
         f"inverse_1d of every filter at mag_bits 7 and 15 equal the host's "
         f"({held} values)")
     rng = np.random.default_rng(2026)
-    cases = 0
-    for filt in range(1, 7):
+    cases = overflowed = 0
+    for filt in range(7):
         for mag_bits in (7, 15):
             for n in range(2, 10):
-                x = torch.from_numpy(rng.integers(
-                    -(1 << mag_bits), 1 << mag_bits, (64, n))
-                    .astype(np.int32)).to(dev)
-                nl = n // 2 + n % 2
-                hi, r = x[:, nl:], WV._diffs(x[:, :nl])
-                got = WV.inverse_recurrence(hi, r, filt, mag_bits)
-                want = WV.inverse_recurrence_plain(hi, r, filt, mag_bits)
-                res["err"] = max(res["err"], assert_equal(
-                    f"W1 f{FILTERS[filt]} mag_bits {mag_bits} N {n} d",
-                    got[0], want[0]))
-                if bool(got[1]) != bool(want[1]):
-                    raise AssertionError(f"W1 f{FILTERS[filt]} N {n}: "
-                                         "overflow flag differs")
-                cases += 1
-    log(f"W1 bit-equal to its plain version on the card (tolerance 0): "
-        f"{cases} blocks of 64 lines, filters B-F and Q, mag_bits 7 and "
-        f"15, lengths 2-9")
+                for axis, lh, lw in ((0, n, 64), (1, 64, n)):
+                    amp = 1 << (mag_bits - 3 * ((n + axis + filt) & 1))
+                    x = torch.from_numpy(rng.integers(
+                        -amp, amp, (2, 70, 72)).astype(np.int32)).to(dev)
+                    err, _s, ov = w1_against_plain(
+                        f"f{FILTERS[filt]} mag_bits {mag_bits} N {n} axis "
+                        f"{axis}", x, lh, lw, axis, filt, mag_bits)
+                    res["err"] = max(res["err"], err)
+                    overflowed += ov
+                    cases += 1
+    if not 0 < overflowed < cases:
+        raise AssertionError(f"W1's short lines: {overflowed} of {cases} "
+                             "passes overflow (some must, some not)")
+    log(f"W1 bit-equal to its plain version on the card, overflow word "
+        f"included (tolerance 0): {cases} passes over 2 canvases of 70x72, "
+        f"64 lines of 2-9 samples on each axis, filters A-F and Q, "
+        f"mag_bits 7 and 15 ({overflowed} overflow)")
     res["passes"] = {}
     big = _tiled(boat, 2048, 2048)[0]
-    for name, img, filt in (("boat 512", boat, 1), ("boat 512", boat, 2),
-                            ("2048x2048", big, 5)):
-        for label, hi, r in stage1_passes(dev, img, filt):
+    huge = _tiled(boat, 3840, 5120)[0]
+    for name, img, filt, axes in (
+            ("boat 512", boat, 0, (0, 1)), ("boat 512", boat, 1, (0, 1)),
+            ("boat 512", boat, 2, (0, 1)), ("2048x2048", big, 5, (0, 1)),
+            ("5120x3840", huge, 1, (1,))):
+        for label, axis, src in stage1_passes(dev, img, filt, axes):
             tag = f"{name} f{FILTERS[filt]} stage-1 {label} pass"
-            got = WV.inverse_recurrence(hi, r, filt, 15)
-            want, plain_s = sync_time(lambda: WV.inverse_recurrence_plain(
-                hi, r, filt, 15))
-            res["err"] = max(res["err"], assert_equal(f"W1 {tag}", got[0],
-                                                      want[0]))
-            if bool(got[1]) != bool(want[1]):
-                raise AssertionError(f"W1 {tag}: overflow flag differs")
-            ms = kernel_ms(lambda: WV.inverse_recurrence(hi, r, filt, 15),
-                           "inverse_recurrence_kernel")
-            call_ms = event_ms(lambda: WV.inverse_recurrence(hi, r, filt, 15))
-            lines, half = hi.numel() // hi.shape[-1], hi.shape[-1]
-            bd = w1_bound(lines, half, r.shape[-1])
-            res["passes"][tag] = {
-                "lines": lines, "half": half, "ms": ms, "call_ms": call_ms,
-                "plain_ms": 1e3 * plain_s, "bound": bd}
-            log(f"W1 {tag} ({lines} lines of {half} steps): bit-equal to "
-                f"plain; kernel {ms:.4f} ms on the card (profiler, median of "
-                f"5; bound {bd[0]:.5f} ms, {bd[1]}; {1e6 * ms / half:.1f} ns "
-                f"per step), the wrapper's call with its n-major copies "
-                f"{call_ms:.4f} ms (CUDA events), plain on the card "
-                f"{1e3 * plain_s:.1f} ms | {card}")
+            nc, H, W = src.shape
+            err, plain_s, _ov = w1_against_plain(tag, src, H, W, axis,
+                                                 filt, 15)
+            res["err"] = max(res["err"], err)
+            out = torch.empty_like(src)
+            ov = torch.zeros(1, dtype=torch.int32, device=dev)
 
-    # the inverse DWT's launches and walls: filter A, filter B through W1
-    # and through the plain loop (swapped in for the wrapper)
+            def call():
+                return WV.inverse_pass(src, H, W, axis, filt, 15, out, ov)
+            ms = kernel_ms(call, f"inverse_{label}_pass")
+            call_ms = event_ms(call)
+            lines, n = (W, H) if axis == 0 else (H, W)
+            bd = w1_bound(nc, lines, n)
+            res["passes"][tag] = {
+                "lines": lines, "n": n, "ms": ms, "call_ms": call_ms,
+                "plain_ms": 1e3 * plain_s, "bound": bd}
+            log(f"W1 {tag} ({lines} lines of {n} samples): bit-equal to "
+                f"plain; kernel {ms:.4f} ms on the card (profiler, median of "
+                f"5; bound {bd[0]:.5f} ms, {bd[1]}; "
+                f"{1e6 * ms / (n // 2):.1f} ns per restored pair of a line), "
+                f"the wrapper's call {call_ms:.4f} ms (CUDA events), plain "
+                f"on the card {1e3 * plain_s:.1f} ms | {card}")
+
+    # the inverse DWT alone: kernels, dispatched ops, W1 launches and
+    # walls through W1 and through the plain chain (at fA the path before
+    # this W1)
     x = torch.as_tensor(boat.astype(np.int32), device=dev)[None]
-    w1 = WV.inverse_recurrence
     inv = {}
-    for label, filt, plain in (("fA", 0, False), ("fB", 1, False),
-                               ("fB plain loop", 1, True)):
+    for filt in (0, 1):
         img, _ov = WV.forward_stages(x, 4, filt, 15)
-        WV.inverse_recurrence = WV.inverse_recurrence_plain if plain else w1
-        w1.launches = 0
-        try:
+        for way, fn in (("W1", WV.inverse_stages),
+                        ("plain chain", WV.inverse_stages_plain)):
+            WV.inverse_pass.launches = 0
             kern, ops, (out, _ov) = count_launches(
-                lambda: WV.inverse_stages(img, 4, filt, 15))
-            n_w1 = w1.launches
-            _o, secs = sync_time(lambda: WV.inverse_stages(img, 4, filt, 15))
-        finally:
-            WV.inverse_recurrence = w1
-        if not torch.equal(out, x):
-            raise AssertionError(f"inverse DWT {label} of boat's forward "
-                                 "transform differs from boat")
-        # W1 is no aten op: its launches join the dispatched ops
-        inv[label] = {"kernels": kern, "ops": ops + n_w1, "w1": n_w1,
-                      "ms": 1e3 * secs}
+                lambda: fn(img, 4, filt, 15))
+            n_w1 = WV.inverse_pass.launches
+            secs = [sync_time(lambda: fn(img, 4, filt, 15))[1]
+                    for _ in range(3)]
+            if not torch.equal(out, x):
+                raise AssertionError(f"inverse DWT f{FILTERS[filt]} ({way}) "
+                                     "of boat's forward transform differs "
+                                     "from boat")
+            # W1 is no aten op: its launches join the dispatched ops
+            inv[f"f{FILTERS[filt]} {way}"] = {
+                "kernels": kern, "ops": ops + n_w1, "w1": n_w1,
+                "ms": 1e3 * statistics.median(secs)}
     res["inverse"] = inv
-    a, b = inv["fA"], inv["fB"]
-    use = "kernels" if a["kernels"] and b["kernels"] else "ops"
-    if not b["w1"] or b[use] > 2 * a[use]:
-        raise AssertionError(f"filter B's inverse DWT: {b} against filter "
-                             f"A's {a} (at most twice, W1 launched)")
     for label, r in inv.items():
         log(f"inverse DWT boat 512 s4 {label}: {r['kernels']} kernels on "
             f"the card (profiler), {r['ops']} launches counted by dispatch, "
-            f"W1 {r['w1']}; {r['ms']:.2f} ms | {card}")
-    # the filter-B decode through W1, once through the plain loop, and
-    # through W1 again
-    cfg = T.CodecConfig(4, 1, 6, None)
-    s = T.compress(boat, cfg, device=dev)
-    walls = {"W1": [], "plain loop": []}
-    for label in ("W1", "plain loop", "W1"):
-        if label != "W1":
-            WV.inverse_recurrence = WV.inverse_recurrence_plain
-        try:
-            px, secs = sync_time(lambda: T.decompress(s, cfg, np.uint16,
-                                                      device=dev))
-        finally:
-            WV.inverse_recurrence = w1
-        if not np.array_equal(px, boat):
-            raise AssertionError(f"filter-B decode ({label}) differs")
-        walls[label].append(secs)
-    res["decode_fb"] = {k: min(v) for k, v in walls.items()}
-    log(f"boat 512 s4 fB g6 lossless decode wall: through W1 "
-        f"{1e3 * res['decode_fb']['W1']:.1f} ms (best of 2), through the "
-        f"plain loop {1e3 * res['decode_fb']['plain loop']:.1f} ms (once) | "
-        f"{card}")
+            f"W1 {r['w1']}; {r['ms']:.3f} ms (median of 3) | {card}")
+    for f in "AB":
+        r, p = inv[f"f{f} W1"], inv[f"f{f} plain chain"]
+        seen = r["kernels"] if r["kernels"] else r["ops"]
+        if r["w1"] != 2 * 4 or p["w1"] or seen > W1_INVERSE_KERNELS:
+            raise AssertionError(
+                f"f{f}'s s4 inverse DWT: {r} through W1 (8 W1 launches and "
+                f"at most {W1_INVERSE_KERNELS} kernels), {p} through the "
+                "plain chain (no W1)")
+
+    # boat's fA (the main path) and fB decodes through W1 and through the
+    # plain chain, in turns
+    res["decode"] = {}
+    for filt in (0, 1):
+        cfg = T.CodecConfig(4, filt, 6, None)
+        s = T.compress(boat, cfg, device=dev)
+        walls = {"W1": [], "plain chain": []}
+        for way in ("W1", "plain chain", "plain chain", "W1", "W1",
+                    "plain chain"):
+            fn = WV.inverse_stages if way == "W1" \
+                else WV.inverse_stages_plain
+            with swapped(WV, "inverse_stages", fn):
+                px, secs = sync_time(lambda: T.decompress(
+                    s, cfg, np.uint16, device=dev))
+            if not np.array_equal(px, boat):
+                raise AssertionError(f"f{FILTERS[filt]} decode ({way}) "
+                                     "differs from boat")
+            walls[way].append(secs)
+        res["decode"][f"f{FILTERS[filt]}"] = {
+            k: 1e3 * statistics.median(v) for k, v in walls.items()}
+        log(f"boat 512 s4 f{FILTERS[filt]} g6 lossless decode wall (median "
+            f"of 3, in turns): through W1 "
+            f"{res['decode'][f'f{FILTERS[filt]}']['W1']:.2f} ms, through "
+            f"the plain chain "
+            f"{res['decode'][f'f{FILTERS[filt]}']['plain chain']:.2f} ms | "
+            f"{card}")
     return res
 
 
-def w1_entry(w1r, cfr) -> dict:
-    """Kernel W1's entry of the kernels line: its launches on the
-    filter-B 512x512 decode of the configuration sweep, its time on boat's
-    stage-1 column pass beside its bound and its plain version's."""
-    col = w1r["passes"]["boat 512 fB stage-1 column pass"]
+def w1_entry(w1r, cfr, main_launches) -> dict:
+    """Kernel W1's entry of the kernels line: its launches on the main
+    path's fA decode (phase 3) and on the filter-B 512x512 decode of the
+    configuration sweep, its time on boat's fA stage-1 column pass beside
+    its bound and its plain version's, and every stage-1 pass."""
+    col = w1r["passes"]["boat 512 fA stage-1 column pass"]
     return {
         "name": "wavelet_inverse", "route": "cuda",
         "source": "icer_compression_tpu_torch/csrc/wavelet.cu",
-        "replaces": "icer_compression_tpu/ops/wavelet.py:282",
-        "replaces_kind": "an XLA lax.scan (_inverse_recurrence_jax, called "
-                         "at :227), no pl.pallas_call",
-        "launches": cfr["launches"]["boat512 u16 fB s4 g6 lossless"]["W1"],
+        "replaces": "icer_compression_tpu/ops/wavelet.py:383",
+        "replaces_kind": "XLA: inverse_stages (inverse_1d per axis, the "
+                         "recurrence's lax.scan at :282), no "
+                         "pl.pallas_call",
+        "launches": main_launches,
+        "launches_fb_decode":
+            cfr["launches"]["boat512 u16 fB s4 g6 lossless"]["W1"],
         "max_abs_err": w1r["err"], "equal_to_plain": True,
-        "shape": f"lines={col['lines']} half={col['half']} (boat 512 fB "
-                 "stage-1 column pass)",
+        "shape": f"lines={col['lines']} n={col['n']} (boat 512 fA stage-1 "
+                 "column pass)",
         "ms": col["ms"], "plain_ms": col["plain_ms"],
         "bound_ms": col["bound"][0], "bound_by": col["bound"][1],
         "library_ms": None,
-        "ns_per_step": 1e6 * col["ms"] / col["half"],
-        "step": "one high-pass index of a line",
+        "ns_per_step": 1e6 * col["ms"] / (col["n"] // 2),
+        "step": "one restored pair of a line",
         "call_ms": col["call_ms"],
-        "passes": {k: {"lines": v["lines"], "half": v["half"], "ms": v["ms"],
+        "passes": {k: {"lines": v["lines"], "n": v["n"], "ms": v["ms"],
                        "call_ms": v["call_ms"], "plain_ms": v["plain_ms"],
-                       "bound_ms": v["bound"][0]}
+                       "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
                    for k, v in w1r["passes"].items()},
         "inverse_dwt_boat_s4": w1r["inverse"],
-        "decode_fb_ms": {k: 1e3 * v for k, v in w1r["decode_fb"].items()},
+        "decode_ms": w1r["decode"],
         "launches_by_path": {k: n["W1"] for k, n in cfr["launches"].items()},
-        "path": "decompress of boat 512 at s4 fB g6, lossless"}
+        "path": "decompress of boat 512 at s4 fA g6, lossless (the main "
+                "path)"}
+
+
+# the layers of the main path's trace: (module or class, attribute, layer)
+# for each function whose launches a layer owns; a launch belongs to the
+# innermost layer around it
+def trace_layers():
+    from icer_compression_tpu_torch.models import decode as D
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    from icer_compression_tpu_torch.ops import wavelet as WV
+    enc = E.TorchGrayscaleEncoder
+    return [(enc, "_upload", "upload"),
+            (enc, "transform", "LL mean and sign-magnitude"),
+            (WV, "forward_stages", "forward DWT"),
+            (enc, "emit", "context model"),
+            (enc, "bucket_words", "coder input"),
+            (ES, "code_lanes_slim", "slim tail"),
+            (ES, "encode_lanes_slim", "K1"),
+            (ES, "encode_lanes_slim_two_word", "K1"),
+            (ES, "order_and_pack_lanes", "sort and pack"),
+            (ES, "order_and_pack_lanes_two_word", "sort and pack"),
+            (enc, "_collect", "host collect"),
+            (T, "allocate_streams", "host allocation"),
+            (D, "plan_batch", "host plan"),
+            (D, "unit_inputs", "upload"),
+            (D, "decode_units", "K2"),
+            (D, "finalize", "gather and finalize"),
+            (WV, "inverse_stages", "inverse DWT")]
+
+
+@contextlib.contextmanager
+def annotated(layers):
+    """Each function of ``layers`` wrapped in a profiler range named
+    ``layer:<layer>`` inside the block."""
+    from torch.profiler import record_function
+    with contextlib.ExitStack() as stack:
+        for owner, name, layer in layers:
+            fn = getattr(owner, name)
+
+            # a counted kernel wrapper adds to its own name's ``launches``,
+            # which ``functools.wraps`` copies
+            @functools.wraps(fn)
+            def wrapped(*a, _fn=fn, _label=f"layer:{layer}", **k):
+                with record_function(_label):
+                    return _fn(*a, **k)
+            stack.enter_context(swapped(owner, name, wrapped))
+        yield
+
+
+def layer_breakdown(events, window: str) -> dict:
+    """The device work launched inside the host range ``window`` of a
+    chrome trace's events (one host thread), grouped by the innermost
+    ``layer:`` range around each launch: per layer the device ms, the
+    launches and the host ms outside nested layers; the window's wall,
+    the device's busy ms (the union of its intervals) and idle share,
+    and the mean host time between launches."""
+    (win,) = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == window]
+    t0, t1 = win["ts"], win["ts"] + win["dur"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("layer:")
+                    and t0 <= e["ts"] <= t1), key=lambda e: e["ts"])
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and t0 <= e["ts"] <= t1
+                and "correlation" in e.get("args", {})}
+    work = [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("args", {}).get("correlation") in launches]
+    if not work:
+        raise AssertionError(f"the trace of {window} holds no device work")
+
+    def layer_of(ts):
+        inner = [s for s in spans if s["ts"] <= ts <= s["ts"] + s["dur"]]
+        return min(inner, key=lambda s: s["dur"])["name"][6:] \
+            if inner else "other"
+
+    groups: dict = {}
+    for e in work:
+        run = launches[e["args"]["correlation"]]
+        g = groups.setdefault(layer_of(run["ts"]),
+                              {"device_ms": 0.0, "launches": 0,
+                               "host_ms": 0.0})
+        g["device_ms"] += e["dur"] / 1e3
+        g["launches"] += 1
+    # each range's host time outside the layers nested in it
+    stack: list = []
+    for s in sorted(spans, key=lambda s: (s["ts"], -s["dur"])):
+        while stack and s["ts"] > stack[-1]["ts"] + stack[-1]["dur"]:
+            stack.pop()
+        if stack:
+            stack[-1]["nested"] = stack[-1].get("nested", 0) + s["dur"]
+        stack.append(s)
+    for s in spans:
+        g = groups.setdefault(s["name"][6:], {"device_ms": 0.0,
+                                              "launches": 0, "host_ms": 0.0})
+        g["host_ms"] += (s["dur"] - s.get("nested", 0)) / 1e3
+    busy, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in work):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = max(t1, end) - t0
+    ts = sorted(launches[e["args"]["correlation"]]["ts"] for e in work)
+    return {"wall_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / span, "launches": len(work),
+            "host_gap_us": (ts[-1] - ts[0]) / max(1, len(ts) - 1),
+            "layers": groups}
+
+
+def trace_phase(dev, card, boat):
+    """Phase 26's trace: one boat 512 main-path encode and decode (s4 fA
+    g6, lossless; warm) under ``torch.profiler`` with the CPU and the
+    card traced, each device launch put in its layer (``trace_layers``);
+    logs each layer's device ms, launches and host ms, and each half's
+    wall, busy time, idle share and host time between launches."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from icer_compression_tpu_torch.models import grayscale as T
+    cfg = T.CodecConfig(4, 0, 6, None)
+    s = T.compress(boat, cfg, device=dev)
+    T.decompress(s, cfg, np.uint16, device=dev)
+    torch.cuda.synchronize()
+    with annotated(trace_layers()), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("encode"):
+            s2 = T.compress(boat, cfg, device=dev)
+        with record_function("decode"):
+            px = T.decompress(s, cfg, np.uint16, device=dev)
+        torch.cuda.synchronize()
+    if s2 != s or not np.array_equal(px, boat):
+        raise AssertionError("the traced main path differs")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    res = {}
+    for half in ("encode", "decode"):
+        r = res[half] = layer_breakdown(events, half)
+        log(f"trace, boat 512 main-path {half} (profiled): wall "
+            f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms, "
+            f"idle share {r['idle_share']:.4f}, {r['launches']} launches, "
+            f"{r['host_gap_us']:.1f} us of host between launches | {card}")
+        for layer, g in sorted(r["layers"].items(),
+                               key=lambda kv: -kv[1]["device_ms"]):
+            log(f"  {half} layer {layer}: device {g['device_ms']:.3f} ms in "
+                f"{g['launches']} launches, host {g['host_ms']:.2f} ms")
+    return res
 
 
 def config_phase(dev, card, boat, pins, errors):
@@ -2601,7 +2814,7 @@ def config_phase(dev, card, boat, pins, errors):
 
     counted = {"K1": (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word),
                "K4": (EF.encode_lanes_full,), "K2": (PDc.decode_planes,),
-               "W1": (WV.inverse_recurrence,)}
+               "W1": (WV.inverse_pass,)}
 
     def reset():
         for fns in counted.values():
@@ -2639,8 +2852,7 @@ def config_phase(dev, card, boat, pins, errors):
             raise AssertionError(f"{label}: lossless decode differs from "
                                  "the input")
         n = counts()
-        if not n["K2"] or (cfg.filt != 0 and not n["W1"]) \
-                or not (n["K1"] or n["K4"]):
+        if not n["K2"] or not n["W1"] or not (n["K1"] or n["K4"]):
             raise AssertionError(f"{label}: a kernel of its path did not "
                                  f"launch: {n}")
         coders = T.make_encoder(w, h, cfg, dtype, dev).bucket_coders
@@ -3119,6 +3331,7 @@ def smoke(host) -> int:
     from icer_compression_tpu_torch.ops import entropy_full as EF
     from icer_compression_tpu_torch.ops import entropy_slim as ES
     from icer_compression_tpu_torch.ops import plane_decode as PDc
+    from icer_compression_tpu_torch.ops import wavelet as WV
     from icer_compression_tpu_torch.utils.image_io import read_png
 
     t_start = time.perf_counter()
@@ -3315,11 +3528,13 @@ def smoke(host) -> int:
     ES.encode_lanes_slim.launches = 0
     PDc.decode_planes.launches = 0
     EF.encode_lanes_full.launches = 0
+    WV.inverse_pass.launches = 0
     menc = T.make_encoder(w, h, cfg, np.uint16, dev)
     stream = T.compress_batch(boat[None], cfg, encoder=menc)[0]
     out = T.decompress(stream, cfg, dtype=np.uint16, device=dev)
     launches = {"slim_encode": ES.encode_lanes_slim.launches,
-                "plane_decode": PDc.decode_planes.launches}
+                "plane_decode": PDc.decode_planes.launches,
+                "wavelet_inverse": WV.inverse_pass.launches}
     if set(menc.bucket_coders) != {"slim"} or EF.encode_lanes_full.launches:
         raise AssertionError(f"boat's buckets left kernel 1: "
                              f"{menc.bucket_coders}")
@@ -3462,6 +3677,7 @@ def smoke(host) -> int:
         host, big_k1, big_k4)
     del big_k1, big_k4
     w1r = w1_phase(dev, card, boat)
+    trc = trace_phase(dev, card, boat)
     cfr = config_phase(dev, card, boat,
                        *read_config_pins(data / "golden_configs.sha256"))
     # phase 1's long blocks against their plain versions (host CPU)
@@ -3477,7 +3693,7 @@ def smoke(host) -> int:
     k1w_plain_s = late_s["K1 two-word long"]
     k1w_huge_plain_s = late_s["K1 two-word past 2^17"]
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
-             "plane_decode": {}, "full_encode": {}}
+             "plane_decode": {}, "full_encode": {}, "wavelet_inverse": {}}
     for path, counts in (
             [("grayscale", launches), ("color", col["launches"]),
              ("color_batch", col["batch_launches"]),
@@ -3618,7 +3834,7 @@ def smoke(host) -> int:
              for label, r in large["images"].items() if r.get("k1")},
          "path": "compress of a 1024x1024 image at the CLI's defaults: the "
                  "stage-1 bucket"},
-        w1_entry(w1r, cfr),
+        w1_entry(w1r, cfr, launches["wavelet_inverse"]),
     ] + new
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
         f"decode_ms {1e3 * dec_med:.2f}; color_encode_ms "
@@ -3654,6 +3870,15 @@ def smoke(host) -> int:
         + "; config sweep (encode ms, decode ms) " + "; ".join(
             f"{k} {1e3 * e:.1f}, {1e3 * d:.1f}"
             for k, (e, d) in cfr["walls"].items())
+        + "; inverse DWT boat s4 ms (W1, plain chain) " + ", ".join(
+            f"f{f} {w1r['inverse'][f'f{f} W1']['ms']:.3f}, "
+            f"{w1r['inverse'][f'f{f} plain chain']['ms']:.3f}" for f in "AB")
+        + "; decode ms (W1, plain chain) " + ", ".join(
+            f"{k} {v['W1']:.2f}, {v['plain chain']:.2f}"
+            for k, v in w1r["decode"].items())
+        + "; main-path trace (wall ms, idle share) " + ", ".join(
+            f"{k} {v['wall_ms']:.2f}, {v['idle_share']:.4f}"
+            for k, v in trc.items())
         + f"; fuzz {cfr['fuzz']['trials']} trials, "
         f"{cfr['fuzz']['seconds']:.1f} s, 0 mismatches; phases 1-26 "
         f"{time.perf_counter() - t_start:.1f} s")

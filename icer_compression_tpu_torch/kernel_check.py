@@ -13,9 +13,10 @@ the check costs seconds, mostly the plain versions on the host.  Kernel
 allocation ordinals pass 2**17 and whose evictions pass 32 rows, with the
 side buffer the encoder sizes; its plain version takes a minute there, so
 its outputs are held to pinned digests of the plain version's
-(``WIDE_DIGESTS``, which the CPU tests recompute).  Kernel W1 (the inverse
-DWT's recurrence) runs on seeded lines of every filter it serves, at both
-sample widths and at odd and even lengths.
+(``WIDE_DIGESTS``, which the CPU tests recompute).  Kernel W1 (one pass of
+the inverse DWT) runs on seeded pairs of canvases, on both axes of stage
+blocks smaller than the canvas, at every filter, both sample widths and
+lines of 2-9 samples.
 
 This module imports the kernel wrappers, which import ``kernels``; it is
 imported lazily by ``kernels.build_all`` for that reason.
@@ -41,9 +42,9 @@ L, LANES = 256, 8                 # coder check blocks
 WIDE_L = 133120                   # the two-word block past 2**17 ordinals
 UNIT_H, UNIT_W = 32, 22           # one stage: four 16x11 subbands
 UNIT_QUOTA = 1600                 # cuts the stream inside its last plane
-W1_LINES = 8                      # lines per W1 case
-W1_LENGTHS = (5, 6, 7, 8, 9, 16, 17, 64)
-W1_FILTERS = (1, 2, 3, 4, 5, 6)   # B-F, Q: the filters W1 serves
+W1_CANVAS = (2, 11, 12)           # two canvases larger than every block
+W1_LENGTHS = range(2, 10)
+W1_FILTERS = range(7)             # A-F, Q
 
 
 class KernelMismatch(RuntimeError):
@@ -171,33 +172,31 @@ def _k3(dev):
 
 
 @functools.lru_cache(maxsize=None)
-def recurrence_lines():
-    """[(filt, mag_bits, highs, r)]: W1_LINES seeded lines of each
-    length of W1_LENGTHS for each filter and sample width, high-pass
-    values and low-pass samples across the whole signed range at every
-    other length (most of those lines overflow) and across an eighth of
-    it at the others."""
+def w1_cases():
+    """[(filt, mag_bits, axis, low_h, low_w, canvases)]: for every filter
+    and sample width, a column pass on lines of each length of W1_LENGTHS
+    and a row pass on lines of each, over a stage block inside seeded
+    W1_CANVAS canvases; values across the whole signed range in half the
+    cases (most of those lines overflow) and across an eighth of it in
+    the others."""
     rng = np.random.default_rng(SEED)
     cases = []
     for filt in W1_FILTERS:
         for mag_bits in (7, 15):
-            for i, n in enumerate(W1_LENGTHS):
-                half, is_odd = n // 2, bool(n & 1)
-                amp = 1 << (mag_bits - 3 * (i & 1))
-                x = rng.integers(-amp, amp, (W1_LINES, n)).astype(np.int32)
-                lows = torch.from_numpy(x[:, :half + is_odd])
-                r = torch.cat([torch.ones((W1_LINES, 1), dtype=torch.int32),
-                               lows[:, :-1] - lows[:, 1:]], dim=1)
-                cases.append((filt, mag_bits,
-                              torch.from_numpy(x[:, half + is_odd:]), r))
+            for n in W1_LENGTHS:
+                for axis, lh, lw in ((0, n, 10 - n % 3), (1, 9 - n % 2, n)):
+                    amp = 1 << (mag_bits - 3 * ((n + axis + filt) & 1))
+                    x = rng.integers(-amp, amp, W1_CANVAS).astype(np.int32)
+                    cases.append((filt, mag_bits, axis, lh, lw,
+                                  torch.from_numpy(x)))
     return cases
 
 
 def _w1(dev):
-    outs = [WV.inverse_recurrence(h.to(dev), r.to(dev), filt, mag_bits)
-            for filt, mag_bits, h, r in recurrence_lines()]
-    return (torch.cat([d.reshape(-1) for d, _ov in outs]),
-            torch.stack([ov for _d, ov in outs]).to(torch.int32))
+    outs = [WV.inverse_pass(x.to(dev), lh, lw, axis, filt, mag_bits)
+            for filt, mag_bits, axis, lh, lw, x in w1_cases()]
+    return (torch.stack([out for out, _ov in outs]),
+            torch.cat([ov for _out, ov in outs]))
 
 
 _SLIM = ("rec", "fstate", "misc", "ev")
@@ -229,14 +228,15 @@ CHECKS = {
         Instance("K5", "full_encode_tiled_launch", _FULL,
                  lambda dev: EF.encode_lanes_full_tiled(*_split(dev)))),
     "wavelet": (
-        Instance("W1", "wavelet_inverse_launch", ("d", "overflow"), _w1),),
+        Instance("W1", "wavelet_inverse_pass_launch",
+                 ("canvas", "overflow"), _w1),),
 }
 
 # the wrappers' launch counts, which the check leaves as it found them
 _COUNTED = (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word,
             EF.encode_lanes_full, EF.encode_lanes_full_tiled,
             PD.decode_planes, PD.decode_plane_seeded,
-            WV.inverse_recurrence)
+            WV.inverse_pass)
 
 
 def first_difference(label: str, name: str, got: torch.Tensor,

@@ -4,16 +4,19 @@ Counterpart: ``icer_compression_tpu/ops/wavelet.py`` (``forward_stages``,
 ``inverse_stages``, ``to_sign_magnitude``, ``from_sign_magnitude``,
 ``_wrap``, ``_interleave_perm``).  Every row (then every column) of a stage
 transforms as one batched tensor op along the last axis; leading axes are
-batch axes.  The inverse of the filters with a non-zero beta (or filter C's
-self-referential term) is a backward recurrence over the high-pass index:
-kernel W1 (``inverse_recurrence``, ``csrc/wavelet.cu``) on the card, one
-thread per line, and its plain version, a Python loop over that index
-vectorised over the lines, on CPU tensors.
+batch axes.  On the card the inverse DWT is kernel W1 (``inverse_pass``,
+``csrc/wavelet.cu``): one launch restores one axis of one stage's block
+for every canvas of a batch, at every filter, so a stage takes two
+launches.  Its plain version is the chain ``inverse_2d`` -> ``inverse_1d``
+-> ``inverse_recurrence_plain``, which CPU tensors run (the backward
+recurrence of the filters with a non-zero beta, or filter C's
+self-referential term, is a Python loop over the high-pass index there,
+vectorised over the lines).
 
-The overflow flag stays a 0-d bool tensor on the input's device, so a
-caller can test it once per image instead of syncing per stage.  The
-reference quirks are kept bit for bit: filter C's prediction of high[1]
-from the stored high[1], and the skewed uint8 odd-length interleave.
+The overflow flag stays on the input's device, so a caller can test it
+once per image instead of syncing per stage.  The reference quirks are
+kept bit for bit: filter C's prediction of high[1] from the stored
+high[1], and the skewed uint8 odd-length interleave.
 """
 
 from __future__ import annotations
@@ -130,14 +133,16 @@ def inverse_1d(x: torch.Tensor, filt: int, mag_bits: int):
         r_m1, r_0, r_p1 = _r_shifts(r, half)
         add = floor_div(a_n1 * r_m1 + a_0 * r_0 + a_1 * r_p1 + 8,
                         C.FILTER_DENOMINATOR).clone()
-        add[..., 0:1] = floor_div(_col(r, 1), 4)
+        # r reads as 0 past its end (a line of 2 samples has no r[1])
+        add[..., 0:1] = floor_div(_col(r, 1) if nL > 1 else _zeros1(r), 4)
         if not is_odd:
             add[..., half - 1:half] = floor_div(_col(r, half - 1), 4)
         d_rec = highs + add
         overflow = _out_of_range(d_rec, mag_bits)
         d_rec = _wrap(d_rec, mag_bits)
     else:
-        d_rec, overflow = inverse_recurrence(highs, r, filt, mag_bits)
+        d_rec, overflow = inverse_recurrence_plain(highs, r, filt,
+                                                   mag_bits)
 
     tmp = lows[..., :half] + floor_div(d_rec + 1, 2)
     even = tmp
@@ -156,8 +161,8 @@ def inverse_1d(x: torch.Tensor, filt: int, mag_bits: int):
 
 def inverse_recurrence_plain(highs: torch.Tensor, r: torch.Tensor,
                              filt: int, mag_bits: int):
-    """W1's plain version: the backward prediction recurrence of
-    ``inverse_1d`` for the filters whose prediction reads the restored
+    """The backward prediction recurrence of ``inverse_1d`` (part of W1's
+    plain version) for the filters whose prediction reads the restored
     d[n+1] (beta != 0) or, filter C, the stored high[1].
 
     ``highs`` (..., half) and ``r`` (..., nL) int32, nL = half + 1 for a
@@ -199,56 +204,6 @@ def inverse_recurrence_plain(highs: torch.Tensor, r: torch.Tensor,
         dn1 = _wrap(v, mag_bits)
         cols[n] = dn1
     return torch.cat(cols, dim=-1), overflow
-
-
-def _check_recurrence(highs, r):
-    if highs.dtype != torch.int32 or r.dtype != torch.int32:
-        raise ValueError(f"W1 takes int32, not {highs.dtype} / {r.dtype}")
-    half = highs.shape[-1]
-    if half < 1 or r.shape[:-1] != highs.shape[:-1] \
-            or r.shape[-1] not in (half, half + 1):
-        raise ValueError(f"W1: highs {tuple(highs.shape)} and r "
-                         f"{tuple(r.shape)} do not form lines")
-    if r.device != highs.device:
-        raise ValueError(f"W1: highs on {highs.device}, r on {r.device}")
-
-
-def inverse_recurrence(highs: torch.Tensor, r: torch.Tensor, filt: int,
-                       mag_bits: int):
-    """Kernel W1: the backward recurrence of ``inverse_recurrence_plain``
-    (contract there), every leading index of ``highs`` one line.
-
-    CUDA tensors launch ``csrc/wavelet.cu``, one thread per line, on
-    n-major copies of the inputs (a warp's lines side by side at each
-    step); CPU tensors run the plain version.  The overflow flag stays on
-    the device (no host sync)."""
-    if highs.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {highs.device}")
-    _check_recurrence(highs, r)
-    if highs.device.type == "cpu":
-        return inverse_recurrence_plain(highs, r, filt, mag_bits)
-    fn = kernels.load("wavelet").wavelet_inverse_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    half = highs.shape[-1]
-    h_t = highs.movedim(-1, 0).contiguous()
-    r_t = r.movedim(-1, 0).contiguous()
-    lines = h_t.numel() // half
-    d_t = torch.empty_like(h_t)
-    ov = torch.zeros(1, dtype=torch.int32, device=highs.device)
-    a_n1, a_0, a_1, beta = (int(v) for v in C.WAVELET_FILTER_PARAMETERS[filt])
-    with torch.cuda.device(highs.device):
-        cs = torch.cuda.current_stream(highs.device).cuda_stream
-        status = fn(h_t.data_ptr(), r_t.data_ptr(), d_t.data_ptr(),
-                    ov.data_ptr(), lines, half, r.shape[-1], a_n1, a_0, a_1,
-                    beta, mag_bits, cs)
-    kernels.check(status, "wavelet_inverse")
-    inverse_recurrence.launches += 1
-    return d_t.movedim(0, -1), ov[0] != 0
-
-
-inverse_recurrence.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -293,6 +248,90 @@ def inverse_2d(img: torch.Tensor, filt: int, mag_bits: int):
     return out, ov1 | ov2
 
 
+def inverse_pass_plain(src: torch.Tensor, low_h: int, low_w: int,
+                       axis: int, filt: int, mag_bits: int,
+                       out: torch.Tensor, overflow: torch.Tensor) -> None:
+    """W1's plain version: ``inverse_1d`` over the lines of block
+    [:low_h, :low_w] of every canvas of ``src`` along ``axis`` (0: the
+    block's columns, 1: its rows), written into the same block of ``out``;
+    the pass's overflow ORed into ``overflow`` (one int32)."""
+    block = src[:, :low_h, :low_w]
+    if axis == 0:
+        y, ov = inverse_1d(block.transpose(-1, -2), filt, mag_bits)
+        y = y.transpose(-1, -2)
+    else:
+        y, ov = inverse_1d(block, filt, mag_bits)
+    out[:, :low_h, :low_w] = y
+    overflow |= ov.to(torch.int32)
+
+
+def _check_pass(src, low_h, low_w, axis, out, overflow):
+    if src.dtype != torch.int32 or out.dtype != torch.int32 \
+            or overflow.dtype != torch.int32:
+        raise ValueError(f"W1 takes int32, not {src.dtype} / {out.dtype} / "
+                         f"{overflow.dtype}")
+    if src.dim() != 3 or out.shape != src.shape \
+            or tuple(overflow.shape) != (1,):
+        raise ValueError(f"W1: canvases {tuple(src.shape)} -> "
+                         f"{tuple(out.shape)} and overflow "
+                         f"{tuple(overflow.shape)}; expected (NC, H, W) "
+                         "twice and (1,)")
+    _nc, H, W = src.shape
+    if not (2 <= low_h <= H and 2 <= low_w <= W) or axis not in (0, 1):
+        raise ValueError(f"W1: block {low_h}x{low_w} on axis {axis} of "
+                         f"{H}x{W} canvases")
+    if not (src.is_contiguous() and out.is_contiguous()):
+        raise ValueError("W1 takes contiguous canvases")
+    if out.device != src.device or overflow.device != src.device:
+        raise ValueError(f"W1: canvases on {src.device} and {out.device}, "
+                         f"overflow on {overflow.device}")
+    if out.numel() and out.data_ptr() == src.data_ptr():
+        raise ValueError("W1 writes another buffer than it reads")
+
+
+def inverse_pass(src: torch.Tensor, low_h: int, low_w: int, axis: int,
+                 filt: int, mag_bits: int, out: torch.Tensor | None = None,
+                 overflow: torch.Tensor | None = None):
+    """Kernel W1: one pass of the inverse DWT (contract in
+    ``inverse_pass_plain``) over block [:low_h, :low_w] of each of the
+    (NC, H, W) int32 canvases ``src``, into ``out`` (a copy of ``src``
+    when None; outside the block ``out`` keeps what it held), with
+    ``overflow`` (one int32, zeros when None) ORed.  Returns (out,
+    overflow).
+
+    CUDA tensors launch ``csrc/wavelet.cu``, reading the block where it
+    lies and writing the interleaved lines; CPU tensors run the plain
+    version.  Nothing waits for the card."""
+    if src.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {src.device}")
+    if out is None:
+        out = src.clone()
+    if overflow is None:
+        overflow = src.new_zeros(1, dtype=torch.int32)
+    _check_pass(src, low_h, low_w, axis, out, overflow)
+    if src.device.type == "cpu":
+        inverse_pass_plain(src, low_h, low_w, axis, filt, mag_bits, out,
+                           overflow)
+        return out, overflow
+    fn = kernels.load("wavelet").wavelet_inverse_pass_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    a_n1, a_0, a_1, beta = (int(v) for v in C.WAVELET_FILTER_PARAMETERS[filt])
+    nc, H, W = src.shape
+    with torch.cuda.device(src.device):
+        cs = torch.cuda.current_stream(src.device).cuda_stream
+        status = fn(src.data_ptr(), out.data_ptr(), overflow.data_ptr(), nc,
+                    H, W, low_h, low_w, axis, a_n1, a_0, a_1, beta, mag_bits,
+                    cs)
+    kernels.check(status, "wavelet_inverse_pass")
+    inverse_pass.launches += 1
+    return out, overflow
+
+
+inverse_pass.launches = 0
+
+
 def check_stages(image_w: int, image_h: int, stages: int) -> None:
     if dim_low(image_w, stages) < 3 or dim_low(image_h, stages) < 3:
         raise IcerError(IcerStatus.TOO_MANY_STAGES,
@@ -318,8 +357,10 @@ def forward_stages(img: torch.Tensor, stages: int, filt: int, mag_bits: int):
     return img, overflow
 
 
-def inverse_stages(img: torch.Tensor, stages: int, filt: int, mag_bits: int):
-    """N-stage inverse DWT (icer_wavelet.c:81-103) -> (img, overflow)."""
+def inverse_stages_plain(img: torch.Tensor, stages: int, filt: int,
+                         mag_bits: int):
+    """W1's plain version of ``inverse_stages``: each stage's block through
+    ``inverse_2d``, on any device."""
     h, w = img.shape[-2], img.shape[-1]
     check_stages(w, h, stages)
     img = img.to(torch.int32).clone()
@@ -332,6 +373,36 @@ def inverse_stages(img: torch.Tensor, stages: int, filt: int, mag_bits: int):
         img[..., :low_h, :low_w] = block
         overflow = overflow | ov
     return img, overflow
+
+
+def inverse_stages(img: torch.Tensor, stages: int, filt: int, mag_bits: int):
+    """N-stage inverse DWT (icer_wavelet.c:81-103) -> (img, overflow: a
+    0-d bool tensor on img's device): CPU tensors run the plain version
+    (``inverse_stages_plain``), any other kernel W1 (``stage_passes``)."""
+    if img.device.type == "cpu":
+        return inverse_stages_plain(img, stages, filt, mag_bits)
+    return stage_passes(img, stages, filt, mag_bits)
+
+
+def stage_passes(img: torch.Tensor, stages: int, filt: int, mag_bits: int):
+    """``inverse_stages`` as two ``inverse_pass`` calls a stage (columns
+    into a scratch canvas, then rows back into the block, as
+    icer_wavelet.c:175-191 orders them) on one contiguous copy of
+    ``img``, with one overflow word for the whole inverse."""
+    h, w = img.shape[-2], img.shape[-1]
+    check_stages(w, h, stages)
+    out = img.to(torch.int32).clone(memory_format=torch.contiguous_format)
+    canvas = out.view(-1, h, w)
+    scratch = torch.empty_like(canvas)
+    overflow = out.new_zeros(1)
+    for it in range(1, stages + 1):
+        low_w = dim_low(w, stages - it)
+        low_h = dim_low(h, stages - it)
+        inverse_pass(canvas, low_h, low_w, 0, filt, mag_bits, scratch,
+                     overflow)
+        inverse_pass(scratch, low_h, low_w, 1, filt, mag_bits, canvas,
+                     overflow)
+    return out, overflow[0] != 0
 
 
 def to_sign_magnitude(img: torch.Tensor, mag_bits: int) -> torch.Tensor:

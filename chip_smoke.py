@@ -147,7 +147,11 @@ the check and pass it; builds the native host runtime
      equal ``compress_batch``'s and boat's the golden stream, its
      ``ShardedGrayscaleDecoder`` pixels the inputs, its
      ``ShardedColorEncoder`` streams of phase 17's colour batch
-     ``compress_yuv_batch``'s, and it must launch kernels 1 and 2.
+     ``compress_yuv_batch``'s, and it must launch kernels 1 and 2.  Each
+     world of two then runs 40 sharded fuzz trials (``utils/fuzz.py``:
+     meshes 1 x 2 and 2 x 1, grayscale and colour batches of 1-4 images
+     at every quota class) on both ranks, held to the native host codec
+     (streams, decodes, refusals) and to each other.
  25. frames whose lanes pass 2^17 slots, at the CLI's defaults, through
      the default ``auto`` coder (kernel 1 on every bucket: the two-word
      instance on the long ones, with its side buffer sized so that no
@@ -191,6 +195,17 @@ the check and pass it; builds the native host runtime
      deferred decode with no host sync); the CLI's ``-f D -s 3 -g 7``
      equal to the API; a fixed-seed differential fuzz
      (``utils/fuzz.py``) against the native host codec with no mismatch.
+ 27. each coder's peak device memory per coder word in one encode pass of
+     about 2^25 coder words and of a full pass (``PLAN_CASES``): kernel 1
+     with fused-key records (boat's noisy variants) and two-word records
+     (1024x1024), ``pallas`` and ``sorted``, the last also at a full pass
+     sized as slim's, the plan before each coder had its own
+     (``ops.encode.CODER_DIVISORS``).
+ 28. the ``sorted`` coder at full passes under its own plan: 9 1024x1024
+     images (a slim pass, three of sorted's) and the 5120x3840 frame; each
+     stream equals its pin or the ``auto`` stream of its image, and each
+     peak stays at or under slim two-word's full pass (phase 27) and the
+     frame's ``auto`` encode (phase 25); walls and host re-encode lanes.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -210,6 +225,7 @@ import functools
 import hashlib
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -1620,17 +1636,21 @@ def cli_phase(dev, card, boat):
     return {"launches": launches}
 
 
+def peak(fn):
+    """(fn(), seconds, peak device bytes above the baseline)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = sync_time(fn)
+    return out, secs, torch.cuda.max_memory_allocated() - base
+
+
 def coder_bytes_per_word(enc, imgs):
     """(peak device bytes of ``enc.encode_batch(imgs)`` above what was
     allocated before it, coder words of the pass's largest bucket): the
     quantity behind ``ops.encode.PASS_WORDS``."""
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    enc.encode_batch(imgs)
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - base, \
-        len(imgs) * enc.words_per_image
+    _out, _secs, pk = peak(lambda: enc.encode_batch(imgs))
+    return pk, len(imgs) * enc.words_per_image
 
 
 def long_lane_block(dev, boat):
@@ -1850,12 +1870,12 @@ def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
                               batch8.shape[2], batch8.shape[1], cfg,
                               np.uint16, dev),
                            np.concatenate([batch8] * 4))):
-        peak, words = coder_bytes_per_word(e, imgs)
-        per_word[mode] = peak / words
+        pk, words = coder_bytes_per_word(e, imgs)
+        per_word[mode] = pk / words
         log(f"encode pass, {mode} records ({len(imgs)} images of "
             f"{imgs.shape[2]}x{imgs.shape[1]}, largest bucket {words} coder "
-            f"words): peak {peak / 1e9:.2f} GB above the baseline, "
-            f"{peak / words:.1f} B per coder word | {card}")
+            f"words): peak {pk / 1e9:.2f} GB above the baseline, "
+            f"{pk / words:.1f} B per coder word | {card}")
     res["bytes_per_word"] = per_word
     return res
 
@@ -2034,14 +2054,6 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
         return [(shape, nev, a.elapsed_time(b),
                  k1_bound(shape, misc, nev, int(nv)))
                 for shape, nev, nv, misc, a, b in seen]
-
-    def peak(fn):
-        """(result, seconds, peak device bytes above the baseline)."""
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out, secs = sync_time(fn)
-        return out, secs, torch.cuda.max_memory_allocated() - base
 
     def plan(enc):
         """Each bucket's (Lk, instance); the auto rule holds on every one:
@@ -2307,6 +2319,145 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
         f"(one 2048x2048 image, {words} coder words): peak "
         f"{pk / 1e9:.2f} GB above the baseline, {pk / words:.1f} B per "
         f"coder word | {card}")
+    return res
+
+
+# phase 27: each coder's peak device bytes per coder word in one encode
+# pass of about 2^25 coder words and of a full pass (label, entropy, image
+# set, pass sizes in images; "old" passes and calls sized as slim's):
+# boat's noisy variants code fused-key records, 1024x1024's stage-1
+# bucket two-word ones
+PLAN_CASES = (("slim fused-key", "slim", "boat", (10, 37)),
+              ("slim two-word", "slim", "gray1024", (3, 9)),
+              ("pallas", "pallas", "gray1024", (3, 9)),
+              ("sorted", "sorted", "gray1024", (3,)),
+              ("sorted", "sorted", "gray1024", (9,), "old"))
+
+
+def plan_images(boat: np.ndarray, n_boat: int, n_1024: int) -> dict:
+    """Phase 27's images: ``n_boat`` noisy variants of boat (phase 4's
+    recipe, whose first 8 they are) and ``n_1024`` of boat tiled to
+    1024x1024 (``_tiled``, whose first 7 are phase 20's pinned batch)."""
+    rng = np.random.default_rng(1234)
+    return {"boat": np.clip(boat[None].astype(np.int32) + rng.integers(
+                -6, 7, (n_boat,) + boat.shape), 0, 255).astype(np.uint16),
+            "gray1024": _tiled(boat, 1024, 1024, n_1024)}
+
+
+def pass_peak(enc, imgs, old: bool = False) -> dict:
+    """One encode pass of ``imgs`` (``enc.pass_images`` set to their
+    count; ``old``: every bucket's calls sized as slim's, the plan before
+    each coder had its own): peak device bytes above the baseline, the
+    pass's coder words (its largest bucket's), B per word, seconds and
+    host re-encode lanes."""
+    from icer_compression_tpu_torch.ops import encode as E
+    enc.pass_images = len(imgs)
+    if old:
+        for b in enc.buckets:
+            b["call_rows"] = max(1, E.CALL_WORDS
+                                 // E.bucket_sizes(b["L"])[0])
+    torch.cuda.empty_cache()
+    _out, secs, pk = peak(lambda: enc.encode_batch(imgs))
+    words = len(imgs) * enc.words_per_image
+    return {"images": len(imgs), "words": words, "peak": pk,
+            "bpw": pk / words, "s": secs, "host": enc.fallback_lanes}
+
+
+def coder_plan_phase(dev, card, boat) -> dict:
+    """Phase 27: each coder's peak device bytes per coder word at each pass
+    size of ``PLAN_CASES``, one pass each (lossless s4 fA g6)."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    imgs = plan_images(boat, *(max(max(c[3]) for c in PLAN_CASES
+                                   if c[2] == key)
+                               for key in ("boat", "gray1024")))
+    cfg = T.CodecConfig(4, 0, 6, None)
+    res = {}
+    for label, entropy, key, sizes, *old in PLAN_CASES:
+        for n in sizes:
+            batch = imgs[key][:n]
+            enc = T.make_encoder(batch.shape[2], batch.shape[1], cfg,
+                                 np.uint16, dev, entropy=entropy)
+            r = pass_peak(enc, batch, bool(old))
+            res[f"{label} {key} x{n}" + (" old plan" if old else "")] = r
+            log(f"coder {label}{' (old plan)' if old else ''}, one pass of "
+                f"{n} {key} images ({r['words']} coder words, 2^"
+                f"{np.log2(r['words']):.2f}): peak {r['peak'] / 1e9:.2f} GB "
+                f"above the baseline, {r['bpw']:.1f} B per coder word; "
+                f"{r['s']:.3f} s, host lanes {r['host']} | {card}")
+            del enc
+    return res
+
+
+# phase 28: 1024x1024 images through ``sorted``, as many as a slim pass
+# takes, and the 7 pinned in phase 20 among them
+SORTED_BATCH = 9
+
+
+def sorted_pass_phase(dev, card, boat, long_pins, big_pins, plan,
+                      big_auto_peak) -> dict:
+    """Phase 28: the ``sorted`` coder (the JAX encoders' default) at full
+    passes under its own plan, lossless s4 fA g6: ``SORTED_BATCH``
+    1024x1024 images, a slim pass's worth, so at least two of its passes,
+    and phase 25's 5120x3840 frame (its buckets in calls of a third of
+    slim's).  Each stream equals its pin (phase 20's, phase 25's) or the
+    ``auto`` stream of the same image; each peak stays at or under the
+    budget: slim two-word's full 1024x1024 pass (phase 27, ``plan``) and
+    the 5120x3840 frame's ``auto`` encode (phase 25, ``big_auto_peak``)."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    cfg = T.CodecConfig(4, 0, 6, None)
+    res = {}
+    imgs = _tiled(boat, 1024, 1024, SORTED_BATCH)
+    frame = _tiled(boat, 3840, 5120)
+    for key, batch, budget in (
+            ("gray1024", imgs, plan["slim two-word gray1024 x9"]["peak"]),
+            ("gray5120x3840", frame, big_auto_peak)):
+        h, w = batch.shape[1:]
+        enc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted")
+        auto = T.make_encoder(w, h, cfg, np.uint16, dev)
+        passes = -(-len(batch) // enc.pass_images)
+        per = min(len(batch), enc.pass_images)
+        calls = [-(-per * b["rows"] // b["call_rows"]) for b in enc.buckets]
+        # the batch fills a slim pass and takes two of sorted's or more;
+        # the frame's stage-1 bucket takes two of sorted's calls or more
+        if (len(batch) < auto.pass_images or passes < 2) if len(batch) > 1 \
+                else calls[0] < 2:
+            raise AssertionError(f"sorted {key}: {len(batch)} images, "
+                                 f"{passes} passes of {enc.pass_images}, "
+                                 f"{calls[0]} stage-1 calls a pass")
+        torch.cuda.empty_cache()
+        streams, secs, pk = peak(lambda: T.compress_batch(
+            batch, cfg, encoder=enc))
+        pinned = [f"{key} v{i} unlimited stream" for i in range(len(batch))]
+        rest = [i for i, p in enumerate(pinned) if p not in (
+            long_pins if key == "gray1024" else big_pins)]
+        want = dict(zip(rest, T.compress_batch(batch[rest], cfg,
+                                               encoder=auto))) \
+            if rest else {}
+        for i, s in enumerate(streams):
+            if i in want:
+                if s != want[i]:
+                    raise AssertionError(f"sorted {key} v{i}: stream differs "
+                                         "from auto's")
+            elif hashlib.sha256(s).hexdigest() != {
+                    **long_pins, **big_pins}[pinned[i]]:
+                raise AssertionError(f"sorted {key} v{i}: stream differs "
+                                     "from its pin")
+        if pk > budget:
+            raise AssertionError(f"sorted {key}: peak {pk} B above the "
+                                 f"budget {budget} B")
+        res[key] = {"images": len(batch), "passes": passes, "calls": calls,
+                    "s": secs, "peak": pk, "budget": budget,
+                    "host": enc.fallback_lanes,
+                    "host_s": enc.fallback_seconds,
+                    "pinned": len(batch) - len(rest)}
+        log(f"sorted {key} x{len(batch)} lossless: {len(batch) - len(rest)} "
+            f"streams match their pins, {len(rest)} auto's; {passes} passes "
+            f"of {enc.pass_images} (auto: {auto.pass_images}), coder calls "
+            f"a pass per bucket {calls}; wall (run once) {secs:.3f} s, host re-encode "
+            f"lanes {enc.fallback_lanes} in {enc.fallback_seconds:.3f} s; "
+            f"peak {pk / 1e9:.2f} GB above the baseline, budget "
+            f"{budget / 1e9:.2f} GB | {card}")
+        del enc, auto, streams
     return res
 
 
@@ -3152,6 +3303,11 @@ def host_codec_phase(dev, card, boat, cfg, golden, pins, color_pins,
 # one device)
 SHARDED_WORLDS = (("nccl", 1, 1), ("gloo", 2, 1), ("gloo", 2, 2))
 SHARDED_TIMEOUT_S = 300
+# phase 24's sharded fuzz: each world of two runs this many trials of
+# ``utils/fuzz.sample_sharded`` (meshes 1 x 2 and 2 x 1) from the seed
+# plus its data axis, against the native host codec
+SHARDED_FUZZ_TRIALS = 40
+SHARDED_FUZZ_SEED = 24
 
 
 def sharded_images(boat: np.ndarray, data: int) -> np.ndarray:
@@ -3230,6 +3386,14 @@ def sharded_rank(rank: int, world: int, data: int, backend: str, port: int,
            "host_reencode_lanes": enc.enc.fallback_lanes, "walls_s": walls}
     with open(Path(out) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
+    if world == 2:
+        from icer_compression_tpu_torch.utils import fuzz
+        t0 = time.perf_counter()
+        got = fuzz.sharded_results(fuzz.sharded_trials(
+            SHARDED_FUZZ_SEED + data, SHARDED_FUZZ_TRIALS), device)
+        with open(Path(out) / f"fuzz{rank}.pkl", "wb") as f:
+            pickle.dump({"results": got,
+                         "seconds": time.perf_counter() - t0}, f)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -3250,7 +3414,12 @@ def sharded_phase(card, boat, golden, gray_streams, colour_streams,
     must equal ``compress_batch``'s (``gray_streams``) and boat's the
     golden stream, its decode the inputs, its colour streams phase 17's
     ``compress_yuv_batch`` (``colour_streams``); every rank must launch
-    kernels 1 and 2.  A failure of any rank fails the phase."""
+    kernels 1 and 2.  Each world of two then runs ``SHARDED_FUZZ_TRIALS``
+    sharded fuzz trials on both ranks while this process runs them
+    through the native host codec: every rank's streams, decodes and
+    refusals must equal the reference's and each other's.  A failure of
+    any rank, or a fuzz mismatch, fails the phase."""
+    from icer_compression_tpu_torch.utils import fuzz
     want_colour = [hashlib.sha256(s).hexdigest() for s in colour_streams]
     res = {}
     for backend, n, data in SHARDED_WORLDS:
@@ -3265,6 +3434,14 @@ def sharded_phase(card, boat, golden, gray_streams, colour_streams,
                 stderr=subprocess.STDOUT, text=True) for r in range(n)]
             logs = []
             try:
+                if n == 2:
+                    # the reference's results, while the world runs
+                    t_ref = time.perf_counter()
+                    trials = fuzz.sharded_trials(SHARDED_FUZZ_SEED + data,
+                                                 SHARDED_FUZZ_TRIALS)
+                    refs = [fuzz.sharded_reference(t, fuzz.native_codec())
+                            for t in trials]
+                    ref_s = time.perf_counter() - t_ref
                 for p in procs:
                     logs.append(p.communicate(timeout=max(
                         1.0, t0 + SHARDED_TIMEOUT_S - time.perf_counter()))[0])
@@ -3280,6 +3457,27 @@ def sharded_phase(card, boat, golden, gray_streams, colour_streams,
                                          f"({p.returncode}):\n{out_r[-4000:]}")
             ranks = [json.loads((Path(out) / f"rank{r}.json").read_text())
                      for r in range(n)]
+            if n == 2:
+                fz = []
+                for r in range(n):
+                    with open(Path(out) / f"fuzz{r}.pkl", "rb") as f:
+                        fz.append(pickle.load(f))
+                chk = fuzz.check_sharded(trials, [f["results"] for f in fz],
+                                         refs, log)
+                chk.update(rank_s=[f["seconds"] for f in fz],
+                           reference_s=ref_s)
+                log(f"sharded {label} fuzz: {chk['trials']} trials from seed "
+                    f"{SHARDED_FUZZ_SEED + data} (meshes {chk['per_mesh']}, "
+                    f"filters {chk['per_filter']}, quota classes "
+                    f"{chk['per_quota']}, colour {chk['color']}, fused-key "
+                    f"limit lowered {chk['two_word']}, refused "
+                    f"{chk['refused']}): {len(chk['mismatches'])} "
+                    f"mismatches; ranks "
+                    + ", ".join(f"{x:.1f}" for x in chk["rank_s"])
+                    + f" s, native reference {ref_s:.1f} s | {card}")
+                if chk["mismatches"]:
+                    raise AssertionError(f"sharded {label} fuzz: "
+                                         f"{chk['mismatches']}")
         want = [hashlib.sha256(s).hexdigest() for s in gray_streams] \
             + [golden] * (ranks[0]["batch"] - len(gray_streams))
         for r in ranks:
@@ -3307,6 +3505,8 @@ def sharded_phase(card, boat, golden, gray_streams, colour_streams,
                 + f" | {card}")
         log(f"sharded {label}: world of {n} in {wall:.1f} s")
         res[label] = {"ranks": ranks, "wall_s": wall}
+        if n == 2:
+            res[label]["fuzz"] = chk
     return res
 
 
@@ -3323,7 +3523,7 @@ def main() -> int:
 
 
 def smoke(host) -> int:
-    """Phases 1-26 on the card; ``host`` runs the plain versions that are
+    """Phases 1-28 on the card; ``host`` runs the plain versions that are
     checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
@@ -3671,15 +3871,19 @@ def smoke(host) -> int:
         "enc": enc_med, "dec": dec_med, "color_enc": col["enc_ms"] / 1e3,
         "color_dec": col["dec_ms"] / 1e3})
     shd = sharded_phase(card, boat, golden, streams, col["batch_streams"])
-    large = big_image_phase(dev, card, boat, dict(
-        ln.split(None, 1)[::-1] for ln in
-        (data / "golden_big_images.sha256").read_text().splitlines()),
-        host, big_k1, big_k4)
+    big_pins = dict(ln.split(None, 1)[::-1] for ln in
+                    (data / "golden_big_images.sha256").read_text()
+                    .splitlines())
+    large = big_image_phase(dev, card, boat, big_pins, host, big_k1, big_k4)
     del big_k1, big_k4
     w1r = w1_phase(dev, card, boat)
     trc = trace_phase(dev, card, boat)
     cfr = config_phase(dev, card, boat,
                        *read_config_pins(data / "golden_configs.sha256"))
+    cpl = coder_plan_phase(dev, card, boat)
+    srt = sorted_pass_phase(
+        dev, card, boat, long_pins, big_pins, cpl,
+        large["images"]["gray5120x3840 unlimited"]["enc_peak"])
     # phase 1's long blocks against their plain versions (host CPU)
     late_s = {}
     for name, kout, blk in (("K1 two-word long", kl, lw),
@@ -3880,8 +4084,16 @@ def smoke(host) -> int:
             f"{k} {v['wall_ms']:.2f}, {v['idle_share']:.4f}"
             for k, v in trc.items())
         + f"; fuzz {cfr['fuzz']['trials']} trials, "
-        f"{cfr['fuzz']['seconds']:.1f} s, 0 mismatches; phases 1-26 "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{cfr['fuzz']['seconds']:.1f} s, 0 mismatches; sharded fuzz "
+        + ", ".join(f"{k} {v['fuzz']['trials']} trials, 0 mismatches"
+                    for k, v in shd.items() if "fuzz" in v)
+        + "; coder pass peaks (B per coder word) " + ", ".join(
+            f"{k} {r['bpw']:.1f}" for k, r in cpl.items())
+        + "; sorted at full passes (wall s, peak GB, budget GB, host lanes) "
+        + ", ".join(f"{k} x{r['images']} {r['s']:.3f}, {r['peak'] / 1e9:.2f}, "
+                    f"{r['budget'] / 1e9:.2f}, {r['host']}"
+                    for k, r in srt.items())
+        + f"; phases 1-28 {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

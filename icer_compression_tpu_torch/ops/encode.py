@@ -78,6 +78,14 @@ PASS_WORDS = 1 << 27
 # path peaks at 113 bytes per coder word (chip_smoke.py phase 25), below
 # slim's.
 CALL_WORDS = PASS_WORDS
+# Each coder's passes and calls take PASS_WORDS and CALL_WORDS divided by
+# its divisor here, so that its peak stays at or under slim two-word's at
+# a full pass.  Peak device bytes per coder word, flat from passes of
+# 2^25 to 2^27 words (an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py
+# phase 27): slim 127 with fused-key records and 141 with two-word ones,
+# pallas 113, sorted 378, whose full pass at slim's size peaked at
+# 48 GB.  A third of slim's words keeps sorted near 126 B per slim word.
+CODER_DIVISORS = {"slim": 1, "pallas": 1, "sorted": 3}
 
 
 @dataclass(frozen=True)
@@ -225,16 +233,18 @@ class TorchGrayscaleEncoder:
             b["rows"] = sum(max(0, hi - lo) * len(self.groups[gi]["lanes"])
                             for gi in b["groups"]
                             for lo, hi in [self.plane_cuts[gi]])
-            b["call_rows"] = max(1, CALL_WORDS // Lk)
+            b["words"] = Lk * b["rows"]
+            b["call_rows"] = max(1, CALL_WORDS
+                                 // CODER_DIVISORS[b["coder"]] // Lk)
         self.bucket_coders = tuple(b["coder"] for b in self.buckets)
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
-        # images per device pass: the largest bucket's coder words of one
-        # image, against PASS_WORDS
-        self.words_per_image = max(bucket_sizes(b["L"])[0] * b["rows"]
-                                   for b in self.buckets)
-        self.pass_images = max(1, PASS_WORDS
-                               // max(1, self.words_per_image))
+        # images per device pass: each bucket's coder words of one image,
+        # against its coder's share of PASS_WORDS
+        self.words_per_image = max(b["words"] for b in self.buckets)
+        self.pass_images = max(1, min(
+            PASS_WORDS // CODER_DIVISORS[b["coder"]] // max(1, b["words"])
+            for b in self.buckets))
         # per group: gather index of every lane rectangle into the padded
         # flattened image (out-of-rect reads are masked by pix_valid)
         self._wp = image_w + max(g["mw"] for g in self.groups)
@@ -371,7 +381,8 @@ class TorchGrayscaleEncoder:
 
         A batch of more than ``pass_images`` images runs as several device
         passes, queued one after the other, so that the coder's
-        intermediates stay within ``PASS_WORDS`` coder words."""
+        intermediates stay within its share of ``PASS_WORDS`` coder words
+        (``CODER_DIVISORS``)."""
         x = self._upload(np.asarray(images))
         P = self.pass_images
         passes = [self._dispatch(x[i:i + P]) for i in range(0, len(x), P)]

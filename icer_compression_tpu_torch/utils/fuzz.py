@@ -28,6 +28,16 @@ that most uint8 trials encode; the rest overflow, and their refusals are
 compared.  On a share of trials the port runs with kernel 1's fused-key
 limit lowered (``Trial.two_word_from``), so that buckets of small images
 take the two-word instance and its sized side buffer.
+
+Sharded trials (``sample_sharded``; counterpart ``tests/fuzz_sharded.py``)
+draw from the same envelope a mesh (data, seg) of (1, 2) or (2, 1) and a
+grayscale or colour batch of 1-4 images whose count is a multiple of
+data.  Every rank of a world of two runs the same list
+(``sharded_results``): ``ShardedGrayscaleEncoder.compress_batch`` or
+``ShardedColorEncoder.compress_batch``, then, for grayscale,
+``ShardedGrayscaleDecoder`` or ``decode_batch_sharded`` on its own
+streams.  ``check_sharded`` holds every rank's results to the
+reference's single-image calls and to each other.
 """
 
 from __future__ import annotations
@@ -57,6 +67,8 @@ BATCH_SHARE = 1 / 8
 TINY_QUOTA_SHARE = 1 / 16     # trials with a quota of 28-63 bytes
 TWO_WORD_SHARE = 1 / 4        # trials with the fused-key limit lowered
 TWO_WORD_FROM = (256, 1024, 4096)
+SHARDED_MESHES = ((1, 2), (2, 1))   # (data, seg) of a world of two
+SHARDED_COLOR_SHARE = 1 / 3
 
 
 @dataclass
@@ -100,7 +112,7 @@ def native_codec() -> Codec:
 @dataclass
 class Trial:
     index: int
-    kind: str                     # "gray", "color" or "batch"
+    kind: str                     # "gray", "color", "batch" or "sharded"
     w: int
     h: int
     stages: int
@@ -113,6 +125,13 @@ class Trial:
     # buckets of this many slots or more take kernel 1's two-word
     # instance in the port's run (None: the fused-key limit as it is)
     two_word_from: int | None = None
+    # sharded trials: the mesh (data, seg), the planes of an image (1, or
+    # 3 for colour, ``images`` then holding y, u, v of each image in
+    # turn) and the grayscale decode ("mesh": ShardedGrayscaleDecoder,
+    # "round robin": decode_batch_sharded)
+    mesh: tuple | None = None
+    planes: int = 1
+    decoder: str = "mesh"
 
     @property
     def config(self):
@@ -124,7 +143,9 @@ class Trial:
                 "h": self.h, "stages": self.stages, "filt": self.filt,
                 "segments": self.segments, "quota": self.quota,
                 "dtype": np.dtype(self.dtype).name, "content": self.content,
-                "two_word_from": self.two_word_from}
+                "two_word_from": self.two_word_from,
+                **({"mesh": list(self.mesh), "planes": self.planes,
+                    "decoder": self.decoder} if self.mesh else {})}
 
 
 @contextlib.contextmanager
@@ -140,10 +161,11 @@ def fused_key_limit(two_word_from: int | None):
         ES.fused_key_ok = real
 
 
-def content(rng, h: int, w: int, kind: int, dtype) -> np.ndarray:
+def content(rng, h: int, w: int, kind: int, dtype,
+            halve: bool | None = None) -> np.ndarray:
     """One image of content ``kind`` (``fuzz_oracle.py``'s four, and
     noise of 10 to 16 bits), in ``dtype``: uint8 content is cut to 0-255
-    and, on 9 of 10 images, halved into 0-127."""
+    and halved into 0-127 where ``halve`` (None: on 9 of 10 images)."""
     if kind == 0:
         img = rng.integers(0, 256, (h, w))
     elif kind == 1:
@@ -156,7 +178,9 @@ def content(rng, h: int, w: int, kind: int, dtype) -> np.ndarray:
     else:
         img = rng.integers(0, 1 << int(rng.integers(10, 17)), (h, w))
     if np.dtype(dtype) == np.uint8:
-        img = np.minimum(img, 255) >> int(rng.random() < 0.9)
+        if halve is None:
+            halve = rng.random() < 0.9
+        img = np.minimum(img, 255) >> int(halve)
     return img.astype(dtype)
 
 
@@ -165,17 +189,14 @@ def smallest_subband(w: int, h: int, stages: int) -> int:
                for st, sb in T.all_subbands(stages))
 
 
-def sample(rng, index: int, max_side: int = 160, big_side: int = 1024,
-           shares=(BIG_SHARE, COLOR_SHARE, BATCH_SHARE)) -> Trial:
-    """One trial from ``rng``; ``max_side`` and ``big_side`` bound the
-    sides (a ``big_side`` of ``max_side`` or less turns the large share
-    off)."""
-    big, color, batch = shares
+def _geometry(rng, max_side: int, big_side: int, big: float,
+              min_side: int = 8) -> tuple:
+    """(w, h, stages, segments, filt, quota factor, dtype) from ``rng``."""
     while True:
         side = big_side if (big_side > max_side and rng.random() < big) \
             else max_side
-        h = int(rng.integers(8, side + 1))
-        w = int(rng.integers(8, side + 1))
+        h = int(rng.integers(min_side, side + 1))
+        w = int(rng.integers(min_side, side + 1))
         stages = int(rng.integers(1, 7))
         if min(dim_low(w, stages), dim_low(h, stages)) >= 3:
             break
@@ -184,20 +205,69 @@ def sample(rng, index: int, max_side: int = 160, big_side: int = 1024,
     filt = int(rng.integers(0, 7))
     qf = float(rng.choice(QUOTA_FACTORS))
     dtype = np.uint8 if rng.random() < 0.5 else np.uint16
+    return w, h, stages, segments, filt, qf, dtype
+
+
+def _quota_and_limit(rng, h: int, w: int, per_image: int, qf: float):
+    """(byte quota, two_word_from): the quota factor's quota, or on a
+    share of trials 28-63 bytes; the lowered fused-key limit on a share."""
+    quota = max(64, int(h * w * per_image * qf))
+    if rng.random() < TINY_QUOTA_SHARE:
+        quota = int(rng.integers(28, 64))
+    two_word_from = int(rng.choice(TWO_WORD_FROM)) \
+        if rng.random() < TWO_WORD_SHARE else None
+    return quota, two_word_from
+
+
+def sample(rng, index: int, max_side: int = 160, big_side: int = 1024,
+           shares=(BIG_SHARE, COLOR_SHARE, BATCH_SHARE)) -> Trial:
+    """One trial from ``rng``; ``max_side`` and ``big_side`` bound the
+    sides (a ``big_side`` of ``max_side`` or less turns the large share
+    off)."""
+    big, color, batch = shares
+    w, h, stages, segments, filt, qf, dtype = _geometry(rng, max_side,
+                                                        big_side, big)
     u = rng.random()
     kind = "color" if u < color else ("batch" if u < color + batch
                                       else "gray")
     n = {"gray": 1, "color": 3, "batch": int(rng.integers(2, 5))}[kind]
     kinds = [int(rng.integers(0, 5)) for _ in range(n)]
     images = [content(rng, h, w, k, dtype) for k in kinds]
-    per_image = 6 if kind == "color" else 2
-    quota = max(64, int(h * w * per_image * qf))
-    if rng.random() < TINY_QUOTA_SHARE:
-        quota = int(rng.integers(28, 64))
-    two_word_from = int(rng.choice(TWO_WORD_FROM)) \
-        if rng.random() < TWO_WORD_SHARE else None
+    quota, two_word_from = _quota_and_limit(
+        rng, h, w, 6 if kind == "color" else 2, qf)
     return Trial(index, kind, w, h, stages, filt, segments, quota, dtype,
                  kinds, images, two_word_from)
+
+
+def sample_sharded(rng, index: int, max_side: int = 160,
+                   big_side: int = 1024, min_side: int = 8) -> Trial:
+    """One sharded trial from ``rng``: ``sample``'s envelope (sides from
+    ``min_side``), a mesh of ``SHARDED_MESHES`` and a grayscale or colour
+    batch of 1-4 images of one content kind, a multiple of the mesh's
+    data axis."""
+    w, h, stages, segments, filt, qf, dtype = _geometry(
+        rng, max_side, big_side, BIG_SHARE, min_side)
+    mesh = SHARDED_MESHES[int(rng.integers(0, len(SHARDED_MESHES)))]
+    planes = 3 if rng.random() < SHARDED_COLOR_SHARE else 1
+    count = mesh[0] * int(rng.integers(1, 4 // mesh[0] + 1))
+    # one content kind and one uint8 range for the batch, so that a
+    # batch is refused about as often as a single image
+    kind, halve = int(rng.integers(0, 5)), bool(rng.random() < 0.9)
+    kinds = [kind] * (count * planes)
+    images = [content(rng, h, w, kind, dtype, halve) for _ in kinds]
+    quota, two_word_from = _quota_and_limit(rng, h, w, 2 * planes, qf)
+    decoder = "mesh" if rng.random() < 0.5 else "round robin"
+    return Trial(index, "sharded", w, h, stages, filt, segments, quota,
+                 dtype, kinds, images, two_word_from, mesh, planes, decoder)
+
+
+def sharded_trials(seed: int, count: int, max_side: int = 160,
+                   big_side: int = 1024, min_side: int = 8) -> list[Trial]:
+    """The fixed list of ``count`` sharded trials from ``seed`` that every
+    rank of a world and the reference draw alike."""
+    rng = np.random.default_rng(seed)
+    return [sample_sharded(rng, i, max_side, big_side, min_side)
+            for i in range(count)]
 
 
 def _call(fn, *args):
@@ -346,3 +416,138 @@ def run(port: Codec, ref: Codec, trials: int | None = None,
             "per_kind": dict(per_kind), "per_dtype": dict(per_dtype),
             "two_word": two_word, "tiny_quota": tiny_quota,
             "seconds": time.perf_counter() - t0}
+
+
+def sharded_results(trials: list[Trial], device) -> list[dict]:
+    """This rank's run of every sharded trial, in a world of two ranks
+    (after ``parallel.distributed.initialize``): per trial its
+    description, the sharded encode's ``_call`` result and, for grayscale
+    trials that encode, the decode's of its streams (else None).  Every
+    rank must run the same list."""
+    from ..models.grayscale import _mag_bits
+    from ..parallel import sharded as SH
+    out = []
+    for t in trials:
+        mesh = SH.make_mesh(data=t.mesh[0], device=device)
+        args = (mesh, t.w, t.h, t.stages, t.filt, t.segments,
+                _mag_bits(t.dtype))
+        imgs = np.stack(t.images)
+        with fused_key_limit(t.two_word_from):
+            if t.planes == 3:
+                got = _call(lambda: SH.ShardedColorEncoder(
+                    *args).compress_batch(imgs[0::3], imgs[1::3],
+                                          imgs[2::3], t.config))
+            else:
+                got = _call(lambda: SH.ShardedGrayscaleEncoder(
+                    *args).compress_batch(imgs, t.config))
+        dec = None
+        if t.planes == 1 and got[0] == "ok":
+            if t.decoder == "mesh":
+                dec = _call(lambda: SH.ShardedGrayscaleDecoder(
+                    mesh, t.w, t.h, t.config, t.dtype).decode_batch(got[1]))
+            else:
+                dec = _call(SH.decode_batch_sharded, got[1], t.config,
+                            t.dtype, [device, device])
+        out.append({"trial": t.describe(), "encode": got, "decode": dec})
+    return out
+
+
+def sharded_reference(trial: Trial, ref: Codec) -> dict:
+    """The reference's single-image calls for a sharded trial: each
+    image's encode and, when every image encodes, each stream's decode
+    (None for colour trials, which have no sharded decode)."""
+    cfg, dt = trial.config, trial.dtype
+    if trial.planes == 3:
+        ims = trial.images
+        enc = [_call(ref.compress_yuv, *ims[i:i + 3], cfg)
+               for i in range(0, len(ims), 3)]
+        return {"encode": enc, "decode": None}
+    enc = [_call(ref.compress, img, cfg) for img in trial.images]
+    dec = [_call(ref.decompress, s, cfg, dt) for _k, s in enc] \
+        if all(k == "ok" for k, _s in enc) else None
+    return {"encode": enc, "decode": dec}
+
+
+def _refusal(what: str, got, want: list):
+    """The problem, if any, of the port's ``got`` against the reference's
+    per-image results ``want`` when the reference refuses some of them:
+    the port must refuse with one of their statuses."""
+    failed = {s for k, s in want if k != "ok"}
+    if got[0] != "error" or got[1] not in failed:
+        return (f"{what}: port {got[0]} {_short(got[1])}, reference "
+                f"refusals {sorted(failed)}")
+    return None
+
+
+def compare_sharded(trial: Trial, ranks: list[dict], ref: dict):
+    """One sharded trial's rank results against each other and against
+    the reference's (``sharded_reference``): (None, streams) when they
+    agree, else (what differs, the streams made)."""
+    streams = {f"reference{i}": s for i, (_k, s) in enumerate(ref["encode"])}
+    for r, res in enumerate(ranks):
+        if res["encode"][0] == "ok":
+            streams.update({f"rank{r}_{i}": s
+                            for i, s in enumerate(res["encode"][1])})
+    if any(res["trial"] != trial.describe() for res in ranks):
+        return "a rank drew another trial", streams
+    for r, res in enumerate(ranks[1:], 1):
+        for part in ("encode", "decode"):
+            a, b = ranks[0][part], res[part]
+            if (a is None) != (b is None) or a is not None and (
+                    a[0] != b[0] or a[0] != "crash" and not _same(a, b)):
+                return f"ranks 0 and {r} disagree on the {part}", streams
+    enc, dec = ranks[0]["encode"], ranks[0]["decode"]
+    if enc[0] == "crash":
+        return f"sharded encode crashed: {enc[1]}", streams
+    if any(k != "ok" for k, _s in ref["encode"]):
+        return _refusal("sharded encode", enc, ref["encode"]), streams
+    if enc[0] != "ok":
+        return f"sharded encode refused: {enc[1]}", streams
+    want = [s for _k, s in ref["encode"]]
+    if enc[1] != want:
+        bad = [i for i, (a, b) in enumerate(zip(enc[1], want)) if a != b]
+        return f"sharded streams differ at images {bad}", streams
+    if trial.planes == 3:
+        return None, streams
+    if any(k != "ok" for k, _px in ref["decode"]):
+        # a stream that a tiny quota leaves without a segment
+        return _refusal(f"sharded decode ({trial.decoder})", dec,
+                        ref["decode"]), streams
+    if dec[0] != "ok" or not _same(list(dec[1]),
+                                   [px for _k, px in ref["decode"]]):
+        return f"sharded decode ({trial.decoder}) differs", streams
+    return None, streams
+
+
+def check_sharded(trials: list[Trial], ranks: list[list[dict]],
+                  refs: list[dict], log=print) -> dict:
+    """Compare every sharded trial (``ranks[r][i]``: rank r's result of
+    trial i; ``refs[i]``: the reference's) and dump each mismatch.
+    Returns {"trials", "mismatches": [(index, problem, dump dir)],
+    "per_mesh", "per_filter", "per_quota" (the quota class: 28-63 bytes,
+    else the nearest quota factor), "color", "refused", "two_word",
+    "tiny_quota"}."""
+    mismatches = []
+    per_mesh, per_filter, per_quota = Counter(), Counter(), Counter()
+    refused = 0
+    for t, ref, *res in zip(trials, refs, *ranks):
+        problem, streams = compare_sharded(t, res, ref)
+        per_mesh["{}x{}".format(*t.mesh)] += 1
+        per_filter["ABCDEFQ"[t.filt]] += 1
+        per_quota["28-63 B" if t.quota < 64 else "x{}".format(min(
+            QUOTA_FACTORS, key=lambda q: abs(
+                q - t.quota / (2 * t.planes * t.h * t.w))))] += 1
+        refused += res[0]["encode"][0] == "error" or (
+            res[0]["decode"] is not None and res[0]["decode"][0] == "error")
+        if problem:
+            where = _dump(t, problem, streams)
+            mismatches.append((t.index, problem, where))
+            log(f"MISMATCH sharded trial {t.index} {t.describe()}: "
+                f"{problem} (dumped to {where})")
+    return {"trials": len(trials), "mismatches": mismatches,
+            "per_mesh": dict(sorted(per_mesh.items())),
+            "per_filter": dict(sorted(per_filter.items())),
+            "per_quota": dict(sorted(per_quota.items())),
+            "color": sum(t.planes == 3 for t in trials), "refused": refused,
+            "two_word": sum(t.two_word_from is not None for t in trials),
+            "tiny_quota": sum(t.quota < 64 for t in trials)}

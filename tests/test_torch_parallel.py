@@ -101,20 +101,26 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_world(data: int, out) -> tuple:
+def start_world(data: int, out, command=None,
+                timeout: float = WORLD_TIMEOUT_S) -> tuple:
+    """Start the two ranks of a gloo world on a free port: each runs
+    ``command(rank, port)`` (default: this file's ``worker`` on the
+    (data, 2 / data) mesh), writing ``out/rank{rank}.pkl``."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO)
+    if command is None:
+        def command(rank, port):
+            return [sys.executable, os.path.abspath(__file__), "worker",
+                    str(rank), str(port), str(data), str(out)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "worker", str(rank),
-         str(port), str(data), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for rank in range(2)]
-    return procs, time.monotonic() + WORLD_TIMEOUT_S
+        command(rank, port), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for rank in range(2)]
+    return procs, time.monotonic() + timeout
 
 
-def finish_world(world, out) -> list[dict]:
-    """Wait for both ranks (at most WORLD_TIMEOUT_S from their start) and
-    load their results."""
+def finish_world(world, out) -> list:
+    """Wait for both ranks (at most the world's timeout from their start)
+    and load their results."""
     procs, deadline = world
     logs = []
     try:

@@ -206,6 +206,16 @@ the check and pass it; builds the native host runtime
      stream equals its pin or the ``auto`` stream of its image, and each
      peak stays at or under slim two-word's full pass (phase 27) and the
      frame's ``auto`` encode (phase 25); walls and host re-encode lanes.
+ 29. the port's counterparts of the repository's top-level programs, each
+     run as ``python -m`` in a process of its own once the host workers
+     are done: ``icer_compression_tpu_torch.bench`` at its defaults
+     (native, single image, 112/56 batched, 4 batches in flight, device
+     time by layer) with every mode verified and boat's stream the golden
+     one, its figures, memory peaks and layers logged; the four
+     ``examples`` (gray on boat, colour on phase 16's RGB as a PNG) equal
+     to tests/data/golden_examples.sha256 (made with the JAX package by
+     scripts/pin_examples.py); ``bench_scaling --devices 1,2`` with both
+     worlds' streams equal to the single-card encoder's.
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -221,7 +231,6 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
-import functools
 import hashlib
 import json
 import os
@@ -239,6 +248,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
+
+from icer_compression_tpu_torch.utils.trace import (  # noqa: E402
+    annotated, layer_breakdown, swapped, trace_layers)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 # int32 ALU peak: 64 int32 ops per clock per SM x 132 SMs x 1.98 GHz boost
@@ -2608,17 +2620,6 @@ def count_launches(fn):
     return kern or None, Count.ops, out
 
 
-@contextlib.contextmanager
-def swapped(owner, name, value):
-    """``owner.name`` replaced by ``value`` inside the block."""
-    old = getattr(owner, name)
-    setattr(owner, name, value)
-    try:
-        yield
-    finally:
-        setattr(owner, name, old)
-
-
 def w1_phase(dev, card, boat):
     """Phase 26, first half: kernel W1 bit-equal to its plain version on
     the card, overflow word included (every filter, both sample widths,
@@ -2790,114 +2791,6 @@ def w1_entry(w1r, cfr, main_launches) -> dict:
         "launches_by_path": {k: n["W1"] for k, n in cfr["launches"].items()},
         "path": "decompress of boat 512 at s4 fA g6, lossless (the main "
                 "path)"}
-
-
-# the layers of the main path's trace: (module or class, attribute, layer)
-# for each function whose launches a layer owns; a launch belongs to the
-# innermost layer around it
-def trace_layers():
-    from icer_compression_tpu_torch.models import decode as D
-    from icer_compression_tpu_torch.models import grayscale as T
-    from icer_compression_tpu_torch.ops import encode as E
-    from icer_compression_tpu_torch.ops import entropy_slim as ES
-    from icer_compression_tpu_torch.ops import wavelet as WV
-    enc = E.TorchGrayscaleEncoder
-    return [(enc, "_upload", "upload"),
-            (enc, "transform", "LL mean and sign-magnitude"),
-            (WV, "forward_stages", "forward DWT"),
-            (enc, "emit", "context model"),
-            (enc, "bucket_words", "coder input"),
-            (ES, "code_lanes_slim", "slim tail"),
-            (ES, "encode_lanes_slim", "K1"),
-            (ES, "encode_lanes_slim_two_word", "K1"),
-            (ES, "order_and_pack_lanes", "sort and pack"),
-            (ES, "order_and_pack_lanes_two_word", "sort and pack"),
-            (enc, "_collect", "host collect"),
-            (T, "allocate_streams", "host allocation"),
-            (D, "plan_batch", "host plan"),
-            (D, "unit_inputs", "upload"),
-            (D, "decode_units", "K2"),
-            (D, "finalize", "gather and finalize"),
-            (WV, "inverse_stages", "inverse DWT")]
-
-
-@contextlib.contextmanager
-def annotated(layers):
-    """Each function of ``layers`` wrapped in a profiler range named
-    ``layer:<layer>`` inside the block."""
-    from torch.profiler import record_function
-    with contextlib.ExitStack() as stack:
-        for owner, name, layer in layers:
-            fn = getattr(owner, name)
-
-            # a counted kernel wrapper adds to its own name's ``launches``,
-            # which ``functools.wraps`` copies
-            @functools.wraps(fn)
-            def wrapped(*a, _fn=fn, _label=f"layer:{layer}", **k):
-                with record_function(_label):
-                    return _fn(*a, **k)
-            stack.enter_context(swapped(owner, name, wrapped))
-        yield
-
-
-def layer_breakdown(events, window: str) -> dict:
-    """The device work launched inside the host range ``window`` of a
-    chrome trace's events (one host thread), grouped by the innermost
-    ``layer:`` range around each launch: per layer the device ms, the
-    launches and the host ms outside nested layers; the window's wall,
-    the device's busy ms (the union of its intervals) and idle share,
-    and the mean host time between launches."""
-    (win,) = [e for e in events if e.get("cat") == "user_annotation"
-              and e.get("name") == window]
-    t0, t1 = win["ts"], win["ts"] + win["dur"]
-    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
-                    and e.get("name", "").startswith("layer:")
-                    and t0 <= e["ts"] <= t1), key=lambda e: e["ts"])
-    launches = {e["args"]["correlation"]: e for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and t0 <= e["ts"] <= t1
-                and "correlation" in e.get("args", {})}
-    work = [e for e in events
-            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-            and e.get("args", {}).get("correlation") in launches]
-    if not work:
-        raise AssertionError(f"the trace of {window} holds no device work")
-
-    def layer_of(ts):
-        inner = [s for s in spans if s["ts"] <= ts <= s["ts"] + s["dur"]]
-        return min(inner, key=lambda s: s["dur"])["name"][6:] \
-            if inner else "other"
-
-    groups: dict = {}
-    for e in work:
-        run = launches[e["args"]["correlation"]]
-        g = groups.setdefault(layer_of(run["ts"]),
-                              {"device_ms": 0.0, "launches": 0,
-                               "host_ms": 0.0})
-        g["device_ms"] += e["dur"] / 1e3
-        g["launches"] += 1
-    # each range's host time outside the layers nested in it
-    stack: list = []
-    for s in sorted(spans, key=lambda s: (s["ts"], -s["dur"])):
-        while stack and s["ts"] > stack[-1]["ts"] + stack[-1]["dur"]:
-            stack.pop()
-        if stack:
-            stack[-1]["nested"] = stack[-1].get("nested", 0) + s["dur"]
-        stack.append(s)
-    for s in spans:
-        g = groups.setdefault(s["name"][6:], {"device_ms": 0.0,
-                                              "launches": 0, "host_ms": 0.0})
-        g["host_ms"] += (s["dur"] - s.get("nested", 0)) / 1e3
-    busy, end = 0.0, -1.0
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in work):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    span = max(t1, end) - t0
-    ts = sorted(launches[e["args"]["correlation"]]["ts"] for e in work)
-    return {"wall_ms": span / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / span, "launches": len(work),
-            "host_gap_us": (ts[-1] - ts[0]) / max(1, len(ts) - 1),
-            "layers": groups}
 
 
 def trace_phase(dev, card, boat):
@@ -3510,6 +3403,164 @@ def sharded_phase(card, boat, golden, gray_streams, colour_streams,
     return res
 
 
+# phase 29: the port's programs (bench, scaling harness, examples), each a
+# process of its own; seconds each may take, process start included
+PROGRAM_TIMEOUT_S = 600
+BENCH_MODES = ("native", "cuda", "cuda_batched", "cuda_pipelined")
+
+
+def run_programs(argvs, cwd) -> list:
+    """Run ``python -m <argv>`` for each argv at once, from ``cwd``, with
+    this checkout's package; returns [(stdout, seconds)] and raises when
+    one exits non-zero."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", *a], cwd=cwd, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for a in argvs]
+    out = []
+    try:
+        for a, p in zip(argvs, procs):
+            so, se = p.communicate(timeout=max(
+                1.0, t0 + PROGRAM_TIMEOUT_S - time.perf_counter()))
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(a)} exited {p.returncode}:"
+                                     f"\n{so[-3000:]}\n{se[-5000:]}")
+            out.append((so, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def gb(nbytes) -> str:
+    return f"{nbytes / 1e9:.2f} GB"
+
+
+def programs_phase(card, boat, golden, example_pins) -> dict:
+    """Phase 29: the port's counterparts of the repository's top-level
+    programs.  ``python -m icer_compression_tpu_torch.bench`` at its
+    defaults: every mode verified, boat's stream the golden one; each
+    mode's figures, the batched and pipelined peaks against the card's
+    memory and the device-time block layer by layer are logged.  The four
+    examples in a temporary directory (gray on boat, colour on phase 16's
+    RGB written as a PNG): streams and decoded PNGs equal
+    ``example_pins``.  ``bench_scaling --devices 1,2``: both worlds'
+    streams equal the single-card encoder's."""
+    from icer_compression_tpu_torch.utils.image_io import read_png, write_png
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    res = {}
+    (out, secs), = run_programs([["icer_compression_tpu_torch.bench"]], REPO)
+    bench = json.loads(out.strip().splitlines()[-1])
+    d = bench["detail"]
+    if d["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the bench ran on {d['device']}")
+    bad = [m for m in BENCH_MODES if not d[m]["verified"]]
+    if bad or not d["all_verified"]:
+        raise AssertionError(f"bench modes not verified: {bad}")
+    if not (d["native"]["stream_matches_reference"]
+            and d["cuda"]["stream_matches_reference"]):
+        raise AssertionError("the bench's boat stream is not the golden one")
+    log(f"bench ({secs:.1f} s): {bench['value']:.4f} MP/s "
+        f"({bench['vs_baseline']:.2f}x the C reference), {bench['metric']} "
+        f"| {d['device']['nvidia_smi']}")
+    nat, one = d["native"], d["cuda"]
+    log(f"  bench native: encode {1e3 * nat['encode_s']:.2f} ms, decode "
+        f"{1e3 * nat['decode_s']:.2f} ms, {nat['MPs']:.4f} MP/s; "
+        f"{d['stream_bytes']} B == golden | {card}")
+    log(f"  bench cuda single image: encode {1e3 * one['encode_s']:.2f} ms, "
+        f"decode {1e3 * one['decode_s']:.2f} ms, {one['MPs']:.4f} MP/s; "
+        f"warm-up {one['warmup_s']:.2f} s; coder {one['entropy_backend']}, "
+        f"K1 launches {one['k1_launches']} | {card}")
+    b, p = d["cuda_batched"], d["cuda_pipelined"]
+    log(f"  bench cuda batched: B_enc {b['B_enc']} in {b['encode_passes']} "
+        f"passes of <= {b['pass_images']}, encode {b['encode_s']:.4f} s "
+        f"({b['encode_MPs']:.3f} MP/s), B_dec {b['B']} decode "
+        f"{b['decode_s']:.4f} s ({b['decode_MPs']:.3f} MP/s); "
+        f"{b['MPs']:.4f} MP/s; peaks encode "
+        f"{gb(b['encode_peak_allocated_bytes'])}, decode "
+        f"{gb(b['decode_peak_allocated_bytes'])} of {gb(total)} | {card}")
+    log(f"  bench cuda pipelined: K {p['batches_in_flight']}, encode "
+        f"{1e3 * p['encode_s_per_img']:.3f} ms/img, decode "
+        f"{1e3 * p['decode_s_per_img']:.3f} ms/img at B {p['B']} (variants "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    p["decode_variants_ms_per_img"].items())
+        + f" ms/img); {p['MPs']:.4f} MP/s; peaks encode "
+        f"{gb(p['encode_peak_allocated_bytes'])}, decode "
+        f"{gb(p['decode_peak_allocated_bytes'])} of {gb(total)} | {card}")
+    log(f"  bench warm-up walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in d["warmup_breakdown_s"].items()))
+    dt = d["device_time"]
+    for half in ("encode", "decode"):
+        r = dt[half]
+        log(f"  bench device time, {half} of {r['images']} (profiled): wall "
+            f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms "
+            f"({r['per_image']['busy_ms']:.4f} ms/img), idle share "
+            f"{r['idle_share']:.4f}, {r['launches']} launches "
+            f"({r['per_image']['launches']:.1f}/img), "
+            f"{r['host_gap_us']:.1f} us of host between launches | {card}")
+        for layer, g in sorted(r["layers"].items(),
+                               key=lambda kv: -kv[1]["host_ms"]):
+            log(f"    {half} layer {layer}: device {g['device_ms']:.3f} ms "
+                f"({g['device_ms_per_image']:.4f}/img) in {g['launches']} "
+                f"launches, host {g['host_ms']:.2f} ms "
+                f"({g['host_ms_per_image']:.3f}/img)")
+    log(f"  bench ceiling {dt['combined_MPs_ceiling']:.3f} MP/s (pixels / "
+        "device busy time per image)")
+    res["bench"] = bench
+    res["bench_s"] = secs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        write_png(t / "rgb.png", color_boat(boat.astype(np.uint8)))
+        mod = "icer_compression_tpu_torch.examples."
+        walls = run_programs(
+            [[mod + "compress_gray", str(REPO / "tests" / "data"
+                                         / "boat.512.png"), "g.bin"],
+             [mod + "compress_color", "rgb.png", "c.bin"]], t)
+        walls += run_programs([[mod + "decompress_gray", "g.bin", "g.png"],
+                               [mod + "decompress_color", "c.bin", "c.png"]],
+                              t)
+        got = {"gray s4 fA g6 q30000": (
+                   hashlib.sha256((t / "g.bin").read_bytes()).hexdigest(),
+                   pixels_sha(read_png(t / "g.png"))),
+               "colour s4 fA g10 q100000": (
+                   hashlib.sha256((t / "c.bin").read_bytes()).hexdigest(),
+                   pixels_sha(read_png(t / "c.png")))}
+    for label, (s, px) in got.items():
+        want = example_pins[label]
+        if (s, px) != (want[0], want[2]):
+            raise AssertionError(f"example {label}: stream or decoded PNG "
+                                 "differs from its pin")
+    log("examples (compress_gray, compress_color, then decompress_gray, "
+        "decompress_color, two at a time): streams and decoded PNGs == "
+        "golden_examples.sha256; process walls (s) "
+        + ", ".join(f"{w:.1f}" for _o, w in walls) + f" | {card}")
+    res["examples_s"] = [w for _o, w in walls]
+
+    (out, secs), = run_programs(
+        [["icer_compression_tpu_torch.bench_scaling", "--devices", "1,2",
+          "--device", "cuda"]], REPO)
+    worlds = [json.loads(ln) for ln in out.strip().splitlines()]
+    if [w["devices"] for w in worlds] != [1, 2] \
+            or not all(w["streams_equal"] for w in worlds) \
+            or worlds[1]["scaling_efficiency"] is not None:
+        raise AssertionError(f"bench_scaling: {worlds}")
+    for w in worlds:
+        log(f"bench_scaling world of {w['devices']} ({w['backend']}, mesh "
+            f"{w['mesh']}, {w['cards']} card, {w['ranks_per_card']} ranks a "
+            f"card): batch {w['batch']}, {w['MPs']:.3f} MP/s, efficiency "
+            f"{w['scaling_efficiency']}; streams == compress_batch | {card}")
+    log(f"bench_scaling: {secs:.1f} s")
+    res["scaling"] = worlds
+    res["scaling_s"] = secs
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:
         a = sys.argv[2:]
@@ -3523,7 +3574,7 @@ def main() -> int:
 
 
 def smoke(host) -> int:
-    """Phases 1-28 on the card; ``host`` runs the plain versions that are
+    """Phases 1-29 on the card; ``host`` runs the plain versions that are
     checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
@@ -3896,6 +3947,12 @@ def smoke(host) -> int:
             f"plain {late_s[name]:.1f} s")
     k1w_plain_s = late_s["K1 two-word long"]
     k1w_huge_plain_s = late_s["K1 two-word past 2^17"]
+    # the host workers are done: phase 29's walls share the host with no one
+    t29 = time.perf_counter()
+    prg = programs_phase(card, boat, golden, {
+        ln.split(None, 3)[3]: ln.split()[:3] for ln in
+        (data / "golden_examples.sha256").read_text().splitlines()})
+    t29 = time.perf_counter() - t29
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
              "plane_decode": {}, "full_encode": {}, "wavelet_inverse": {}}
     for path, counts in (
@@ -3923,6 +3980,9 @@ def smoke(host) -> int:
     # version
     k4e, bk = new[0], large["k4"]
     paths["full_encode"]["pallas boat 512"] = k4e["launches"]
+    bdt = prg["bench"]["detail"]
+    paths["slim_encode"]["bench single image (its own process)"] = \
+        bdt["cuda"]["k1_launches"]["fused-key"]
     k4e.update(
         max_abs_err=max(k4e["max_abs_err"], bk["err"]),
         launches_by_path=paths["full_encode"],
@@ -4040,6 +4100,8 @@ def smoke(host) -> int:
                  "stage-1 bucket"},
         w1_entry(w1r, cfr, launches["wavelet_inverse"]),
     ] + new
+    bd, bb, bp = (bdt["device_time"], bdt["cuda_batched"],
+                  bdt["cuda_pipelined"])
     log(f"build_seconds {build_s:.2f}; encode_ms {1e3 * enc_med:.2f}; "
         f"decode_ms {1e3 * dec_med:.2f}; color_encode_ms "
         f"{col['enc_ms']:.2f}; color_decode_ms {col['dec_ms']:.2f}; "
@@ -4093,7 +4155,13 @@ def smoke(host) -> int:
         + ", ".join(f"{k} x{r['images']} {r['s']:.3f}, {r['peak'] / 1e9:.2f}, "
                     f"{r['budget'] / 1e9:.2f}, {r['host']}"
                     for k, r in srt.items())
-        + f"; phases 1-28 {time.perf_counter() - t_start:.1f} s")
+        + "; bench MP/s " + ", ".join(
+            f"{m} {prg['bench']['detail'][m]['MPs']:.4f}" for m in BENCH_MODES)
+        + f", ceiling {bd['combined_MPs_ceiling']:.3f}; bench peaks "
+        f"batched {gb(bb['encode_peak_allocated_bytes'])}, pipelined "
+        f"{gb(bp['encode_peak_allocated_bytes'])}; phase 29 {t29:.1f} s "
+        f"(bench {prg['bench_s']:.1f}, scaling {prg['scaling_s']:.1f})"
+        + f"; phases 1-29 {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

@@ -216,6 +216,31 @@ the check and pass it; builds the native host runtime
      to tests/data/golden_examples.sha256 (made with the JAX package by
      scripts/pin_examples.py); ``bench_scaling --devices 1,2`` with both
      worlds' streams equal to the single-card encoder's.
+ 30. each encode pass as one captured CUDA graph (backend/graph_cache, the
+     default on the card, so phases 1-29 run through them too; the
+     graphs are dropped before phase 29) against the same pass run
+     eagerly, byte for byte: boat, the bench's 112 in passes of 37, 37,
+     37 and 1 (every dispatch half, a key's first three passes among
+     them, under ``no_host_sync``), phase 4's batch of 8, phase 16's
+     colour image, 1024x1024, 5120x3840 (two coder calls a pass), quota
+     50,000, and boat and a variant through ``pallas`` and ``sorted``
+     deferred with two batches in flight; each capture's seconds and
+     first-replay check; a replay's K1 / K4 runs, as the kernels count
+     them on the card, equal to the eager passes', and the encode
+     kernels' records by name in the profiler's trace of a replayed boat
+     encode equal to an eager one's; the bytes the graph pools hold
+     (after the bench's batch, after phase 21's CLI defaults and at the
+     end) within their bound, one pass budget beyond their static
+     tensors; the 37-image pass's pool with and without expandable
+     segments beside its eager peaks; boat's encode and decode walls
+     graph against eager in turns, and the API launches of one boat
+     encode each way.  Phases 20, 27 and 28 measure eager passes
+     (``graph=False``), whose peak a graph's pool holds.
+
+The wrappers' ``launches`` count the launches the host issues (phase 3,
+the main path, reads them on a key's first, eager pass); a replayed graph
+issues none from Python, so every other phase counts the encode kernels'
+runs as the kernels count them on the card (``kernels.device_runs``).
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -865,12 +890,13 @@ def long_lane_phase(dev, card, crop, pins):
             for e in ("slim", "pallas", "sorted")}
     seen = {e: watch_host_lanes(enc) for e, enc in lenc.items()}
     ES.encode_lanes_slim_two_word.launches = 0
+    reset_runs()
     streams, walls = {}, {}
     for e, enc in lenc.items():
         streams[e], walls[e] = sync_time(
             lambda enc=enc: T.compress_batch(crop[None], lcfg,
                                              encoder=enc)[0])
-    launches = ES.encode_lanes_slim_two_word.launches
+    launches = encode_runs()["slim_encode_two_word"]
     if len(set(streams.values())) != 1:
         raise AssertionError("long lanes: slim, pallas and sorted streams "
                              "differ")
@@ -971,9 +997,10 @@ def later_phases(dev, card, boat, img, slim_words, stream, golden, pins,
     # ---- phase 7: the pallas backend -----------------------------------
     pseen = watch_host_lanes(penc)
     EF.encode_lanes_full.launches = 0
+    reset_runs()
     sp, pallas_s = sync_time(
         lambda: T.compress_batch(boat[None], cfg, encoder=penc)[0])
-    k4_launches = EF.encode_lanes_full.launches
+    k4_launches = encode_runs()["full_encode"]
     if sha(sp) != golden:
         raise AssertionError("pallas backend: boat lossless sha differs")
     if k4_launches <= 0:
@@ -1318,6 +1345,19 @@ def decode_phases(dev, card, boat, st, units, small):
     return {"retire_err": retire_err, "place_err": place_err}
 
 
+def encode_runs(device="cuda") -> dict:
+    """Runs of each encode kernel on ``device`` since ``reset_runs``,
+    counted by the kernels on the card: a replayed graph's runs count, as
+    the wrappers' ``launches`` (the host's launches) cannot."""
+    from icer_compression_tpu_torch import kernels
+    return kernels.device_runs(device)
+
+
+def reset_runs(device="cuda") -> None:
+    from icer_compression_tpu_torch import kernels
+    kernels.reset_runs(device)
+
+
 @contextlib.contextmanager
 def no_host_sync():
     """Inside the block, any host synchronisation that PyTorch makes (an
@@ -1356,10 +1396,11 @@ def color_phases(dev, card, boat, pins):
         if i == 0:
             ES.encode_lanes_slim.launches = 0
             PDc.decode_planes.launches = 0
+            reset_runs()
         s = TC.compress_yuv(*planes, qcfg, device=dev)
         d = TC.decompress_yuv(s, qcfg, dtype, device=dev)
         if i == 0:
-            res["launches"] = {"slim_encode": ES.encode_lanes_slim.launches,
+            res["launches"] = {"slim_encode": encode_runs()["slim_encode"],
                                "plane_decode": PDc.decode_planes.launches}
             if min(res["launches"].values()) <= 0:
                 raise AssertionError(f"colour path: a kernel did not "
@@ -1464,6 +1505,7 @@ def color_phases(dev, card, boat, pins):
         if quota is None:
             ES.encode_lanes_slim.launches = 0
             PDc.decode_planes.launches = 0
+            reset_runs()
         bs, enc_s = sync_time(lambda: TC.compress_yuv_batch(
             ys, us, vs, qcfg, device=dev))
         bd, dec_s = sync_time(lambda: D.decompress_yuv_batch(
@@ -1471,7 +1513,7 @@ def color_phases(dev, card, boat, pins):
         if quota is None:
             res["batch_streams"] = bs
             res["batch_launches"] = {
-                "slim_encode": ES.encode_lanes_slim.launches,
+                "slim_encode": encode_runs()["slim_encode"],
                 "plane_decode": PDc.decode_planes.launches}
             res["batch_enc_ms"], res["batch_dec_ms"] = 1e3 * enc_s, \
                 1e3 * dec_s
@@ -1548,8 +1590,9 @@ def deferred_phase(dev, card, boat):
     ES.encode_lanes_slim.launches = 0
     PDc.decode_planes.launches = 0
     WV.inverse_pass.launches = 0
+    reset_runs()
     outs = [(4, run(4))]
-    launches = {"slim_encode": ES.encode_lanes_slim.launches,
+    launches = {"slim_encode": encode_runs()["slim_encode"],
                 "plane_decode": PDc.decode_planes.launches,
                 "wavelet_inverse": WV.inverse_pass.launches}
     order = (4, 1, 1, 4, 4, 1, 1, 4)
@@ -1605,9 +1648,10 @@ def cli_phase(dev, card, boat):
         write_png(tmp / "rgb.png", color_boat(boat))
         ES.encode_lanes_slim.launches = 0
         PDc.decode_planes.launches = 0
+        reset_runs()
         run("compress", tmp / "boat.png", tmp / "g.icer", "-G")
         run("decompress", tmp / "g.icer", tmp / "g.png", "-G")
-        launches = {"slim_encode": ES.encode_lanes_slim.launches,
+        launches = {"slim_encode": encode_runs()["slim_encode"],
                     "plane_decode": PDc.decode_planes.launches}
         s, px = gray_want(boat)
         if (tmp / "g.icer").read_bytes() != s:
@@ -1707,11 +1751,13 @@ def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
         ES.encode_lanes_slim.launches = 0
         ES.encode_lanes_slim_two_word.launches = 0
         PDc.decode_planes.launches = 0
+        reset_runs()
 
     def counts():
-        return {"slim_encode": ES.encode_lanes_slim.launches,
-                "slim_encode_two_word": ES.encode_lanes_slim_two_word
-                .launches, "plane_decode": PDc.decode_planes.launches}
+        runs = encode_runs()
+        return {"slim_encode": runs["slim_encode"],
+                "slim_encode_two_word": runs["slim_encode_two_word"],
+                "plane_decode": PDc.decode_planes.launches}
 
     def tag(q):
         return "unlimited" if q is None else f"quota {q}"
@@ -1873,14 +1919,15 @@ def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
         f"{res['k1w_bound'][1]}; {1e6 * res['k1w_ms'] / bw.shape[0]:.1f} ns "
         f"per step), plain on the host CPU {plain_s:.1f} s | {card}")
     del kw
-    enc = T.make_encoder(w, h, cfg, np.uint16, dev)
+    enc = T.make_encoder(w, h, cfg, np.uint16, dev, graph=False)
 
-    # device memory of one encode pass per coder word, in each mode
+    # device memory of one eager encode pass per coder word, in each mode
+    # (a captured pass holds the same in its graph's pool)
     per_word = {}
     for mode, e, imgs in (("two-word", enc, images["gray1024"][:4]),
                           ("fused", T.make_encoder(
                               batch8.shape[2], batch8.shape[1], cfg,
-                              np.uint16, dev),
+                              np.uint16, dev, graph=False),
                            np.concatenate([batch8] * 4))):
         pk, words = coder_bytes_per_word(e, imgs)
         per_word[mode] = pk / words
@@ -1898,7 +1945,8 @@ def cli_defaults_phase(dev, card, boat):
     PNGs (variants of ``color_boat`` of boat tiled 2x2, noise of +-6 from
     seed 1234), ``-c``: every stream equals ``compress_yuv`` at the CLI's
     default quota and every decode ``decompress_yuv``; peak device
-    memory of each operation."""
+    memory of each operation.  Also returns the bytes the graph pool holds
+    after it and batch-compress's peak with every pass eager."""
     from icer_compression_tpu_torch import cli
     from icer_compression_tpu_torch.models import color as TC
     from icer_compression_tpu_torch.models import grayscale as T
@@ -1923,6 +1971,7 @@ def cli_defaults_phase(dev, card, boat):
             ES.encode_lanes_slim.launches = 0
             ES.encode_lanes_slim_two_word.launches = 0
             PDc.decode_planes.launches = 0
+            reset_runs()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1936,9 +1985,9 @@ def cli_defaults_phase(dev, card, boat):
                 "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                 "launches": {
-                    "slim_encode": ES.encode_lanes_slim.launches,
+                    "slim_encode": encode_runs()["slim_encode"],
                     "slim_encode_two_word":
-                        ES.encode_lanes_slim_two_word.launches,
+                        encode_runs()["slim_encode_two_word"],
                     "plane_decode": PDc.decode_planes.launches}}
         ccfg = T.CodecConfig(4, 0, 6, 3 * h * w)
         for i in range(8):
@@ -1953,6 +2002,32 @@ def cli_defaults_phase(dev, card, boat):
             if not np.array_equal(read_png(tmp / "dec" / f"c{i}.png"), back):
                 raise AssertionError(f"cli defaults decode c{i} differs "
                                      "from decompress_yuv")
+        # the same batch-compress with every pass eager, for its peak
+        from icer_compression_tpu_torch.backend import graph_cache as GC
+        graph = {"reserved": GC.reserved_bytes(dev),
+                 "bound": GC.CACHE.bound(dev),
+                 "peak": res["batch-compress"]["peak_allocated_gb"] * 1e9}
+        if graph["reserved"] > graph["bound"]:
+            raise AssertionError(f"cli defaults: the graphs reserve "
+                                 f"{graph['reserved']} B, past their bound "
+                                 f"{graph['bound']} B")
+        with eager_passes():
+            _r, graph["eager_s"], graph["eager_peak"] = peak(
+                lambda: cli.main(["batch-compress", str(tmp / "in"),
+                                  str(tmp / "eager"), "-c", "--batch-size",
+                                  "56", "--pipeline", "4", "--device",
+                                  dev.type]))
+        for i in range(8):
+            if (tmp / "eager" / f"c{i}.icer").read_bytes() != \
+                    (tmp / "enc" / f"c{i}.icer").read_bytes():
+                raise AssertionError(f"cli defaults c{i}: eager passes give "
+                                     "another stream")
+    log(f"cli defaults batch-compress: graph pools reserve "
+        f"{graph['reserved'] / 1e9:.2f} GB after it against their bound "
+        f"{graph['bound'] / 1e9:.2f} GB; its peak allocated "
+        f"{graph['peak'] / 1e9:.2f} GB, with every pass eager "
+        f"{graph['eager_peak'] / 1e9:.2f} GB above the baseline "
+        f"({graph['eager_s']:.3f} s), the same streams | {card}")
     if res["batch-compress"]["launches"]["slim_encode_two_word"] <= 0:
         raise AssertionError("cli defaults: the two-word instance of kernel "
                              "1 did not launch")
@@ -1965,7 +2040,7 @@ def cli_defaults_phase(dev, card, boat):
             f"{card}")
     log("cli defaults: streams equal compress_yuv and decodes equal "
         "decompress_yuv for all 8 images")
-    return res
+    return res, graph
 
 
 def big_blocks(dev, boat):
@@ -2026,7 +2101,10 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
     res = {"launches": {}, "images": {}, "pallas": {}}
 
     def timed_launch(words, nev):
-        """Kernel 1's launches on the path, bracketed by CUDA events."""
+        """Kernel 1's launches on the path, bracketed by CUDA events (not
+        while a pass is being captured: a replay runs no Python)."""
+        if torch.cuda.is_current_stream_capturing():
+            return launch(words, nev)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -2041,12 +2119,14 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
         ES.encode_lanes_slim_two_word.launches = 0
         k4.launches = 0
         PDc.decode_planes.launches = 0
+        reset_runs()
         seen.clear()
 
     def counts():
-        return {"slim_encode": ES.encode_lanes_slim.launches,
-                "slim_encode_two_word": ES.encode_lanes_slim_two_word
-                .launches, "full_encode": k4.launches,
+        runs = encode_runs()
+        return {"slim_encode": runs["slim_encode"],
+                "slim_encode_two_word": runs["slim_encode_two_word"],
+                "full_encode": runs["full_encode"],
                 "plane_decode": PDc.decode_planes.launches}
 
     def check_pin(label, digest):
@@ -2325,7 +2405,7 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
         f"lane, {chain} steps) | {card}")
     del ins, kout
     pk, words = coder_bytes_per_word(T.make_encoder(
-        bw, bh, cfg, np.uint16, dev), images["gray2048"][:1])
+        bw, bh, cfg, np.uint16, dev, graph=False), images["gray2048"][:1])
     res["bytes_per_word"] = pk / words
     log(f"encode pass, kernel 1's two-word instance on the largest bucket "
         f"(one 2048x2048 image, {words} coder words): peak "
@@ -2377,7 +2457,8 @@ def pass_peak(enc, imgs, old: bool = False) -> dict:
 
 def coder_plan_phase(dev, card, boat) -> dict:
     """Phase 27: each coder's peak device bytes per coder word at each pass
-    size of ``PLAN_CASES``, one pass each (lossless s4 fA g6)."""
+    size of ``PLAN_CASES``, one eager pass each (lossless s4 fA g6; a
+    captured pass holds its peak in the graph pool instead)."""
     from icer_compression_tpu_torch.models import grayscale as T
     imgs = plan_images(boat, *(max(max(c[3]) for c in PLAN_CASES
                                    if c[2] == key)
@@ -2388,7 +2469,7 @@ def coder_plan_phase(dev, card, boat) -> dict:
         for n in sizes:
             batch = imgs[key][:n]
             enc = T.make_encoder(batch.shape[2], batch.shape[1], cfg,
-                                 np.uint16, dev, entropy=entropy)
+                                 np.uint16, dev, entropy=entropy, graph=False)
             r = pass_peak(enc, batch, bool(old))
             res[f"{label} {key} x{n}" + (" old plan" if old else "")] = r
             log(f"coder {label}{' (old plan)' if old else ''}, one pass of "
@@ -2414,7 +2495,8 @@ def sorted_pass_phase(dev, card, boat, long_pins, big_pins, plan,
     slim's).  Each stream equals its pin (phase 20's, phase 25's) or the
     ``auto`` stream of the same image; each peak stays at or under the
     budget: slim two-word's full 1024x1024 pass (phase 27, ``plan``) and
-    the 5120x3840 frame's ``auto`` encode (phase 25, ``big_auto_peak``)."""
+    the 5120x3840 frame's ``auto`` encode (phase 25, ``big_auto_peak``).
+    Its passes run eagerly, as phase 27's, so that the peaks are theirs."""
     from icer_compression_tpu_torch.models import grayscale as T
     cfg = T.CodecConfig(4, 0, 6, None)
     res = {}
@@ -2424,8 +2506,9 @@ def sorted_pass_phase(dev, card, boat, long_pins, big_pins, plan,
             ("gray1024", imgs, plan["slim two-word gray1024 x9"]["peak"]),
             ("gray5120x3840", frame, big_auto_peak)):
         h, w = batch.shape[1:]
-        enc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted")
-        auto = T.make_encoder(w, h, cfg, np.uint16, dev)
+        enc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted",
+                             graph=False)
+        auto = T.make_encoder(w, h, cfg, np.uint16, dev, graph=False)
         passes = -(-len(batch) // enc.pass_images)
         per = min(len(batch), enc.pass_images)
         calls = [-(-per * b["rows"] // b["call_rows"]) for b in enc.buckets]
@@ -2576,12 +2659,13 @@ def kernel_ms(fn, name: str, reps: int = 5) -> float:
     """Median device time in ms of the kernel ``name`` over ``reps`` calls
     of fn(), from the profiler's records of the card (the call's other
     launches and its host time left out).  The profiler has been seen to
-    drop a record of a long launch: a window that does not hold ``reps``
-    records of ``name`` is profiled again, twice at most."""
+    drop a record of a long launch, in three windows in a row once (the
+    5120x3840 row pass): a window that does not hold ``reps`` records of
+    ``name`` is profiled again, four times at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -2592,7 +2676,7 @@ def kernel_ms(fn, name: str, reps: int = 5) -> float:
         if len(times) == reps:
             return statistics.median(times)
     raise AssertionError(f"the profiler saw {len(times)} launches of "
-                         f"{name}, not {reps}, in three windows")
+                         f"{name}, not {reps}, in five windows")
 
 
 def count_launches(fn):
@@ -2796,9 +2880,11 @@ def w1_entry(w1r, cfr, main_launches) -> dict:
 def trace_phase(dev, card, boat):
     """Phase 26's trace: one boat 512 main-path encode and decode (s4 fA
     g6, lossless; warm) under ``torch.profiler`` with the CPU and the
-    card traced, each device launch put in its layer (``trace_layers``);
+    card traced, each device launch put in its layer (``trace_layers``),
+    the encode's passes eager (a replay has no host range inside it);
     logs each layer's device ms, launches and host ms, and each half's
-    wall, busy time, idle share and host time between launches."""
+    wall, busy time, idle share and host time between launches; beside
+    them one encode through the captured graph, as a whole."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from icer_compression_tpu_torch.models import grayscale as T
     cfg = T.CodecConfig(4, 0, 6, None)
@@ -2807,23 +2893,26 @@ def trace_phase(dev, card, boat):
     torch.cuda.synchronize()
     with annotated(trace_layers()), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("encode"):
+        with eager_passes(), record_function("encode"):
             s2 = T.compress(boat, cfg, device=dev)
         with record_function("decode"):
             px = T.decompress(s, cfg, np.uint16, device=dev)
+        with record_function("encode graph"):
+            s3 = T.compress(boat, cfg, device=dev)
         torch.cuda.synchronize()
-    if s2 != s or not np.array_equal(px, boat):
+    if s2 != s or s3 != s or not np.array_equal(px, boat):
         raise AssertionError("the traced main path differs")
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     res = {}
-    for half in ("encode", "decode"):
+    for half in ("encode", "decode", "encode graph"):
         r = res[half] = layer_breakdown(events, half)
         log(f"trace, boat 512 main-path {half} (profiled): wall "
             f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms, "
-            f"idle share {r['idle_share']:.4f}, {r['launches']} launches, "
+            f"idle share {r['idle_share']:.4f}, {r['launches']} launches "
+            f"from {r['api_launches']} API calls, "
             f"{r['host_gap_us']:.1f} us of host between launches | {card}")
         for layer, g in sorted(r["layers"].items(),
                                key=lambda kv: -kv[1]["device_ms"]):
@@ -2864,10 +2953,16 @@ def config_phase(dev, card, boat, pins, errors):
         for fns in counted.values():
             for fn in fns:
                 fn.launches = 0
+        reset_runs()
 
     def counts():
-        return {k: sum(fn.launches for fn in fns)
-                for k, fns in counted.items()}
+        # the encode kernels' runs as the card counted them
+        runs = encode_runs()
+        n = {k: sum(fn.launches for fn in fns)
+             for k, fns in counted.items()}
+        n["K1"] = runs["slim_encode"] + runs["slim_encode_two_word"]
+        n["K4"] = runs["full_encode"]
+        return n
 
     res = {"launches": {}, "walls": {}}
     for label, img, dtype, cfg_t in config_sweep(boat):
@@ -3258,6 +3353,7 @@ def sharded_rank(rank: int, world: int, data: int, backend: str, port: int,
     ES.encode_lanes_slim_two_word.launches = 0
     PDc.decode_planes.launches = 0
     enc = sharded.ShardedGrayscaleEncoder(mesh, w, h, 4, 0, 6)
+    reset_runs(device)
     dec = sharded.ShardedGrayscaleDecoder(mesh, w, h, cfg)
     cenc = sharded.ShardedColorEncoder(mesh, w, h, 4, 0, 6)
     walls = {}
@@ -3273,8 +3369,8 @@ def sharded_rank(rank: int, world: int, data: int, backend: str, port: int,
            "colour_shas": [hashlib.sha256(s).hexdigest() for s in colour],
            "decoded_equal": all(np.array_equal(a, b)
                                 for a, b in zip(decoded, imgs)),
-           "slim_encode": ES.encode_lanes_slim.launches
-           + ES.encode_lanes_slim_two_word.launches,
+           "slim_encode": sum(encode_runs(device)[k] for k in (
+               "slim_encode", "slim_encode_two_word")),
            "plane_decode": PDc.decode_planes.launches,
            "host_reencode_lanes": enc.enc.fallback_lanes, "walls_s": walls}
     with open(Path(out) / f"rank{rank}.json", "w") as f:
@@ -3314,6 +3410,9 @@ def sharded_phase(card, boat, golden, gray_streams, colour_streams,
     any rank, or a fuzz mismatch, fails the phase."""
     from icer_compression_tpu_torch.utils import fuzz
     want_colour = [hashlib.sha256(s).hexdigest() for s in colour_streams]
+    # the ranks share the card with this process: hand them its cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     res = {}
     for backend, n, data in SHARDED_WORLDS:
         port = _free_port()
@@ -3449,9 +3548,15 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
     RGB written as a PNG): streams and decoded PNGs equal
     ``example_pins``.  ``bench_scaling --devices 1,2``: both worlds'
     streams equal the single-card encoder's."""
+    from icer_compression_tpu_torch.backend import graph_cache as GC
     from icer_compression_tpu_torch.utils.image_io import read_png, write_png
     torch.cuda.synchronize()
+    held = GC.reserved_bytes("cuda")
+    GC.CACHE.clear()
     torch.cuda.empty_cache()
+    log(f"before phase 29: {len(GC.CACHE.captures)} captures so far, "
+        f"{GC.CACHE.replays} replays; the graph pool's {gb(held)} released "
+        f"(now {gb(GC.reserved_bytes('cuda'))}) | {card}")
     total = torch.cuda.get_device_properties(0).total_memory
     res = {}
     (out, secs), = run_programs([["icer_compression_tpu_torch.bench"]], REPO)
@@ -3482,7 +3587,8 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
         f"({b['encode_MPs']:.3f} MP/s), B_dec {b['B']} decode "
         f"{b['decode_s']:.4f} s ({b['decode_MPs']:.3f} MP/s); "
         f"{b['MPs']:.4f} MP/s; peaks encode "
-        f"{gb(b['encode_peak_allocated_bytes'])}, decode "
+        f"{gb(b['encode_peak_allocated_bytes'])} (and graph pools holding "
+        f"{gb(b['encode_graph_pool_bytes'])} after it), decode "
         f"{gb(b['decode_peak_allocated_bytes'])} of {gb(total)} | {card}")
     log(f"  bench cuda pipelined: K {p['batches_in_flight']}, encode "
         f"{1e3 * p['encode_s_per_img']:.3f} ms/img, decode "
@@ -3490,7 +3596,8 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in
                     p["decode_variants_ms_per_img"].items())
         + f" ms/img); {p['MPs']:.4f} MP/s; peaks encode "
-        f"{gb(p['encode_peak_allocated_bytes'])}, decode "
+        f"{gb(p['encode_peak_allocated_bytes'])} (graph pools "
+        f"{gb(p['encode_graph_pool_bytes'])}), decode "
         f"{gb(p['decode_peak_allocated_bytes'])} of {gb(total)} | {card}")
     log(f"  bench warm-up walls (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in d["warmup_breakdown_s"].items()))
@@ -3509,8 +3616,15 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
                 f"({g['device_ms_per_image']:.4f}/img) in {g['launches']} "
                 f"launches, host {g['host_ms']:.2f} ms "
                 f"({g['host_ms_per_image']:.3f}/img)")
+    r = dt["encode_graph"]
+    log(f"  bench device time, encode of {r['images']} through the captured "
+        f"graphs (profiled): wall {r['wall_ms']:.2f} ms, device busy "
+        f"{r['busy_ms']:.3f} ms ({r['per_image']['busy_ms']:.4f} ms/img), "
+        f"idle share {r['idle_share']:.4f}, {r['launches']} launches from "
+        f"{r['api_launches']} API calls | {card}")
     log(f"  bench ceiling {dt['combined_MPs_ceiling']:.3f} MP/s (pixels / "
-        "device busy time per image)")
+        f"device busy time per image; with the eager encode "
+        f"{dt['combined_MPs_ceiling_eager']:.3f})")
     res["bench"] = bench
     res["bench_s"] = secs
 
@@ -3561,6 +3675,331 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
     return res
 
 
+class EagerPasses:
+    """A stand-in for ``graph_cache.CACHE`` that runs every encode pass
+    eagerly: phase 30's reference for the entry points that take no
+    encoder (``compress``, ``compress_yuv``, the CLI)."""
+
+    def run(self, key, fn, x):
+        return tuple(fn(x)), "eager"
+
+
+def eager_passes():
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    return swapped(GC, "CACHE", EagerPasses())
+
+
+# phase 30: the 5120x3840 frame's stage-1 bucket codes in two calls a pass
+GRAPH_FRAME = (3840, 5120)
+# phase 30: the encode kernels, by the name of their device function
+ENCODE_KERNELS = {"slim_encode": "slim_encode_kernel",
+                  "slim_encode_two_word": "slim_encode_wide_kernel",
+                  "full_encode": "full_encode_kernel"}
+
+
+def pass_memory(enc, imgs) -> dict:
+    """One pass of ``imgs`` through ``enc``'s device pass: its eager
+    allocated and reserved peaks above the baseline, and the pool of its
+    capture without expandable segments and with them (the graphs are
+    dropped after)."""
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    x = enc._upload(imgs)
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_a, base_r = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    outs = enc.device_pass(x)
+    torch.cuda.synchronize()
+    res["allocated"] = torch.cuda.max_memory_allocated() - base_a
+    res["reserved"] = torch.cuda.max_memory_reserved() - base_r
+    del outs
+    for label, setting in (("fixed", contextlib.nullcontext),
+                           ("expandable", GC.expandable_segments)):
+        torch.cuda.empty_cache()
+        g = torch.cuda.CUDAGraph()
+        with setting(), torch.cuda.graph(g):
+            outs = enc.device_pass(x)
+        res[label] = GC.pool_bytes(g, torch.device("cuda", 0))
+        del g, outs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return res
+
+
+def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
+    """Phase 30: each encode pass a captured CUDA graph (the default on
+    the card) against the same pass run eagerly, byte for byte: boat
+    single image; the bench's 112 noisy variants in passes of 37, 37, 37
+    and 1, each dispatch half under ``no_host_sync``; phase 4's batch of
+    8; phase 16's colour image; 1024x1024 (K1 two-word); 5120x3840 (two
+    coder calls a pass); quota 50,000; boat and a noisy variant through
+    ``pallas`` and ``sorted``, deferred with two batches in flight (the
+    first collector's host lanes re-encode from words the second replay
+    would overwrite).  Each case runs three times on the graph path (a
+    key's eager pass, the eager pass its collector captures and checks,
+    a replay) and once eagerly: every stream equal, and the third run's
+    K1 / K4 runs as the kernels count them on the card equal the eager
+    run's.  Then: each capture's seconds and check, the bytes the graphs
+    reserve on the device against their bound (one pass budget beyond
+    their static tensors) after the bench's batch, after phase 21's CLI
+    defaults (``cli_graph``) and at the end, the 37-image pass's pool with
+    and without expandable segments beside its eager peaks, boat's encode
+    and decode walls graph against eager in turns (medians of 5), and the
+    device work, kernels by name and API launches of one boat encode each
+    way."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import grayscale as T
+
+    cache = GC.CACHE
+    h, w = boat.shape
+    cfg = T.CodecConfig(4, 0, 6, None)
+
+    def counted(fn):
+        """(fn(), encode kernel runs counted on the card, seconds, peak
+        bytes, replays)."""
+        reset_runs()
+        r0 = cache.replays
+        out, secs, pk = peak(fn)
+        runs = {k: n for k, n in encode_runs().items() if n}
+        return out, runs, secs, pk, cache.replays - r0
+
+    res = {"cases": {}}
+    eager_peaks = []
+
+    def case(label, fn, check=None):
+        runs = [counted(fn) for _ in range(3)]
+        with eager_passes():
+            want, eager_n, eager_s, eager_pk, _r = counted(fn)
+        eager_peaks.append(eager_pk)
+        for i, r in enumerate(runs):
+            if r[0] != want:
+                raise AssertionError(f"phase 30 {label}: graph run {i + 1} "
+                                     "differs from the eager passes")
+        if runs[2][4] <= 0 or runs[2][1] != eager_n or not eager_n:
+            raise AssertionError(f"phase 30 {label}: the third run replayed "
+                                 f"{runs[2][4]} passes whose kernels ran "
+                                 f"{runs[2][1]} times on the card, the "
+                                 f"eager passes' {eager_n}")
+        if check is not None:
+            check(want)
+        res["cases"][label] = {
+            "runs": eager_n, "replays": runs[2][4],
+            "walls_s": [r[2] for r in runs], "eager_s": eager_s,
+            "eager_peak": eager_pk, "graph_peaks": [r[3] for r in runs]}
+        log(f"phase 30 {label}: 3 graph runs equal the eager passes byte for "
+            f"byte; the third replayed {runs[2][4]} pass(es), kernel runs "
+            f"counted on the card {runs[2][1]} = eager's; walls (eager "
+            f"pass, eager pass and capture, replay) "
+            f"{[round(r[2], 4) for r in runs]} s, eager {eager_s:.4f} s; "
+            f"peaks {[gb(r[3]) for r in runs]}, eager {gb(eager_pk)} | "
+            f"{card}")
+        return want
+
+    def sha_is(want_sha, what):
+        def check(stream):
+            s = stream[0] if isinstance(stream, list) else stream
+            if hashlib.sha256(s).hexdigest() != want_sha:
+                raise AssertionError(f"phase 30 {what}: stream differs from "
+                                     "its pin")
+        return check
+
+    def within_bound(what):
+        torch.cuda.synchronize()
+        got, bound = GC.reserved_bytes(dev), cache.bound(dev)
+        if got > bound:
+            raise AssertionError(f"phase 30 {what}: the graphs reserve "
+                                 f"{got} B, past their bound {bound} B")
+        return got, bound
+
+    case("boat 512 lossless", lambda: T.compress(boat, cfg, device=dev),
+         sha_is(golden, "boat"))
+
+    # the bench's batch, through one encoder as the bench runs it, each
+    # dispatch half (a key's first three passes among them) under
+    # no_host_sync
+    rng = np.random.default_rng(0)
+    imgs = np.stack([np.clip(boat.astype(np.int32) + rng.integers(
+        -6, 7, boat.shape), 0, 255).astype(np.uint16) for _ in range(112)])
+    imgs[0] = boat
+    benc = T.make_encoder(w, h, cfg, np.uint16, dev)
+    if (-(-len(imgs) // benc.pass_images), len(imgs) % benc.pass_images) \
+            != (4, 1):
+        raise AssertionError(f"112 images in passes of {benc.pass_images}")
+
+    def bench_batch():
+        with no_host_sync():
+            collect = benc.encode_batch(imgs, defer=True)
+        return T.allocate_streams(collect(), cfg, benc)
+
+    case("bench 112 (passes 37, 37, 37, 1)", bench_batch,
+         sha_is(golden, "bench batch"))
+    res["bench_reserved"], res["bench_bound"] = within_bound("bench 112")
+    res["bench_static"] = cache.static_bytes(dev)
+    log(f"phase 30 bench 112: every dispatch half under no_host_sync "
+        f"(set_sync_debug_mode 'error'), the 37-image key's first three "
+        f"passes among them: no host sync; graph pools reserve "
+        f"{gb(res['bench_reserved'])} against their bound "
+        f"{gb(res['bench_bound'])} (one pass budget beyond static tensors "
+        f"of {gb(res['bench_static'])}); the batch's eager peak "
+        f"{gb(eager_peaks[-1])} | {card}")
+    mem = res["pass37"] = pass_memory(
+        T.make_encoder(w, h, cfg, np.uint16, dev, graph=False), imgs[:37])
+    log(f"phase 30 the pass of 37: eager peak allocated "
+        f"{gb(mem['allocated'])}, reserved {gb(mem['reserved'])}; its "
+        f"graph's pool with fixed segments {gb(mem['fixed'])}, with "
+        f"expandable segments {gb(mem['expandable'])} | {card}")
+
+    rng = np.random.default_rng(1234)
+    batch8 = np.clip(boat[None].astype(np.int32) + rng.integers(
+        -6, 7, (8, h, w)), 0, 255).astype(np.uint16)
+    case("batch of 8 (phase 4)",
+         lambda: T.compress_batch(batch8, cfg, device=dev))
+
+    ccfg = T.CodecConfig(4, 0, 6, None)
+    planes = color_planes(color_boat(boat.astype(np.uint8)), np.uint16)
+    cpin = [ln.split()[0] for ln in (REPO / "tests" / "data"
+                                     / "golden_color512.sha256")
+            .read_text().splitlines()][0]
+    case("colour 512 u16 unlimited (phase 16)",
+         lambda: TC.compress_yuv(*planes, ccfg, device=dev),
+         sha_is(cpin, "colour"))
+
+    big = long_lane_images(boat)["gray1024"][0]
+    case("1024x1024 lossless (K1 two-word)",
+         lambda: T.compress(big, cfg, device=dev))
+    frame = _tiled(boat, *GRAPH_FRAME)[0]
+    fenc = T.make_encoder(GRAPH_FRAME[1], GRAPH_FRAME[0], cfg, np.uint16, dev)
+    stage1 = fenc.buckets[0]
+    if -(-stage1["rows"] // stage1["call_rows"]) < 2:
+        raise AssertionError("5120x3840: stage 1 in one coder call")
+    case("5120x3840 lossless (stage 1 in two coder calls)",
+         lambda: T.compress(frame, cfg, device=dev))
+    del frame, fenc
+    case("boat quota 50000", lambda: T.compress(
+        boat, T.CodecConfig(4, 0, 6, 50000), device=dev),
+        sha_is(pins[0], "quota 50000"))
+
+    # pallas and sorted, deferred with two batches in flight
+    res["deferred"] = {}
+    for coder in ("pallas", "sorted"):
+        enc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy=coder)
+        ref = T.make_encoder(w, h, cfg, np.uint16, dev, entropy=coder,
+                             graph=False)
+        pair = [boat[None], batch8[1:2]]
+        want = [T.allocate_streams(ref.encode_batch(b), cfg, ref)[0]
+                for b in pair]
+        for b, s in zip(pair, want):          # the eager pass, the capture
+            if T.allocate_streams(enc.encode_batch(b), cfg, enc)[0] != s:
+                raise AssertionError(f"phase 30 {coder}: graph differs")
+        seen = watch_host_lanes(enc)
+        lanes0, snaps0 = enc.fallback_lanes, cache.snapshots
+        first = enc.encode_batch(pair[0], defer=True)
+        second = enc.encode_batch(pair[1], defer=True)
+        got1 = T.allocate_streams(second(), cfg, enc)[0]
+        got0 = T.allocate_streams(first(), cfg, enc)[0]
+        if [got0, got1] != want or hashlib.sha256(got0).hexdigest() != golden:
+            raise AssertionError(f"phase 30 {coder} deferred: streams differ")
+        nlanes, _secs = check_host_lanes(f"phase 30 {coder}", seen)
+        if cache.snapshots <= snaps0 or nlanes != enc.fallback_lanes - lanes0:
+            raise AssertionError(f"phase 30 {coder}: no words copied out "
+                                 "before the second replay")
+        res["deferred"][coder] = {"host_lanes": [len(s[1]) for s in seen],
+                                  "snapshots": cache.snapshots - snaps0}
+        log(f"phase 30 {coder}, boat and a variant deferred with two "
+            f"batches in flight: streams equal the eager encoder's (boat's "
+            f"the golden one); host lanes {[len(s[1]) for s in seen]}, each "
+            f"native payload equal to the sequential coder's on the words it "
+            f"re-encoded; words copied out before a replay "
+            f"{cache.snapshots - snaps0} time(s) | {card}")
+        del enc, ref, seen
+
+    # boat's walls, graph against eager, in turns
+    stream = T.compress(boat, cfg, device=dev)
+    walls = {"graph": [], "eager": []}
+    for i in range(5):
+        for mode in ("graph", "eager")[::1 if i % 2 == 0 else -1]:
+            with (eager_passes() if mode == "eager"
+                  else contextlib.nullcontext()):
+                _s, te = sync_time(lambda: T.compress(boat, cfg, device=dev))
+            _d, td = sync_time(lambda: T.decompress(stream, cfg, np.uint16,
+                                                    device=dev))
+            walls[mode].append((te, td))
+    med = {m: (statistics.median(e for e, _d in v),
+               statistics.median(d for _e, d in v)) for m, v in walls.items()}
+    res["walls"] = med
+    log("phase 30 boat 512 lossless walls in turns (medians of 5): "
+        + "; ".join(f"{m} encode {1e3 * e:.2f} ms, decode {1e3 * d:.2f} "
+                    f"ms, {h * w / (e + d) / 1e6:.4f} MP/s"
+                    for m, (e, d) in med.items()) + f" | {card}")
+
+    # one boat encode each way under the profiler: the encode kernels'
+    # records by name inside the replay's window against the eager one's
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("encode graph"):
+            T.compress(boat, cfg, device=dev)
+        with eager_passes(), record_function("encode eager"):
+            T.compress(boat, cfg, device=dev)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    res["trace"] = {}
+    for mode in ("graph", "eager"):
+        r = res["trace"][mode] = layer_breakdown(events, f"encode {mode}")
+        r["encode_kernels"] = {
+            k: sum(n for name, n in r["kernels"].items() if fn in name)
+            for k, fn in ENCODE_KERNELS.items()}
+        log(f"phase 30 boat encode {mode} (profiled): wall {r['wall_ms']:.2f} "
+            f"ms, device busy {r['busy_ms']:.3f} ms, idle share "
+            f"{r['idle_share']:.4f}, {r['launches']} device launches from "
+            f"{r['api_launches']} API calls; encode kernels in the trace "
+            f"{r['encode_kernels']} | {card}")
+    tg, te = res["trace"]["graph"], res["trace"]["eager"]
+    if tg["encode_kernels"] != te["encode_kernels"] \
+            or not te["encode_kernels"]["slim_encode"] \
+            or tg["api_launches"] >= te["api_launches"]:
+        raise AssertionError("phase 30: the replayed boat encode's kernels "
+                             f"{tg['encode_kernels']} ({tg['api_launches']} "
+                             f"API launches) differ from the eager one's "
+                             f"{te['encode_kernels']}")
+
+    res["captures"] = list(cache.captures)
+    for c in cache.captures:
+        k = c["key"]
+        log(f"phase 30 capture {k[0]}x{k[1]} B={k[6]} "
+            f"{'/'.join(x[0] for x in k[7])} windows {k[8]}: attempt "
+            f"{c['attempt']}, first replay equal {c['equal']}, "
+            f"{c['seconds']:.3f} s, pool {gb(c['pool_bytes'])}, static "
+            f"{gb(c['static_bytes'])}")
+    if not all(c["equal"] for c in cache.captures):
+        raise AssertionError("phase 30: a first-replay check failed")
+    res["reserved"], res["bound"] = within_bound("the end")
+    res["live"] = cache.pool_total(dev)
+    res["static"] = cache.static_bytes(dev)
+    res["eager_peak"] = max(eager_peaks)
+    res["largest_pool"] = max(c["pool_bytes"] for c in cache.captures)
+    log(f"phase 30 graph pools: {len(cache.keys())} graphs, reserve "
+        f"{gb(res['reserved'])} against their bound {gb(res['bound'])}, "
+        f"live graphs' pools {gb(res['live'])} (after the bench's batch "
+        f"{gb(res['bench_reserved'])} against {gb(res['bench_bound'])}; "
+        f"after phase 21's CLI defaults {gb(cli_graph['reserved'])} against "
+        f"{gb(cli_graph['bound'])}, that run's peak "
+        f"{gb(cli_graph['peak'])} against {gb(cli_graph['eager_peak'])} "
+        f"eager), of which static tensors {gb(res['static'])}; largest "
+        f"pool {gb(res['largest_pool'])}, largest eager peak "
+        f"{gb(res['eager_peak'])}; evictions {cache.evictions}, replays "
+        f"{cache.replays}, words copied out {cache.snapshots} "
+        f"({gb(cache.snapshot_bytes)}) | {card}")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:
         a = sys.argv[2:]
@@ -3574,7 +4013,7 @@ def main() -> int:
 
 
 def smoke(host) -> int:
-    """Phases 1-29 on the card; ``host`` runs the plain versions that are
+    """Phases 1-30 on the card; ``host`` runs the plain versions that are
     checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
@@ -3780,6 +4219,7 @@ def smoke(host) -> int:
     PDc.decode_planes.launches = 0
     EF.encode_lanes_full.launches = 0
     WV.inverse_pass.launches = 0
+    reset_runs()
     menc = T.make_encoder(w, h, cfg, np.uint16, dev)
     stream = T.compress_batch(boat[None], cfg, encoder=menc)[0]
     out = T.decompress(stream, cfg, dtype=np.uint16, device=dev)
@@ -3796,6 +4236,10 @@ def smoke(host) -> int:
         raise AssertionError("boat lossless decode differs from the input")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not launch: {launches}")
+    # the key's first pass runs eagerly: each launch ran once on the card
+    if encode_runs()["slim_encode"] != launches["slim_encode"]:
+        raise AssertionError(f"K1 ran {encode_runs()} times on the card, "
+                             f"its wrapper launched {launches}")
     log(f"main path boat 512 lossless: {len(stream)} B sha {sha[:16]}... == "
         f"golden, decode pixel-exact; launches {launches}; host re-encode "
         f"lanes {menc.fallback_lanes}")
@@ -3912,7 +4356,7 @@ def smoke(host) -> int:
     cl = cli_phase(dev, card, boat)
     lng = long_lane_phases(dev, card, boat, long_pins, batch, host, long_bw)
     del long_bw
-    cld = cli_defaults_phase(dev, card, boat)
+    cld, cli_graph = cli_defaults_phase(dev, card, boat)
     flt = fault_phase(dev, card, boat, stream, cfg, dict(
         ln.split(None, 1)[::-1] for ln in
         (data / "golden_faults.sha256").read_text().splitlines()))
@@ -3953,6 +4397,9 @@ def smoke(host) -> int:
         ln.split(None, 3)[3]: ln.split()[:3] for ln in
         (data / "golden_examples.sha256").read_text().splitlines()})
     t29 = time.perf_counter() - t29
+    t30 = time.perf_counter()
+    g30 = graph_phase(dev, card, boat, golden, pins, cli_graph)
+    t30 = time.perf_counter() - t30
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
              "plane_decode": {}, "full_encode": {}, "wavelet_inverse": {}}
     for path, counts in (
@@ -4161,7 +4608,14 @@ def smoke(host) -> int:
         f"batched {gb(bb['encode_peak_allocated_bytes'])}, pipelined "
         f"{gb(bp['encode_peak_allocated_bytes'])}; phase 29 {t29:.1f} s "
         f"(bench {prg['bench_s']:.1f}, scaling {prg['scaling_s']:.1f})"
-        + f"; phases 1-29 {time.perf_counter() - t_start:.1f} s")
+        + f"; phase 30 {t30:.1f} s: {len(g30['captures'])} captures, "
+        f"graph pools {gb(g30['reserved'])} (largest eager pass "
+        f"{gb(g30['eager_peak'])}), boat encode graph / eager "
+        f"{1e3 * g30['walls']['graph'][0]:.2f} / "
+        f"{1e3 * g30['walls']['eager'][0]:.2f} ms, API launches a boat "
+        f"encode {g30['trace']['graph']['api_launches']} / "
+        f"{g30['trace']['eager']['api_launches']}"
+        + f"; phases 1-30 {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ its configuration: boat 512, lossless (quota w * h), stages 4, filter A,
                   ``allocate_streams``, in device passes of its coder's
                   share of ``ops.encode.PASS_WORDS``), decoded by
                   ``models/decode.decompress_batch`` in chunks of
-                  ``--batch``; peak device memory;
+                  ``--batch``; peak device memory, and the bytes the
+                  captured graphs' pools hold beside it;
   <dev>_pipelined ``--pipe`` batches in a row through
                   ``encode_batch(defer=True)`` and
                   ``decompress_batch(defer=True)``, each batch dispatched
@@ -24,16 +25,21 @@ its configuration: boat 512, lossless (quota w * h), stages 4, filter A,
                   the card at once, as in the root bench), each dispatch half
                   under ``torch.cuda.set_sync_debug_mode("error")`` on the
                   card; the decode at ``--batch`` and at half of it, the
-                  best verified one kept; peak device memory;
-  device_time     ``torch.profiler`` (CPU and CUDA) over one warm batched
-                  encode of ``--batch-enc`` images and one batched decode
-                  of ``--batch`` streams, each launch put in its layer
+                  best verified one kept; peak device memory and the
+                  graphs' pools, as above;
+  device_time     ``torch.profiler`` (CPU and CUDA) over one batched
+                  encode of ``--batch-enc`` images through an eager
+                  encoder (``graph=False``) and one batched decode of
+                  ``--batch`` streams, each launch put in its layer
                   (``utils/trace``): per image the device's busy ms (the
                   union of kernel and copy intervals), idle share,
                   launches and each layer's device ms, launches and host
-                  ms; the ceiling MP/s, pixels / (encode + decode busy time
-                  per image).  Card only: a CPU run reports it as not
-                  measured.
+                  ms; beside it the batched mode's encode, its passes
+                  replayed as captured graphs (``encode_graph``: busy ms,
+                  idle share, device and API launches); the ceiling MP/s,
+                  pixels / (graph encode + decode busy time per image),
+                  and the eager encode's.  Card only: a CPU run reports it
+                  as not measured.
 
 Every stream must equal the native one (and ``tests/data/golden_boat512
 .sha256`` for boat), the batch's first stream the single-image stream, and
@@ -64,6 +70,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .backend import graph_cache
 from .device import resolve_device
 from .models import decode as D
 from .models import grayscale as T
@@ -117,11 +124,15 @@ def no_host_sync(dev: torch.device):
 
 @contextlib.contextmanager
 def peak_memory(dev: torch.device, out: dict):
-    """``out`` receives the peak allocated device bytes inside the block
-    and the bytes allocated before it (None on the CPU)."""
+    """``out`` receives the peak allocated device bytes inside the block,
+    the bytes allocated before it and the bytes the captured graphs'
+    pools hold after it (None on the CPU).  A replay runs in its graph's
+    pool, reserved at the capture, so a block that replays graphs
+    captured before it peaks below what it holds on the device."""
     if dev.type != "cuda":
         yield
-        out.update(peak_allocated_bytes=None, base_allocated_bytes=None)
+        out.update(peak_allocated_bytes=None, base_allocated_bytes=None,
+                   graph_pool_bytes=None)
         return
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -129,7 +140,8 @@ def peak_memory(dev: torch.device, out: dict):
     yield
     torch.cuda.synchronize(dev)
     out.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
-               base_allocated_bytes=base)
+               base_allocated_bytes=base,
+               graph_pool_bytes=graph_cache.reserved_bytes(dev))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -234,6 +246,7 @@ def batched_mode(imgs, cfg, dev, B, reps, single_stream, warm):
            "encode_MPs": px * BE / benc / 1e6,
            "decode_MPs": px * B / bdec / 1e6,
            "encode_peak_allocated_bytes": mem_e["peak_allocated_bytes"],
+           "encode_graph_pool_bytes": mem_e["graph_pool_bytes"],
            "decode_peak_allocated_bytes": mem_d["peak_allocated_bytes"],
            "base_allocated_bytes": mem_e["base_allocated_bytes"],
            "per_image_verified": bool(ok)}
@@ -296,6 +309,7 @@ def pipelined_mode(imgs, cfg, dev, enc, streams, B, K, batched_ok):
                                           for bd, (t, _v) in runs.items()},
            "MPs": h * w / (penc + pdec) / 1e6,
            "encode_peak_allocated_bytes": mem_e["peak_allocated_bytes"],
+           "encode_graph_pool_bytes": mem_e["graph_pool_bytes"],
            "decode_peak_allocated_bytes": mem_d[B]["peak_allocated_bytes"],
            "per_image_verified": bool(pok_e and pok_d)}
     res["verified"] = res["per_image_verified"]
@@ -303,50 +317,71 @@ def pipelined_mode(imgs, cfg, dev, enc, streams, B, K, batched_ok):
 
 
 def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
-    """One warm batched encode of ``imgs`` and one batched decode of ``B``
-    streams under ``torch.profiler``, each launch put in its layer."""
+    """One batched encode of ``imgs`` through an eager encoder and one
+    batched decode of ``B`` streams under ``torch.profiler``, each launch
+    put in its layer; then one encode through ``enc``, whose passes are
+    captured graphs by now, traced as a whole."""
     from torch.profiler import ProfilerActivity, profile, record_function
     BE, h, w = imgs.shape
+    eager = T.make_encoder(w, h, cfg, imgs.dtype, device=dev, graph=False)
     torch.cuda.synchronize(dev)
-    with annotated(trace_layers()), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def events_of(prof):
+        # read before the next profiler starts: it clears these events
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            return json.loads(path.read_text())["traceEvents"]
+
+    with annotated(trace_layers()), profile(activities=acts) as prof:
         with record_function("encode"):
-            got = T.allocate_streams(enc.encode_batch(imgs), cfg, enc)
+            got = T.allocate_streams(eager.encode_batch(imgs), cfg, eager)
         with record_function("decode"):
             decs = D.decompress_batch(streams[:B], cfg, dtype=np.uint16,
                                       device=dev, pack8=True)
         torch.cuda.synchronize(dev)
-    if got != streams or not all(np.array_equal(d, i)
-                                 for d, i in zip(decs, imgs[:B])):
+    traces = [(events_of(prof), (("encode", BE), ("decode", B)))]
+    with profile(activities=acts) as gprof:
+        with record_function("encode graph"):
+            got_g = T.allocate_streams(enc.encode_batch(imgs), cfg, enc)
+        torch.cuda.synchronize(dev)
+    traces.append((events_of(gprof), (("encode graph", BE),)))
+    if got != streams or got_g != streams or not all(
+            np.array_equal(d, i) for d, i in zip(decs, imgs[:B])):
         raise AssertionError("the traced batch differs from the batched "
                              "mode's")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
     res = {}
-    for half, n in (("encode", BE), ("decode", B)):
-        r = layer_breakdown(events, half)
-        res[half] = {
-            "images": n, "wall_ms": r["wall_ms"], "busy_ms": r["busy_ms"],
-            "idle_share": r["idle_share"], "launches": r["launches"],
-            "host_gap_us": r["host_gap_us"],
-            "per_image": {"wall_ms": r["wall_ms"] / n,
-                          "busy_ms": r["busy_ms"] / n,
-                          "launches": r["launches"] / n},
-            "layers": {k: {"device_ms": g["device_ms"],
-                           "launches": g["launches"],
-                           "host_ms": g["host_ms"],
-                           "device_ms_per_image": g["device_ms"] / n,
-                           "launches_per_image": g["launches"] / n,
-                           "host_ms_per_image": g["host_ms"] / n}
-                       for k, g in r["layers"].items()}}
-    per_img = res["encode"]["per_image"]["busy_ms"] \
-        + res["decode"]["per_image"]["busy_ms"]
-    res["combined_MPs_ceiling"] = h * w / (per_img / 1e3) / 1e6
-    res["note"] = ("torch.profiler, CPU and CUDA traced, one warm batched "
-                   f"encode of {BE} and decode of {B}; busy = union of "
-                   "kernel and copy intervals; the profiler slows the host")
+    for events, halves in traces:
+        for half, n in halves:
+            r = layer_breakdown(events, half)
+            res[half.replace(" ", "_")] = {
+                "images": n, "wall_ms": r["wall_ms"],
+                "busy_ms": r["busy_ms"], "idle_share": r["idle_share"],
+                "launches": r["launches"],
+                "api_launches": r["api_launches"],
+                "host_gap_us": r["host_gap_us"],
+                "per_image": {"wall_ms": r["wall_ms"] / n,
+                              "busy_ms": r["busy_ms"] / n,
+                              "launches": r["launches"] / n,
+                              "api_launches": r["api_launches"] / n},
+                "layers": {k: {"device_ms": g["device_ms"],
+                               "launches": g["launches"],
+                               "host_ms": g["host_ms"],
+                               "device_ms_per_image": g["device_ms"] / n,
+                               "launches_per_image": g["launches"] / n,
+                               "host_ms_per_image": g["host_ms"] / n}
+                           for k, g in r["layers"].items()}}
+    dec = res["decode"]["per_image"]["busy_ms"]
+    res["combined_MPs_ceiling"] = h * w / (
+        (res["encode_graph"]["per_image"]["busy_ms"] + dec) / 1e3) / 1e6
+    res["combined_MPs_ceiling_eager"] = h * w / (
+        (res["encode"]["per_image"]["busy_ms"] + dec) / 1e3) / 1e6
+    res["note"] = ("torch.profiler, CPU and CUDA traced: one batched encode "
+                   f"of {BE} through an eager encoder (by layer) and one "
+                   f"through the captured graphs (as a whole), a decode of "
+                   f"{B}; busy = union of kernel and copy intervals; the "
+                   "profiler slows the host")
     return res
 
 

@@ -134,7 +134,8 @@ full_encode_kernel(const int32_t* __restrict__ valid,
                    const int32_t* __restrict__ bit,
                    int32_t* __restrict__ code, int32_t* __restrict__ nbits,
                    int32_t* __restrict__ opn,
-                   const int32_t* __restrict__ luts, int L, int lanes) {
+                   const int32_t* __restrict__ luts, int L, int lanes,
+                   unsigned long long* __restrict__ runs) {
   // thread i copies, packs and expands step i of each tile
   static_assert(kTile >= 1 && kTile <= 32 && kStages >= 2, "tile shape");
   __shared__ int32_t lut[kLutSize];
@@ -145,6 +146,7 @@ full_encode_kernel(const int32_t* __restrict__ valid,
   __shared__ int2 bs[17];            // (k | nb << 16, opening emission + 1)
   const int tid = threadIdx.x;
   const int lane = blockIdx.x;
+  if (runs != nullptr && lane == 0 && tid == 0) atomicAdd(runs, 1ull);
   for (int i = tid; i < kLutSize; i += 32) lut[i] = luts[i];
   if (tid < 17) bs[tid] = make_int2(0, 0);
 
@@ -320,14 +322,14 @@ full_encode_kernel(const int32_t* __restrict__ valid,
 template <int kTile, int kStages>
 int launch(const void* valid, const void* ctx, const void* bit, void* code,
            void* nbits, void* opn, const void* luts, int L, int lanes,
-           int lut_size, void* stream) {
+           int lut_size, void* runs, void* stream) {
   if (lut_size != kLutSize || L < 0 || L + 17 >= kBig)
     return (int)cudaErrorInvalidValue;
   if (lanes <= 0) return (int)cudaSuccess;
   full_encode_kernel<kTile, kStages><<<lanes, 32, 0, (cudaStream_t)stream>>>(
       (const int32_t*)valid, (const int32_t*)ctx, (const int32_t*)bit,
       (int32_t*)code, (int32_t*)nbits, (int32_t*)opn, (const int32_t*)luts,
-      L, lanes);
+      L, lanes, (unsigned long long*)runs);
   return (int)cudaGetLastError();
 }
 
@@ -336,16 +338,18 @@ int launch(const void* valid, const void* ctx, const void* bit, void* code,
 extern "C" int full_encode_launch(const void* valid, const void* ctx,
                                   const void* bit, void* code, void* nbits,
                                   void* opn, const void* luts, int L,
-                                  int lanes, int lut_size, void* stream) {
+                                  int lanes, int lut_size, void* runs,
+                                  void* stream) {
   return launch<32, 3>(valid, ctx, bit, code, nbits, opn, luts, L, lanes,
-                       lut_size, stream);
+                       lut_size, runs, stream);
 }
 
 extern "C" int full_encode_tiled_launch(const void* valid, const void* ctx,
                                         const void* bit, void* code,
                                         void* nbits, void* opn,
                                         const void* luts, int L, int lanes,
-                                        int lut_size, void* stream) {
+                                        int lut_size, void* runs,
+                                        void* stream) {
   return launch<8, 8>(valid, ctx, bit, code, nbits, opn, luts, L, lanes,
-                      lut_size, stream);
+                      lut_size, runs, stream);
 }

@@ -127,13 +127,15 @@ __global__ void __launch_bounds__(32)
 slim_encode_kernel(const int32_t* __restrict__ words,
                    int32_t* __restrict__ rec, int32_t* __restrict__ fstate,
                    int32_t* __restrict__ misc, int32_t* __restrict__ ev_out,
-                   const int32_t* __restrict__ luts, int L, int lanes) {
+                   const int32_t* __restrict__ luts, int L, int lanes,
+                   unsigned long long* __restrict__ runs) {
   __shared__ int32_t lut[kLutFused];
   __shared__ int32_t ring[kStages][kTile];
   __shared__ uint32_t zt[17];   // total | zero << 16
   __shared__ uint32_t bs[17];   // (open_alloc + 1) | k << 17 | nb << 27
   const int tid = threadIdx.x;
   const int lane = blockIdx.x;
+  if (runs != nullptr && lane == 0 && tid == 0) atomicAdd(runs, 1ull);
   for (int i = tid; i < kLutFused; i += 32) lut[i] = luts[i];
   if (tid < 17) {
     zt[tid] = 4u | (2u << 16);
@@ -319,7 +321,7 @@ slim_encode_wide_kernel(const int32_t* __restrict__ words,
                         int32_t* __restrict__ ev2,
                         int32_t* __restrict__ fop,
                         const int32_t* __restrict__ luts, int L, int lanes,
-                        int nev) {
+                        int nev, unsigned long long* __restrict__ runs) {
   __shared__ int32_t lut[kLutSize];
   __shared__ uint32_t ring[kStages][kTile];   // words, then rec1
   __shared__ int32_t ord[kTile];              // the tile's rec2
@@ -327,6 +329,7 @@ slim_encode_wide_kernel(const int32_t* __restrict__ words,
   __shared__ int2 bs[17];       // (k | nb << 16, open ordinal + 1)
   const int tid = threadIdx.x;
   const int lane = blockIdx.x;
+  if (runs != nullptr && lane == 0 && tid == 0) atomicAdd(runs, 1ull);
   for (int i = tid; i < kLutSize; i += 32) lut[i] = luts[i];
   if (tid < 17) bs[tid] = make_int2(0, 0);
   for (int e = tid; e < nev; e += 32) {
@@ -518,13 +521,14 @@ slim_encode_wide_kernel(const int32_t* __restrict__ words,
 extern "C" int slim_encode_launch(const void* words, void* rec, void* fstate,
                                   void* misc, void* ev, const void* luts,
                                   int L, int lanes, int lut_size,
-                                  void* stream) {
+                                  void* runs, void* stream) {
   if (lut_size != kLutSize || L % kTile || L + 17 + kNEV >= (1 << 15))
     return (int)cudaErrorInvalidValue;
   if (lanes <= 0 || L <= 0) return (int)cudaSuccess;
   slim_encode_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
       (const int32_t*)words, (int32_t*)rec, (int32_t*)fstate, (int32_t*)misc,
-      (int32_t*)ev, (const int32_t*)luts, L, lanes);
+      (int32_t*)ev, (const int32_t*)luts, L, lanes,
+      (unsigned long long*)runs);
   return (int)cudaGetLastError();
 }
 
@@ -533,7 +537,8 @@ extern "C" int slim_encode_two_word_launch(const void* words, void* rec1,
                                            void* misc, void* ev1, void* ev2,
                                            void* fop, const void* luts,
                                            int L, int lanes, int nev,
-                                           int lut_size, void* stream) {
+                                           int lut_size, void* runs,
+                                           void* stream) {
   if (lut_size != kLutSize || L < 0 || L % kTile || nev < 1
       || (long long)L + 17 + nev >= kBig)
     return (int)cudaErrorInvalidValue;
@@ -541,6 +546,7 @@ extern "C" int slim_encode_two_word_launch(const void* words, void* rec1,
   slim_encode_wide_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
       (const int32_t*)words, (int32_t*)rec1, (int32_t*)rec2,
       (int32_t*)fstate, (int32_t*)misc, (int32_t*)ev1, (int32_t*)ev2,
-      (int32_t*)fop, (const int32_t*)luts, L, lanes, nev);
+      (int32_t*)fop, (const int32_t*)luts, L, lanes, nev,
+      (unsigned long long*)runs);
   return (int)cudaGetLastError();
 }

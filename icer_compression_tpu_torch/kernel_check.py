@@ -32,6 +32,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from . import kernels
 from .ops import entropy_full as EF
 from .ops import entropy_slim as ES
 from .ops import plane_decode as PD
@@ -232,7 +233,8 @@ CHECKS = {
                  ("canvas", "overflow"), _w1),),
 }
 
-# the wrappers' launch counts, which the check leaves as it found them
+# the wrappers' launch counts, which the check leaves as it found them (and
+# the device's run counts, kernels.run_counters)
 _COUNTED = (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word,
             EF.encode_lanes_full, EF.encode_lanes_full_tiled,
             PD.decode_planes, PD.decode_plane_seeded,
@@ -263,6 +265,7 @@ def check_library(name: str, device="cuda") -> tuple[str, ...]:
     instance, its digest to the plain version's).  Returns the instances
     checked; raises ``KernelMismatch`` at the first difference."""
     counts = [fn.launches for fn in _COUNTED]
+    runs = kernels.run_counters(device).clone()
     try:
         for inst in CHECKS[name]:
             got = inst.run(torch.device(device))
@@ -282,4 +285,5 @@ def check_library(name: str, device="cuda") -> tuple[str, ...]:
     finally:
         for fn, n in zip(_COUNTED, counts):
             fn.launches = n
+        kernels.run_counters(device).copy_(runs)
     return tuple(inst.label for inst in CHECKS[name])

@@ -11,17 +11,27 @@ first-use check (``kernel_check``: every kernel it holds against its plain
 version on a small fixed input) before it takes its final name, so only
 checked libraries are ever found in ``build/``.  Nothing is built or
 imported from CUDA when the module is imported.
+
+The encode kernels (``RUN_SLOTS``) also count their own runs on the
+device: block 0's thread 0 adds one to the kernel's slot of the device's
+``run_counters`` as the kernel starts.  A launch that a CUDA graph
+recorded runs at each replay without any Python, so these counts, and not
+the wrappers' ``launches`` (one per launch the host issues), say how often
+such a kernel ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
@@ -169,3 +179,45 @@ def check(status: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch function."""
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {status}")
+
+
+# the kernels that count their runs on the device, each its slot
+RUN_SLOTS = ("slim_encode", "slim_encode_two_word", "full_encode",
+             "full_encode_tiled")
+
+
+def _device(device) -> str:
+    """``device`` as the name of its counters: ``cuda`` with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _counters(device: str) -> torch.Tensor:
+    return torch.zeros(len(RUN_SLOTS), dtype=torch.int64, device=device)
+
+
+def run_counters(device) -> torch.Tensor:
+    """The run counts of ``RUN_SLOTS`` on ``device``, int64, made at the
+    first launch (an eager one: a pass is captured only after it ran
+    eagerly) and kept for the process."""
+    return _counters(_device(device))
+
+
+def run_slot(device, name: str) -> int:
+    """The device address of kernel ``name``'s run count on ``device``."""
+    t = run_counters(device)
+    return t.data_ptr() + RUN_SLOTS.index(name) * t.element_size()
+
+
+def device_runs(device) -> dict[str, int]:
+    """{kernel: runs on ``device`` since the last ``reset_runs``}; waits
+    for the device."""
+    return dict(zip(RUN_SLOTS, run_counters(device).tolist()))
+
+
+def reset_runs(device) -> None:
+    """Set ``device``'s run counts to 0 (queued on its current stream)."""
+    run_counters(device).zero_()

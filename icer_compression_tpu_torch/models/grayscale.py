@@ -117,16 +117,19 @@ def assemble_stream(encoded: dict, order) -> bytes:
 
 
 def make_encoder(w: int, h: int, config: CodecConfig, dtype, device=None,
-                 entropy: str = "auto", plane_cuts: tuple | None = None):
+                 entropy: str = "auto", plane_cuts: tuple | None = None,
+                 graph: bool | None = None):
     """An encoder for (h, w) images of ``dtype`` on ``device``, with the
     coder backend ``entropy`` (``auto``: kernel 1 on every bucket, as
     ``slim``; ``pallas`` or ``sorted``)
-    over the plane windows ``plane_cuts`` (None: every plane)."""
+    over the plane windows ``plane_cuts`` (None: every plane).  ``graph``
+    (None: on for a CUDA device) runs each device pass as a captured CUDA
+    graph (``ops/encode.TorchGrayscaleEncoder``); False runs it eagerly."""
     from ..ops.encode import TorchGrayscaleEncoder
     return TorchGrayscaleEncoder(w, h, config.stages, config.filt,
                                  config.segments, _mag_bits(dtype),
                                  resolve_device(device), entropy=entropy,
-                                 plane_cuts=plane_cuts)
+                                 plane_cuts=plane_cuts, graph=graph)
 
 
 # Byte-mass share of bitplane lsb (0 = LSB) for natural imagery, measured
@@ -180,26 +183,30 @@ def quota_classes(w: int, h: int, stages: int, bitplanes: int):
 
 
 def _cached_encoder(w, h, stages, filt, segments, mag_bits, entropy,
-                    device, windows):
-    """One encoder per (geometry, backend, device, plane windows)."""
+                    device, windows, graph: bool | None = None):
+    """One encoder per (geometry, backend, device, plane windows, graph
+    setting)."""
     from ..ops.encode import TorchGrayscaleEncoder
+    if graph is None:
+        graph = torch.device(device).type == "cuda"
     key = (w, h, stages, filt, segments, mag_bits, entropy, str(device),
-           windows)
+           windows, bool(graph))
     enc = _ENCODERS.get(key)
     if enc is None:
         enc = _ENCODERS[key] = TorchGrayscaleEncoder(
             w, h, stages, filt, segments, mag_bits, device, entropy=entropy,
-            plane_cuts=windows)
+            plane_cuts=windows, graph=graph)
     return enc
 
 
 def _window_encoder(enc, windows):
     """``enc`` itself for its own plane windows, else the cached encoder
-    of its geometry, backend and device for ``windows``."""
+    of its geometry, backend, device and graph setting for ``windows``."""
     if windows == enc.plane_cuts:
         return enc
     return _cached_encoder(enc.w, enc.h, enc.stages, enc.filt, enc.segments,
-                           enc.mag_bits, enc.entropy, enc.device, windows)
+                           enc.mag_bits, enc.entropy, enc.device, windows,
+                           graph=enc.graph)
 
 
 def compress_batch(images: np.ndarray, config: CodecConfig, device=None,

@@ -28,7 +28,14 @@ the device:
 Rate allocation and stream assembly stay on the host (models/grayscale).
 ``encode_batch`` uploads from pinned host memory and copies its results
 back the same way, so its dispatch half never waits for the card
-(``defer`` returns the collector instead of collecting).
+(``defer`` returns the collector instead of collecting).  Between those
+host edges a pass is ``device_pass``: it reads only its input and the
+encoder's device tables and writes only its outputs, so on the card it
+runs as one captured CUDA graph per pass shape (``graph=``,
+backend/graph_cache: eager on a key's first two passes, captured by the
+second one's collector and checked against that eager pass, replayed
+after), as the JAX encoder runs one compiled program; on the CPU it runs
+eagerly.
 Lanes that a backend flags (kernel 1's fused-key eviction side buffer
 overflow, a reorder-window flush that kernel 4 and the sorted coder leave
 to the host, more records or valid emissions than the compacted length, a
@@ -42,6 +49,7 @@ to backend/sequential); ``fallback_lanes`` counts them and
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 from dataclasses import dataclass
@@ -49,7 +57,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..backend import native_backend
+from ..backend import graph_cache, native_backend
 from ..core import constants as C
 from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
@@ -85,7 +93,14 @@ CALL_WORDS = PASS_WORDS
 # phase 27): slim 127 with fused-key records and 141 with two-word ones,
 # pallas 113, sorted 378, whose full pass at slim's size peaked at
 # 48 GB.  A third of slim's words keeps sorted near 126 B per slim word.
+# Since each pass drops its emissions once they are coder words
+# (``device_pass``), the four peak 3-4% lower: 123, 136, 109 and 373.
 CODER_DIVISORS = {"slim": 1, "pallas": 1, "sorted": 3}
+# Device bytes of one full pass, the pass budget: PASS_WORDS at the
+# largest peak per coder word that sized them, slim's with two-word
+# records.  backend/graph_cache holds the pools of a device's captured
+# passes to it beyond their static tensors.
+PASS_PEAK_BYTES = PASS_WORDS * 141
 
 
 @dataclass(frozen=True)
@@ -200,12 +215,15 @@ class TorchGrayscaleEncoder:
     or a ``(lo, hi)`` window; ``encode_batch`` then returns only those
     lanes.  ``lane_share`` (n, k) keeps share k of n of every group's
     lanes (``_plan_groups``); ``encode_batch`` then returns only those
-    lanes."""
+    lanes.  ``graph``: run each device pass as a captured CUDA graph
+    (``device_pass`` through backend/graph_cache); None means on for a
+    CUDA device, True on another raises ``ValueError``, False runs every
+    pass eagerly (the eager comparison and the by-layer trace)."""
 
     def __init__(self, image_w: int, image_h: int, stages: int, filt: int,
                  segments: int, mag_bits: int, device: torch.device,
                  entropy: str = "auto", plane_cuts: tuple | None = None,
-                 lane_share: tuple = (1, 0)):
+                 lane_share: tuple = (1, 0), graph: bool | None = None):
         if entropy not in ENTROPY_BACKENDS:
             raise ValueError(
                 f"unknown entropy backend {entropy!r}: expected 'auto', "
@@ -216,6 +234,12 @@ class TorchGrayscaleEncoder:
         self.mag_bits = mag_bits
         self.entropy = entropy
         self.device = torch.device(device)
+        if graph and self.device.type != "cuda":
+            raise ValueError(f"graph=True needs a CUDA device, not "
+                             f"{self.device}")
+        self.graph = self.device.type == "cuda" if graph is None \
+            else bool(graph)
+        self.lane_share = tuple(lane_share)
         self.bitplanes = C.BITPLANES_8 if mag_bits == 7 else C.BITPLANES_16
         self.groups = _plan_groups(image_w, image_h, stages, segments,
                                    lane_share)
@@ -237,6 +261,12 @@ class TorchGrayscaleEncoder:
             b["call_rows"] = max(1, CALL_WORDS
                                  // CODER_DIVISORS[b["coder"]] // Lk)
         self.bucket_coders = tuple(b["coder"] for b in self.buckets)
+        # the buckets a pass codes, each with its groups of non-empty
+        # plane windows
+        coded = [(bi, [gi for gi in b["groups"]
+                       if self.plane_cuts[gi][0] < self.plane_cuts[gi][1]])
+                 for bi, b in enumerate(self.buckets)]
+        self._coded = [(bi, gis) for bi, gis in coded if gis]
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
         # images per device pass: each bucket's coder words of one image,
@@ -370,14 +400,16 @@ class TorchGrayscaleEncoder:
         ll_mean); payload_table maps (stage, subband, lsb, seg) ->
         (payload bytes, bit length) for the lanes of the plane window.
 
-        The call uploads the batch, queues every device stage and kernel
-        launch, and starts non-blocking copies of the results into pinned
-        host buffers; nothing on that path waits for the card.  With
-        ``defer`` it then returns a zero-argument collector, which waits
-        for the copies and runs the overflow and LL-mean checks, the table
-        loop and the exact host re-encodes (so a pipelined caller can
-        overlap this batch's device work with other host work); without,
-        it collects at once.
+        The call uploads the batch, queues every device pass (a graph
+        replay, or each stage and kernel launch), and starts non-blocking
+        copies of the results into pinned host buffers; nothing on that
+        path waits for the card.  With ``defer`` it then returns a
+        zero-argument collector, which waits for the copies, captures the
+        graph of a pass marked for it (``graph_cache.GraphCache.capture``),
+        and runs the overflow and LL-mean checks, the table loop and the
+        exact host re-encodes (so
+        a pipelined caller can overlap this batch's device work with
+        other host work); without, it collects at once.
 
         A batch of more than ``pass_images`` images runs as several device
         passes, queued one after the other, so that the coder's
@@ -386,34 +418,90 @@ class TorchGrayscaleEncoder:
         x = self._upload(np.asarray(images))
         P = self.pass_images
         passes = [self._dispatch(x[i:i + P]) for i in range(0, len(x), P)]
-        pending = Pending(self.device, keep=(x, [p[-1] for p in passes]))
+        pending = Pending(self.device, keep=(x, [p[3] for p in passes]))
 
         def collect():
             pending.wait()
-            return [r for B, checks, fetched, _keep in passes
-                    for r in self._collect(B, checks, fetched)]
+            out = []
+            for B, checks, fetched, held, capture in passes:
+                try:
+                    if capture is not None:
+                        capture()
+                    out += self._collect(B, checks, fetched, held.tensors)
+                finally:
+                    held.release()
+            return out
 
         return collect if defer else collect()
 
-    def _dispatch(self, x: torch.Tensor):
-        """One device pass over the (B, h, w) images ``x``: queue the
-        transform, emission and coder, and start the copies back.  Returns
-        (B, checks, fetched, the device tensors the pass uses)."""
+    def pass_bytes(self, images: int) -> int:
+        """The pass budget's estimate of a pass over ``images`` images:
+        each bucket's coder words weighted by its coder's divisor, at
+        ``PASS_PEAK_BYTES`` per ``PASS_WORDS``, and at most
+        ``PASS_PEAK_BYTES`` (a bucket past ``CALL_WORDS`` is coded in
+        calls)."""
+        words = max(b["words"] * CODER_DIVISORS[b["coder"]]
+                    for b in self.buckets)
+        return min(PASS_PEAK_BYTES,
+                   images * words * PASS_PEAK_BYTES // PASS_WORDS)
+
+    def pass_key(self, x: torch.Tensor) -> tuple:
+        """Every field that fixes the shapes of a device pass over ``x``:
+        the key of its captured graph."""
+        coders = tuple((b["coder"], ES.fused_key_ok(bucket_sizes(b["L"])[0]),
+                        b["call_rows"]) for b in self.buckets)
+        return (self.w, self.h, self.stages, self.filt, self.segments,
+                self.mag_bits, x.shape[0], coders, self.plane_cuts,
+                self.lane_share, str(x.device))
+
+    def device_pass(self, x: torch.Tensor) -> tuple:
+        """The device half of one pass over the (B, h, w) int32 images
+        ``x``: (overflow, ll_mean, then words, payload, total bits and
+        flag of each bucket that ``_coded`` lists).  It reads only ``x``
+        and the device tables and holds no host copy or sync, so it can
+        be captured."""
         img, ll_mean, overflow = self.transform(x)
         emitted = [self.emit(g, img) for g in self.groups]
-        coded = []
-        for b in self.buckets:
-            gis = [gi for gi in b["groups"] if emitted[gi] is not None]
-            if gis:
-                words = self.bucket_words(b, emitted)
-                coded.append((gis, words) + self._code(b, words))
-        fetched = [(gis, words) + tuple(to_host(t) for t in rest)
-                   for gis, words, *rest in coded]
-        checks = to_host(overflow), to_host(ll_mean)
-        return x.shape[0], checks, fetched, (img, coded)
+        del img
+        outs = [overflow, ll_mean]
+        for bi, _gis in self._coded:
+            b = self.buckets[bi]
+            words = self.bucket_words(b, emitted)
+            for gi in b["groups"]:      # each group is in one bucket
+                emitted[gi] = None
+            outs += [words, *self._code(b, words)]
+        return tuple(outs)
 
-    def _collect(self, B, checks, fetched):
-        """The host half of one pass, after its copies are done."""
+    def _dispatch(self, x: torch.Tensor):
+        """One device pass over the (B, h, w) images ``x`` (a graph replay
+        where ``graph`` and the key is captured), then the copies back.
+        Returns (B, checks, fetched, held, capture): the host copies of
+        the checks and of each coded bucket's payload, total and flag,
+        the bucket words held for the collector, and the capture the
+        collector makes for this pass's key once its copies are done (or
+        None)."""
+        state, capture = "eager", None
+        if self.graph:
+            key = self.pass_key(x)
+            outs, state = graph_cache.CACHE.run(key, self.device_pass, x)
+        else:
+            outs = self.device_pass(x)
+        if state == "replay":
+            held = graph_cache.CACHE.hold(key, outs[2::4])
+        else:
+            held = graph_cache.Held(outs[2::4])
+        if state == "capture":
+            capture = functools.partial(
+                graph_cache.CACHE.capture, key, self.device_pass, x, outs,
+                owner=self, estimate=self.pass_bytes(x.shape[0]))
+        fetched = [tuple(to_host(t) for t in outs[i + 1:i + 4])
+                   for i in range(2, len(outs), 4)]
+        checks = to_host(outs[0]), to_host(outs[1])
+        return x.shape[0], checks, fetched, held, capture
+
+    def _collect(self, B, checks, fetched, words):
+        """The host half of one pass, after its copies are done;
+        ``words`` are its coded buckets' words."""
         overflow, ll_mean = checks
         if bool(overflow):
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "wavelet transform")
@@ -423,7 +511,8 @@ class TorchGrayscaleEncoder:
 
         tables: list[dict] = [{} for _ in range(B)]
         redo = []      # (image, key, bucket, row) of every flagged lane
-        for bi, (gis, words, payload, total, flag) in enumerate(fetched):
+        for bi, ((_b, gis), (payload, total, flag)) in enumerate(
+                zip(self._coded, fetched)):
             payload = payload.numpy()
             total = total.numpy()
             flag = flag.numpy()
@@ -443,8 +532,7 @@ class TorchGrayscaleEncoder:
                                     payload[r, :(nb + 7) // 8].tobytes(), nb)
                             r += 1
         if redo:
-            coded = self._host_encode([f[1] for f in fetched],
-                                      [(bi, r) for *_, bi, r in redo])
+            coded = self._host_encode(words, [(bi, r) for *_, bi, r in redo])
             for (img_i, key, _bi, _r), res in zip(redo, coded):
                 tables[img_i][key] = res
         return [(tables[i], int(means[i])) for i in range(B)]

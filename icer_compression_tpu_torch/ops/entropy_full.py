@@ -186,12 +186,13 @@ def _launch(entry: str, valid, ctx, bit):
     luts = full_luts(str(dev))
     fn = getattr(kernels.load("full_encode"), entry)
     fn.restype = ctypes.c_int
+    runs = kernels.run_slot(dev, entry.removesuffix("_launch"))
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*(t.data_ptr() for t in args + outs), luts.data_ptr(),
-                    L, lanes, LUT_SIZE, stream)
+                    L, lanes, LUT_SIZE, runs, stream)
     kernels.check(status, entry)
     return tuple(outs)
 

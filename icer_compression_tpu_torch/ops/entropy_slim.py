@@ -304,13 +304,15 @@ def _launch(words: torch.Tensor, nev: int | None):
                 out(17)]
         fn, sizes = lib.slim_encode_two_word_launch, (L, lanes, nev)
     luts = slim_luts(str(dev))
+    runs = kernels.run_slot(dev, "slim_encode" if nev is None
+                            else "slim_encode_two_word")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * (len(outs) + 2) \
-        + [ctypes.c_int] * (len(sizes) + 1) + [ctypes.c_void_p]
+        + [ctypes.c_int] * (len(sizes) + 1) + [ctypes.c_void_p] * 2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(words.data_ptr(), *(t.data_ptr() for t in outs),
-                    luts.data_ptr(), *sizes, LUT_SIZE, stream)
+                    luts.data_ptr(), *sizes, LUT_SIZE, runs, stream)
     kernels.check(status, "slim_encode")
     return tuple(outs)
 

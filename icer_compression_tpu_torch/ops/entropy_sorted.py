@@ -87,6 +87,15 @@ def _tables(device: str):
         win_bits=WIN_BITS, tail_code=TAIL_CODE, tail_bits=TAIL_BITS).items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _chunk_starts(J: int, device: str) -> torch.Tensor:
+    """The occurrence at which each of J rescale chunks starts, (1, J, 1)
+    on ``device``: uploaded once, since a captured pass may not copy from
+    the host."""
+    b_vals = np.concatenate([[0], _FIRST + _CHUNK * np.arange(J - 1)])
+    return torch.as_tensor(b_vals, device=device)[None, :, None]
+
+
 def _lookup(table: torch.Tensor, b: torch.Tensor, idx: torch.Tensor):
     """table[b, idx] elementwise (the per-bin packed-constant lookup)."""
     return table.reshape(-1)[b * table.shape[1] + idx]
@@ -162,8 +171,7 @@ def counters_and_bins_sorted(valid, ctx, bit, max_chunks=None):
     gs = torch.searchsorted(sctx.contiguous(), cvals.contiguous())
     n_c = (gs[:, 1:] - gs[:, :-1])[:, :17]       # adaptive contexts only
     gs17 = gs[:, :17]
-    b_vals = np.concatenate([[0], _FIRST + _CHUNK * np.arange(J - 1)])
-    Bj = torch.as_tensor(b_vals, device=dev)[None, :, None]   # (1, J, 1)
+    Bj = _chunk_starts(J, str(dev))              # (1, J, 1)
     exists = Bj < n_c[:, None, :]                # chunk j exists in ctx c
     # zeros among the first min(Bj, n_c) occurrences of each context
     cz_pad = torch.cat([cz_excl, cz[:, -1:]], dim=-1)

@@ -338,6 +338,20 @@ def _compare(trial: Trial, port: Codec, ref: Codec):
     return None, streams
 
 
+def _which(a, b) -> str:
+    """How two ranks' results differ: their kinds and messages, or the
+    first output whose values differ."""
+    if a is None or b is None or a[0] != b[0] or a[0] != "ok":
+        return (f" ({None if a is None else a[0]} "
+                f"{'' if a is None else _short(a[1])[:200]} against "
+                f"{None if b is None else b[0]} "
+                f"{'' if b is None else _short(b[1])[:200]})")
+    for i, (x, y) in enumerate(zip(a[1], b[1])):
+        if not _same(x, y):
+            return f" (output {i} first)"
+    return f" ({len(a[1])} against {len(b[1])} outputs)"
+
+
 def _short(x) -> str:
     if isinstance(x, bytes):
         return f"{len(x)} B"
@@ -495,7 +509,8 @@ def compare_sharded(trial: Trial, ranks: list[dict], ref: dict):
             a, b = ranks[0][part], res[part]
             if (a is None) != (b is None) or a is not None and (
                     a[0] != b[0] or a[0] != "crash" and not _same(a, b)):
-                return f"ranks 0 and {r} disagree on the {part}", streams
+                return (f"ranks 0 and {r} disagree on the {part}"
+                        + _which(a, b)), streams
     enc, dec = ranks[0]["encode"], ranks[0]["decode"]
     if enc[0] == "crash":
         return f"sharded encode crashed: {enc[1]}", streams

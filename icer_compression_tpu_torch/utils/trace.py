@@ -6,10 +6,17 @@ functions whose launches it owns; ``annotated`` wraps each of them in a
 reads an exported chrome trace and puts each device launch in the
 innermost layer range around its host call.  ``chip_smoke.py`` (boat's
 main path) and ``bench.py`` (a batch) trace the codec with them.
+
+A captured encode pass (backend/graph_cache) is one graph launch with no
+host range inside it to give a layer, so the table by layer traces an
+eager encoder (``graph=False``) and the graph's replay is read beside it
+as a whole: its device busy time, idle share, device launches and the
+API calls that put work on the device (``api_launches``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 
@@ -80,7 +87,8 @@ def layer_breakdown(events, window: str) -> dict:
     ``layer:`` range around each launch: per layer the device ms, the
     launches and the host ms outside nested layers; the window's wall,
     the device's busy ms (the union of its intervals) and idle share,
-    and the mean host time between launches."""
+    the API calls that launched the work (one per graph replay), the
+    kernels by name and the mean host time between launches."""
     (win,) = [e for e in events if e.get("cat") == "user_annotation"
               and e.get("name") == window]
     t0, t1 = win["ts"], win["ts"] + win["dur"]
@@ -130,5 +138,8 @@ def layer_breakdown(events, window: str) -> dict:
     ts = sorted(launches[e["args"]["correlation"]]["ts"] for e in work)
     return {"wall_ms": span / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / span, "launches": len(work),
+            "api_launches": len({e["args"]["correlation"] for e in work}),
+            "kernels": dict(collections.Counter(
+                e["name"] for e in work if e["cat"] == "kernel")),
             "host_gap_us": (ts[-1] - ts[0]) / max(1, len(ts) - 1),
             "layers": groups}

@@ -133,7 +133,7 @@ def test_layer_breakdown_on_a_synthetic_trace():
         _event("kernel", "k5", 2100, 50, correlation=5),
     ]
     r = layer_breakdown(ev, "encode")
-    assert r["launches"] == 4
+    assert r["launches"] == 4 and r["api_launches"] == 4
     assert r["busy_ms"] == pytest.approx((400 + 200) / 1e3)
     assert r["wall_ms"] == pytest.approx(1100 / 1e3)
     assert r["idle_share"] == pytest.approx(1 - 600 / 1100)
@@ -174,3 +174,24 @@ def test_bench_scaling_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     from icer_compression_tpu_torch import bench_scaling
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench_scaling.main(["--devices", "1"]) != 0
+
+
+def test_layer_breakdown_counts_a_graph_replay_as_one_api_launch():
+    """A captured pass: one cudaGraphLaunch whose kernels share its
+    correlation id, and the copies around it."""
+    ev = [
+        _event("user_annotation", "encode graph", 0, 1000),
+        _event("cuda_runtime", "cudaMemcpyAsync", 10, 5, correlation=1),
+        _event("cuda_runtime", "cudaGraphLaunch", 20, 30, correlation=2),
+        _event("cuda_runtime", "cudaMemcpyAsync", 60, 5, correlation=3),
+        _event("gpu_memcpy", "Memcpy HtoD", 30, 10, correlation=1),
+        _event("kernel", "k1", 100, 200, correlation=2),
+        _event("kernel", "k2", 300, 100, correlation=2),
+        _event("kernel", "k3", 450, 50, correlation=2),
+        _event("gpu_memcpy", "Memcpy DtoH", 500, 20, correlation=3),
+    ]
+    r = layer_breakdown(ev, "encode graph")
+    assert r["launches"] == 5 and r["api_launches"] == 3
+    assert r["kernels"] == {"k1": 1, "k2": 1, "k3": 1}
+    assert r["busy_ms"] == pytest.approx((10 + 300 + 70) / 1e3)
+    assert set(r["layers"]) == {"other"}

@@ -130,3 +130,12 @@ def test_a_broken_sharded_codec_is_dumped_and_counted(tmp_path,
     other[1][0]["trial"] = dict(other[1][0]["trial"], quota=1)
     out = fuzz.check_sharded(trials, other, refs, **quiet)
     assert out["mismatches"][0][1] == "a rank drew another trial"
+
+
+def test_a_disagreement_says_how_the_ranks_differ():
+    ok = ("ok", [np.zeros(3, np.uint16), np.ones(2, np.uint16)])
+    assert fuzz._which(ok, ("crash", "CUDA error: an illegal address")) \
+        == " (ok 2 streams against crash CUDA error: an illegal address)"
+    other = ("ok", [np.zeros(3, np.uint16), np.zeros(2, np.uint16)])
+    assert fuzz._which(ok, other) == " (output 1 first)"
+    assert fuzz._which(None, ok).startswith(" (None  against ok")

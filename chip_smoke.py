@@ -216,31 +216,43 @@ the check and pass it; builds the native host runtime
      to tests/data/golden_examples.sha256 (made with the JAX package by
      scripts/pin_examples.py); ``bench_scaling --devices 1,2`` with both
      worlds' streams equal to the single-card encoder's.
- 30. each encode pass as one captured CUDA graph (backend/graph_cache, the
-     default on the card, so phases 1-29 run through them too; the
-     graphs are dropped before phase 29) against the same pass run
-     eagerly, byte for byte: boat, the bench's 112 in passes of 37, 37,
-     37 and 1 (every dispatch half, a key's first three passes among
-     them, under ``no_host_sync``), phase 4's batch of 8, phase 16's
+ 30. each encode pass and each decode pass as one captured CUDA graph per
+     key (backend/graph_cache, the default on the card, so phases 1-29 run
+     through them too; the graphs are dropped before phase 29) against the
+     same pass run eagerly, byte for byte: boat, the bench's 112 in passes
+     of 37, 37, 37 and 1 (every dispatch half, a key's first three passes
+     among them, under ``no_host_sync``), phase 4's batch of 8, phase 16's
      colour image, 1024x1024, 5120x3840 (two coder calls a pass), quota
      50,000, and boat and a variant through ``pallas`` and ``sorted``
      deferred with two batches in flight; each capture's seconds and
-     first-replay check; a replay's K1 / K4 runs, as the kernels count
-     them on the card, equal to the eager passes', and the encode
-     kernels' records by name in the profiler's trace of a replayed boat
-     encode equal to an eager one's; the bytes the graph pools hold
-     (after the bench's batch, after phase 21's CLI defaults and at the
-     end) within their bound, one pass budget beyond their static
-     tensors; the 37-image pass's pool with and without expandable
-     segments beside its eager peaks; boat's encode and decode walls
-     graph against eager in turns, and the API launches of one boat
-     encode each way.  Phases 20, 27 and 28 measure eager passes
-     (``graph=False``), whose peak a graph's pool holds.
+     first-replay check; a replay's K1 / K4 runs, as the kernels count them
+     on the card, equal to the eager passes', and the encode kernels'
+     records by name in the profiler's trace of a replayed boat encode
+     equal to an eager one's; the bytes the graph pools hold (after the
+     bench's batch, after phase 21's CLI defaults and at the end) within
+     their bound, one pass budget beyond their static tensors; the 37-image
+     pass's pool with and without expandable segments beside its eager
+     peaks; boat's encode and decode walls graph against eager in turns,
+     and the API launches of one boat encode each way.  The decodes: boat's
+     golden stream, the bench's 56 streams, the 11 fault pins one by one
+     and as one batch, phase 16's colour stream and the 5120x3840 frame,
+     each three times through the graphs against ``graph=False``, a
+     replay's K2 / W1 runs counted on the card equal to the eager decode's,
+     the graph pools within their bound after each; 200 round-robin decodes
+     on two threads of one card (``decode_batch_sharded`` given ``[cuda,
+     cuda]``) against one thread's; boat's decode walls and API launches
+     graph against eager; a warm boat decode after a replayed encode, an
+     eager one and ``CACHE.clear()`` (``scripts/decode_after_encode.py``).
+     Phases 20, 27 and 28 measure eager encode passes (``graph=False``),
+     whose peak a graph's pool holds.  Each phase's captures and their
+     seconds are logged at the end.
 
 The wrappers' ``launches`` count the launches the host issues (phase 3,
-the main path, reads them on a key's first, eager pass); a replayed graph
-issues none from Python, so every other phase counts the encode kernels'
-runs as the kernels count them on the card (``kernels.device_runs``).
+the main path, reads them on its keys' first, eager passes); a replayed
+graph issues none from Python, so every other phase counts the kernels'
+runs as the kernels count them on the card (``kernels.device_runs``: K1,
+K2, K3, K4, K5 and W1 each add one to a slot of their own as they
+start).
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -1306,8 +1318,9 @@ def decode_phases(dev, card, boat, st, units, small):
     s1, enc_s = sync_time(
         lambda: T.compress_batch(boat[None], cfg1, encoder=enc)[0])
     PDc.decode_planes.launches = 0
+    reset_runs()
     d1, dec_s = sync_time(lambda: T.decompress(s1, cfg1, np.uint16, dev))
-    dec_launches = PDc.decode_planes.launches
+    dec_launches = encode_runs()["plane_decode"]
     if not np.array_equal(d1, boat):
         raise AssertionError("1 stage, 1 segment: decode differs from boat")
     if PDc.decode_planes.placement != "device":
@@ -1346,9 +1359,10 @@ def decode_phases(dev, card, boat, st, units, small):
 
 
 def encode_runs(device="cuda") -> dict:
-    """Runs of each encode kernel on ``device`` since ``reset_runs``,
-    counted by the kernels on the card: a replayed graph's runs count, as
-    the wrappers' ``launches`` (the host's launches) cannot."""
+    """Runs of each kernel (``kernels.RUN_SLOTS``: the encode kernels, K2,
+    K3 and W1) on ``device`` since ``reset_runs``, counted by the kernels
+    on the card: a replayed graph's runs count, as the wrappers'
+    ``launches`` (the host's launches) cannot."""
     from icer_compression_tpu_torch import kernels
     return kernels.device_runs(device)
 
@@ -1356,6 +1370,28 @@ def encode_runs(device="cuda") -> dict:
 def reset_runs(device="cuda") -> None:
     from icer_compression_tpu_torch import kernels
     kernels.reset_runs(device)
+
+
+# (label, captures so far, their seconds so far), one per phase boundary
+CAPTURE_MARKS: list = []
+
+
+def mark_captures(label: str) -> None:
+    """Note how many graphs this process has captured by the end of the
+    phases ``label`` names, and their seconds."""
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    caps = GC.CACHE.captures
+    CAPTURE_MARKS.append((label, len(caps),
+                          sum(c["seconds"] for c in caps)))
+
+
+def capture_counts() -> list:
+    """(label, captures, seconds) of each stretch between marks."""
+    out, n0, s0 = [], 0, 0.0
+    for label, n, secs in CAPTURE_MARKS:
+        out.append((label, n - n0, secs - s0))
+        n0, s0 = n, secs
+    return out
 
 
 @contextlib.contextmanager
@@ -1401,7 +1437,7 @@ def color_phases(dev, card, boat, pins):
         d = TC.decompress_yuv(s, qcfg, dtype, device=dev)
         if i == 0:
             res["launches"] = {"slim_encode": encode_runs()["slim_encode"],
-                               "plane_decode": PDc.decode_planes.launches}
+                               "plane_decode": encode_runs()["plane_decode"]}
             if min(res["launches"].values()) <= 0:
                 raise AssertionError(f"colour path: a kernel did not "
                                      f"launch: {res['launches']}")
@@ -1514,7 +1550,7 @@ def color_phases(dev, card, boat, pins):
             res["batch_streams"] = bs
             res["batch_launches"] = {
                 "slim_encode": encode_runs()["slim_encode"],
-                "plane_decode": PDc.decode_planes.launches}
+                "plane_decode": encode_runs()["plane_decode"]}
             res["batch_enc_ms"], res["batch_dec_ms"] = 1e3 * enc_s, \
                 1e3 * dec_s
         for i in range(len(variants)):
@@ -1593,8 +1629,8 @@ def deferred_phase(dev, card, boat):
     reset_runs()
     outs = [(4, run(4))]
     launches = {"slim_encode": encode_runs()["slim_encode"],
-                "plane_decode": PDc.decode_planes.launches,
-                "wavelet_inverse": WV.inverse_pass.launches}
+                "plane_decode": encode_runs()["plane_decode"],
+                "wavelet_inverse": encode_runs()["wavelet_inverse"]}
     order = (4, 1, 1, 4, 4, 1, 1, 4)
     outs += [(K, run(K)) for K in order[1:]]
     for K, (streams, pixels, _e, _d) in outs:
@@ -1652,7 +1688,7 @@ def cli_phase(dev, card, boat):
         run("compress", tmp / "boat.png", tmp / "g.icer", "-G")
         run("decompress", tmp / "g.icer", tmp / "g.png", "-G")
         launches = {"slim_encode": encode_runs()["slim_encode"],
-                    "plane_decode": PDc.decode_planes.launches}
+                    "plane_decode": encode_runs()["plane_decode"]}
         s, px = gray_want(boat)
         if (tmp / "g.icer").read_bytes() != s:
             raise AssertionError("cli -G stream differs from compress")
@@ -1757,7 +1793,7 @@ def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
         runs = encode_runs()
         return {"slim_encode": runs["slim_encode"],
                 "slim_encode_two_word": runs["slim_encode_two_word"],
-                "plane_decode": PDc.decode_planes.launches}
+                "plane_decode": encode_runs()["plane_decode"]}
 
     def tag(q):
         return "unlimited" if q is None else f"quota {q}"
@@ -1988,7 +2024,7 @@ def cli_defaults_phase(dev, card, boat):
                     "slim_encode": encode_runs()["slim_encode"],
                     "slim_encode_two_word":
                         encode_runs()["slim_encode_two_word"],
-                    "plane_decode": PDc.decode_planes.launches}}
+                    "plane_decode": encode_runs()["plane_decode"]}}
         ccfg = T.CodecConfig(4, 0, 6, 3 * h * w)
         for i in range(8):
             planes = color_planes(read_png(tmp / "in" / f"c{i}.png"),
@@ -2004,12 +2040,14 @@ def cli_defaults_phase(dev, card, boat):
                                      "from decompress_yuv")
         # the same batch-compress with every pass eager, for its peak
         from icer_compression_tpu_torch.backend import graph_cache as GC
-        graph = {"reserved": GC.reserved_bytes(dev),
+        graph = {"reserved": GC.reserved_bytes(dev)
+                 + GC.CACHE.table_bytes(dev),
                  "bound": GC.CACHE.bound(dev),
                  "peak": res["batch-compress"]["peak_allocated_gb"] * 1e9}
         if graph["reserved"] > graph["bound"]:
-            raise AssertionError(f"cli defaults: the graphs reserve "
-                                 f"{graph['reserved']} B, past their bound "
+            raise AssertionError(f"cli defaults: the graphs' pools and "
+                                 f"tables hold {graph['reserved']} B, "
+                                 f"past their bound "
                                  f"{graph['bound']} B")
         with eager_passes():
             _r, graph["eager_s"], graph["eager_peak"] = peak(
@@ -2127,7 +2165,7 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
         return {"slim_encode": runs["slim_encode"],
                 "slim_encode_two_word": runs["slim_encode_two_word"],
                 "full_encode": runs["full_encode"],
-                "plane_decode": PDc.decode_planes.launches}
+                "plane_decode": encode_runs()["plane_decode"]}
 
     def check_pin(label, digest):
         if digest != pins[label]:
@@ -2813,7 +2851,8 @@ def w1_phase(dev, card, boat):
                 "plain chain (no W1)")
 
     # boat's fA (the main path) and fB decodes through W1 and through the
-    # plain chain, in turns
+    # plain chain, in turns, eager (a graph would replay the inverse it
+    # captured whichever is swapped in)
     res["decode"] = {}
     for filt in (0, 1):
         cfg = T.CodecConfig(4, filt, 6, None)
@@ -2825,7 +2864,7 @@ def w1_phase(dev, card, boat):
                 else WV.inverse_stages_plain
             with swapped(WV, "inverse_stages", fn):
                 px, secs = sync_time(lambda: T.decompress(
-                    s, cfg, np.uint16, device=dev))
+                    s, cfg, np.uint16, device=dev, graph=False))
             if not np.array_equal(px, boat):
                 raise AssertionError(f"f{FILTERS[filt]} decode ({way}) "
                                      "differs from boat")
@@ -2881,33 +2920,39 @@ def trace_phase(dev, card, boat):
     """Phase 26's trace: one boat 512 main-path encode and decode (s4 fA
     g6, lossless; warm) under ``torch.profiler`` with the CPU and the
     card traced, each device launch put in its layer (``trace_layers``),
-    the encode's passes eager (a replay has no host range inside it);
-    logs each layer's device ms, launches and host ms, and each half's
-    wall, busy time, idle share and host time between launches; beside
-    them one encode through the captured graph, as a whole."""
+    the encode's and the decode's passes eager (a replay has no host range
+    inside it); logs each layer's device ms, launches and host ms, and
+    each half's wall, busy time, idle share and host time between
+    launches; beside them one encode and one decode through the captured
+    graphs, as a whole."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from icer_compression_tpu_torch.models import grayscale as T
     cfg = T.CodecConfig(4, 0, 6, None)
     s = T.compress(boat, cfg, device=dev)
-    T.decompress(s, cfg, np.uint16, device=dev)
+    for _ in range(3):          # the decode graph's eager passes, capture
+        T.decompress(s, cfg, np.uint16, device=dev)
+    T.decompress(s, cfg, np.uint16, device=dev, graph=False)
     torch.cuda.synchronize()
     with annotated(trace_layers()), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with eager_passes(), record_function("encode"):
             s2 = T.compress(boat, cfg, device=dev)
         with record_function("decode"):
-            px = T.decompress(s, cfg, np.uint16, device=dev)
+            px = T.decompress(s, cfg, np.uint16, device=dev, graph=False)
         with record_function("encode graph"):
             s3 = T.compress(boat, cfg, device=dev)
+        with record_function("decode graph"):
+            px3 = T.decompress(s, cfg, np.uint16, device=dev)
         torch.cuda.synchronize()
-    if s2 != s or s3 != s or not np.array_equal(px, boat):
+    if s2 != s or s3 != s or not np.array_equal(px, boat) \
+            or not np.array_equal(px3, boat):
         raise AssertionError("the traced main path differs")
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     res = {}
-    for half in ("encode", "decode", "encode graph"):
+    for half in ("encode", "decode", "encode graph", "decode graph"):
         r = res[half] = layer_breakdown(events, half)
         log(f"trace, boat 512 main-path {half} (profiled): wall "
             f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms, "
@@ -2956,13 +3001,11 @@ def config_phase(dev, card, boat, pins, errors):
         reset_runs()
 
     def counts():
-        # the encode kernels' runs as the card counted them
+        # the kernels' runs as the card counted them
         runs = encode_runs()
-        n = {k: sum(fn.launches for fn in fns)
-             for k, fns in counted.items()}
-        n["K1"] = runs["slim_encode"] + runs["slim_encode_two_word"]
-        n["K4"] = runs["full_encode"]
-        return n
+        return {"K1": runs["slim_encode"] + runs["slim_encode_two_word"],
+                "K4": runs["full_encode"], "K2": runs["plane_decode"],
+                "W1": runs["wavelet_inverse"]}
 
     res = {"launches": {}, "walls": {}}
     for label, img, dtype, cfg_t in config_sweep(boat):
@@ -3124,17 +3167,19 @@ def fault_phase(dev, card, boat, stream, cfg, pins):
     for label, bad in cases:
         check(f"boat {label} stream", sha(bad), pins[f"boat {label} stream"])
     PDc.decode_planes.launches = 0
+    reset_runs()
     walls = {}
     for label, bad in cases:
         px, walls[label] = sync_time(
             lambda bad=bad: T.decompress(bad, cfg, np.uint16, dev))
         check(f"boat {label} decoded", pixels_sha(px),
               pins[f"boat {label} decoded"])
-    single = PDc.decode_planes.launches
+    single = encode_runs()["plane_decode"]
     PDc.decode_planes.launches = 0
+    reset_runs()
     decs, batch_s = sync_time(lambda: D.decompress_batch(
         [b for _l, b in cases], cfg, np.uint16, device=dev))
-    batch = PDc.decode_planes.launches
+    batch = encode_runs()["plane_decode"]
     for (label, _b), px in zip(cases, decs):
         check(f"boat {label} batch decoded", pixels_sha(px),
               pins[f"boat {label} decoded"])
@@ -3150,9 +3195,10 @@ def fault_phase(dev, card, boat, stream, cfg, pins):
     clabel = f"colour corrupt_random {COLOR_FAULT}"
     check(f"{clabel} stream", sha(cbad), pins[f"{clabel} stream"])
     PDc.decode_planes.launches = 0
+    reset_runs()
     planes, color_s = sync_time(
         lambda: TC.decompress_yuv(cbad, ccfg, np.uint16, device=dev))
-    color = PDc.decode_planes.launches
+    color = encode_runs()["plane_decode"]
     check(f"{clabel} decoded planes", planes_sha(planes),
           pins[f"{clabel} decoded planes"])
 
@@ -3162,11 +3208,12 @@ def fault_phase(dev, card, boat, stream, cfg, pins):
         check(f"crop64 {label} stream", sha(bad),
               pins[f"crop64 {label} stream"])
     PDc.decode_planes.launches = 0
+    reset_runs()
     for (label, _b), px in zip(ccases, D.decompress_batch(
             [b for _l, b in ccases], ccfg, np.uint16, device=dev)):
         check(f"crop64 {label} decoded", pixels_sha(px),
               pins[f"crop64 {label} decoded"])
-    crop_launches = PDc.decode_planes.launches
+    crop_launches = encode_runs()["plane_decode"]
     _w, _h, _ll, blob, cunits = D.plan_batch([b for _l, b in ccases], ccfg,
                                              np.uint16)
     st = torch.as_tensor(blob)
@@ -3371,7 +3418,7 @@ def sharded_rank(rank: int, world: int, data: int, backend: str, port: int,
                                 for a, b in zip(decoded, imgs)),
            "slim_encode": sum(encode_runs(device)[k] for k in (
                "slim_encode", "slim_encode_two_word")),
-           "plane_decode": PDc.decode_planes.launches,
+           "plane_decode": encode_runs()["plane_decode"],
            "host_reencode_lanes": enc.enc.fallback_lanes, "walls_s": walls}
     with open(Path(out) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
@@ -3589,7 +3636,8 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
         f"{b['MPs']:.4f} MP/s; peaks encode "
         f"{gb(b['encode_peak_allocated_bytes'])} (and graph pools holding "
         f"{gb(b['encode_graph_pool_bytes'])} after it), decode "
-        f"{gb(b['decode_peak_allocated_bytes'])} of {gb(total)} | {card}")
+        f"{gb(b['decode_peak_allocated_bytes'])} (decode graph pools "
+        f"{gb(b['decode_graph_pool_bytes'])}) of {gb(total)} | {card}")
     log(f"  bench cuda pipelined: K {p['batches_in_flight']}, encode "
         f"{1e3 * p['encode_s_per_img']:.3f} ms/img, decode "
         f"{1e3 * p['decode_s_per_img']:.3f} ms/img at B {p['B']} (variants "
@@ -3598,7 +3646,8 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
         + f" ms/img); {p['MPs']:.4f} MP/s; peaks encode "
         f"{gb(p['encode_peak_allocated_bytes'])} (graph pools "
         f"{gb(p['encode_graph_pool_bytes'])}), decode "
-        f"{gb(p['decode_peak_allocated_bytes'])} of {gb(total)} | {card}")
+        f"{gb(p['decode_peak_allocated_bytes'])} (decode graph pools "
+        f"{gb(p['decode_graph_pool_bytes'])}) of {gb(total)} | {card}")
     log(f"  bench warm-up walls (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in d["warmup_breakdown_s"].items()))
     dt = d["device_time"]
@@ -3616,14 +3665,15 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
                 f"({g['device_ms_per_image']:.4f}/img) in {g['launches']} "
                 f"launches, host {g['host_ms']:.2f} ms "
                 f"({g['host_ms_per_image']:.3f}/img)")
-    r = dt["encode_graph"]
-    log(f"  bench device time, encode of {r['images']} through the captured "
-        f"graphs (profiled): wall {r['wall_ms']:.2f} ms, device busy "
-        f"{r['busy_ms']:.3f} ms ({r['per_image']['busy_ms']:.4f} ms/img), "
-        f"idle share {r['idle_share']:.4f}, {r['launches']} launches from "
-        f"{r['api_launches']} API calls | {card}")
+    for half in ("encode", "decode"):
+        r = dt[f"{half}_graph"]
+        log(f"  bench device time, {half} of {r['images']} through the "
+            f"captured graphs (profiled): wall {r['wall_ms']:.2f} ms, device "
+            f"busy {r['busy_ms']:.3f} ms ({r['per_image']['busy_ms']:.4f} "
+            f"ms/img), idle share {r['idle_share']:.4f}, {r['launches']} "
+            f"launches from {r['api_launches']} API calls | {card}")
     log(f"  bench ceiling {dt['combined_MPs_ceiling']:.3f} MP/s (pixels / "
-        f"device busy time per image; with the eager encode "
+        f"device busy time per image; with the eager passes "
         f"{dt['combined_MPs_ceiling_eager']:.3f})")
     res["bench"] = bench
     res["bench_s"] = secs
@@ -3676,9 +3726,11 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
 
 
 class EagerPasses:
-    """A stand-in for ``graph_cache.CACHE`` that runs every encode pass
-    eagerly: phase 30's reference for the entry points that take no
-    encoder (``compress``, ``compress_yuv``, the CLI)."""
+    """A stand-in for ``graph_cache.CACHE`` that runs every pass eagerly:
+    phase 30's reference for the entry points that take no encoder
+    (``compress``, ``compress_yuv``, the CLI)."""
+
+    lock = contextlib.nullcontext()
 
     def run(self, key, fn, x):
         return tuple(fn(x)), "eager"
@@ -3695,6 +3747,9 @@ GRAPH_FRAME = (3840, 5120)
 ENCODE_KERNELS = {"slim_encode": "slim_encode_kernel",
                   "slim_encode_two_word": "slim_encode_wide_kernel",
                   "full_encode": "full_encode_kernel"}
+# and the decode's (a replay adds the copies into its static inputs)
+DECODE_KERNELS = {"plane_decode": "plane_decode_kernel",
+                  "wavelet_inverse": "inverse_"}
 
 
 def pass_memory(enc, imgs) -> dict:
@@ -3728,6 +3783,58 @@ def pass_memory(enc, imgs) -> dict:
     return res
 
 
+def same_output(a, b) -> bool:
+    """Whether two decodes' outputs (arrays, or lists and tuples of them)
+    are equal, dtype and value."""
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) \
+            and all(same_output(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+# phase 30's soak of two decode threads on one card
+SOAK_TRIALS = 200
+SOAK_SEED = 16
+
+
+def decode_soak(dev, card, cfg, streams) -> dict:
+    """``SOAK_TRIALS`` round-robin decodes through
+    ``decode_batch_sharded`` given ``[dev, dev]`` (two threads on one card,
+    sharing the captured graphs), each of 1-12 streams drawn from
+    ``streams`` (seeded), against the same streams decoded one by one on
+    this thread.  Any mismatch fails the phase, with ``fuzz._which``'s
+    message."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.parallel import sharded as SH
+    from icer_compression_tpu_torch.utils import fuzz
+    want = [T.decompress(s, cfg, np.uint16, device=dev) for s in streams]
+    rng = np.random.default_rng(SOAK_SEED)
+    t0 = time.perf_counter()
+    mismatches = []
+    for trial in range(SOAK_TRIALS):
+        pick = rng.integers(0, len(streams), int(rng.integers(1, 13)))
+        got = SH.decode_batch_sharded([streams[i] for i in pick], cfg,
+                                      np.uint16, [dev, dev])
+        ref = [want[i] for i in pick]
+        if not same_output(got, ref):
+            mismatches.append((trial, fuzz._which(("ok", got), ("ok", ref))))
+    secs = time.perf_counter() - t0
+    res = {"trials": SOAK_TRIALS, "mismatches": mismatches, "seconds": secs,
+           "streams": len(streams)}
+    log(f"phase 30 soak: {SOAK_TRIALS} decode_batch_sharded calls on [{dev}, "
+        f"{dev}] (two threads, one card, graphs on) of 1-12 of "
+        f"{len(streams)} streams, each against the streams decoded on one "
+        f"thread: {len(mismatches)} mismatches {mismatches[:3]}, "
+        f"{secs:.1f} s | {card}")
+    if mismatches:
+        raise AssertionError(f"phase 30 soak: {len(mismatches)} mismatches, "
+                             f"first {mismatches[0]}")
+    return res
+
+
 def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     """Phase 30: each encode pass a captured CUDA graph (the default on
     the card) against the same pass run eagerly, byte for byte: boat
@@ -3741,17 +3848,29 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     key's eager pass, the eager pass its collector captures and checks,
     a replay) and once eagerly: every stream equal, and the third run's
     K1 / K4 runs as the kernels count them on the card equal the eager
-    run's.  Then: each capture's seconds and check, the bytes the graphs
-    reserve on the device against their bound (one pass budget beyond
-    their static tensors) after the bench's batch, after phase 21's CLI
-    defaults (``cli_graph``) and at the end, the 37-image pass's pool with
-    and without expandable segments beside its eager peaks, boat's encode
-    and decode walls graph against eager in turns (medians of 5), and the
-    device work, kernels by name and API launches of one boat encode each
-    way."""
+    run's.  Each decode pass a captured CUDA graph per plan key against
+    the eager decode (``graph=False``), byte for byte, three graph runs
+    and one eager as above, the third run replaying every pass and its K2
+    / W1 runs counted on the card equal to the eager run's, the graph
+    pools and the keys' tables within their bound after each: boat's golden stream; the
+    bench's 56 streams (pack8); the 11 fault pins one by one and as one
+    batch (each equal to its pin); phase 16's colour stream; the
+    5120x3840 frame.  Then the soak (``decode_soak``): two decode threads
+    on the card through one cache.  Then: each capture's seconds and
+    check, the bytes the graphs' pools and the keys' tables hold on the
+    device against their bound
+    (one pass budget beyond their static tensors) after the bench's
+    batch, after phase 21's CLI defaults (``cli_graph``) and at the end,
+    the 37-image pass's pool with and without expandable segments beside
+    its eager peaks, boat's encode and decode walls graph against eager in
+    turns (medians of 5), and the device work, kernels by name and API
+    launches of one boat encode and one boat decode each way.  Last, a
+    warm boat decode after a replayed encode, after an eager one and
+    after the graphs are dropped (``scripts/decode_after_encode.py``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from icer_compression_tpu_torch.backend import graph_cache as GC
     from icer_compression_tpu_torch.models import color as TC
+    from icer_compression_tpu_torch.models import decode as D
     from icer_compression_tpu_torch.models import grayscale as T
 
     cache = GC.CACHE
@@ -3808,11 +3927,14 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
         return check
 
     def within_bound(what):
+        """The graphs' pools and the keys' tables against their bound."""
         torch.cuda.synchronize()
-        got, bound = GC.reserved_bytes(dev), cache.bound(dev)
+        got = GC.reserved_bytes(dev) + cache.table_bytes(dev)
+        bound = cache.bound(dev)
         if got > bound:
-            raise AssertionError(f"phase 30 {what}: the graphs reserve "
-                                 f"{got} B, past their bound {bound} B")
+            raise AssertionError(f"phase 30 {what}: the graphs' pools and "
+                                 f"tables hold {got} B, past their bound "
+                                 f"{bound} B")
         return got, bound
 
     case("boat 512 lossless", lambda: T.compress(boat, cfg, device=dev),
@@ -3835,8 +3957,8 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
             collect = benc.encode_batch(imgs, defer=True)
         return T.allocate_streams(collect(), cfg, benc)
 
-    case("bench 112 (passes 37, 37, 37, 1)", bench_batch,
-         sha_is(golden, "bench batch"))
+    bench_streams = case("bench 112 (passes 37, 37, 37, 1)", bench_batch,
+                         sha_is(golden, "bench batch"))
     res["bench_reserved"], res["bench_bound"] = within_bound("bench 112")
     res["bench_static"] = cache.static_bytes(dev)
     log(f"phase 30 bench 112: every dispatch half under no_host_sync "
@@ -3864,9 +3986,9 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     cpin = [ln.split()[0] for ln in (REPO / "tests" / "data"
                                      / "golden_color512.sha256")
             .read_text().splitlines()][0]
-    case("colour 512 u16 unlimited (phase 16)",
-         lambda: TC.compress_yuv(*planes, ccfg, device=dev),
-         sha_is(cpin, "colour"))
+    cstream = case("colour 512 u16 unlimited (phase 16)",
+                   lambda: TC.compress_yuv(*planes, ccfg, device=dev),
+                   sha_is(cpin, "colour"))
 
     big = long_lane_images(boat)["gray1024"][0]
     case("1024x1024 lossless (K1 two-word)",
@@ -3876,9 +3998,9 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     stage1 = fenc.buckets[0]
     if -(-stage1["rows"] // stage1["call_rows"]) < 2:
         raise AssertionError("5120x3840: stage 1 in one coder call")
-    case("5120x3840 lossless (stage 1 in two coder calls)",
-         lambda: T.compress(frame, cfg, device=dev))
-    del frame, fenc
+    fstream = case("5120x3840 lossless (stage 1 in two coder calls)",
+                   lambda: T.compress(frame, cfg, device=dev))
+    del fenc
     case("boat quota 50000", lambda: T.compress(
         boat, T.CodecConfig(4, 0, 6, 50000), device=dev),
         sha_is(pins[0], "quota 50000"))
@@ -3917,16 +4039,108 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
             f"{cache.snapshots - snaps0} time(s) | {card}")
         del enc, ref, seen
 
-    # boat's walls, graph against eager, in turns
+    # the decode's passes: each case three times on the graph path (a
+    # key's eager pass, the eager pass its collector captures and checks,
+    # a replay) against the eager decode (graph=False), byte for byte
     stream = T.compress(boat, cfg, device=dev)
+    if hashlib.sha256(stream).hexdigest() != golden:
+        raise AssertionError("phase 30: boat's stream differs from its pin")
+    res["decode_cases"] = {}
+
+    def decode_case(label, fn, passes, check=None):
+        """``fn(graph)`` decodes; ``passes``: the decode passes a run
+        makes, each of which the third run replays."""
+        runs = [counted(lambda: fn(None)) for _ in range(3)]
+        want, eager_n, eager_s, eager_pk, _r = counted(lambda: fn(False))
+        for i, r in enumerate(runs):
+            if not same_output(r[0], want):
+                raise AssertionError(f"phase 30 decode {label}: graph run "
+                                     f"{i + 1} differs from the eager decode")
+        if runs[2][4] != passes or runs[2][1] != eager_n \
+                or not eager_n.get("plane_decode") \
+                or not eager_n.get("wavelet_inverse"):
+            raise AssertionError(
+                f"phase 30 decode {label}: the third run replayed "
+                f"{runs[2][4]} of {passes} passes, whose kernels ran "
+                f"{runs[2][1]} times on the card, the eager decode's "
+                f"{eager_n}")
+        if check is not None:
+            check(want)
+        reserved, bound = within_bound(f"decode {label}")
+        res["decode_cases"][label] = {
+            "runs": eager_n, "replays": runs[2][4],
+            "walls_s": [r[2] for r in runs], "eager_s": eager_s,
+            "eager_peak": eager_pk, "graph_peaks": [r[3] for r in runs],
+            "decode_pools": cache.pool_total(dev, "decode"),
+            "tables": cache.table_bytes(dev),
+            "reserved": reserved, "bound": bound}
+        log(f"phase 30 decode {label}: 3 graph runs equal the eager decode "
+            f"byte for byte; the third replayed {runs[2][4]} pass(es), "
+            f"kernel runs counted on the card {runs[2][1]} = eager's; walls "
+            f"{[round(r[2], 4) for r in runs]} s, eager {eager_s:.4f} s; "
+            f"peaks {[gb(r[3]) for r in runs]}, eager {gb(eager_pk)}; "
+            f"decode pools {gb(cache.pool_total(dev, 'decode'))}, keys' "
+            f"tables {gb(cache.table_bytes(dev))}, all pools and tables "
+            f"{gb(reserved)} within their bound {gb(bound)} | {card}")
+        return want
+
+    def lossless(images):
+        def check(got):
+            if not all(np.array_equal(a, b) for a, b in zip(got, images)):
+                raise AssertionError("phase 30: a decode differs from its "
+                                     "input")
+        return check
+
+    decode_case("boat 512 lossless (golden stream)",
+                lambda g: [T.decompress(stream, cfg, np.uint16, device=dev,
+                                        graph=g)], 1, lossless([boat]))
+    decode_case("bench 56 (pack8)",
+                lambda g: D.decompress_batch(
+                    bench_streams[:56], cfg, np.uint16, device=dev,
+                    pack8=True, graph=g), 1, lossless(imgs[:56]))
+    from icer_compression_tpu_torch.utils import faults
+    fpins = dict(ln.split(None, 1)[::-1] for ln in (
+        REPO / "tests" / "data" / "golden_faults.sha256")
+        .read_text().splitlines())
+    fcases = fault_cases(stream, faults)
+
+    def fault_pinned(got):
+        for (label, _b), px in zip(fcases, got):
+            if pixels_sha(px) != fpins[f"boat {label} decoded"]:
+                raise AssertionError(f"phase 30 fault {label}: decode "
+                                     "differs from its pin")
+
+    decode_case(f"{len(fcases)} fault pins one by one",
+                lambda g: [T.decompress(b, cfg, np.uint16, device=dev,
+                                        graph=g) for _l, b in fcases],
+                len(fcases), fault_pinned)
+    decode_case(f"{len(fcases)} fault pins as one batch",
+                lambda g: D.decompress_batch(
+                    [b for _l, b in fcases], cfg, np.uint16, device=dev,
+                    graph=g), 1, fault_pinned)
+    decode_case("colour 512 u16 (phase 16)",
+                lambda g: [TC.decompress_yuv(cstream, ccfg, np.uint16,
+                                             device=dev, graph=g)], 1,
+                lossless([planes]))
+    decode_case("5120x3840 lossless",
+                lambda g: [T.decompress(fstream, cfg, np.uint16, device=dev,
+                                        graph=g)], 1, lossless([frame]))
+    del frame, fstream
+    res["decode_reserved"], res["decode_bound"] = within_bound("decodes")
+    res["decode_pools"] = cache.pool_total(dev, "decode")
+    res["soak"] = decode_soak(dev, card, cfg, [stream]
+                              + list(bench_streams[:16])
+                              + [b for _l, b in fcases])
+
+    # boat's walls, graph against eager, in turns
     walls = {"graph": [], "eager": []}
     for i in range(5):
         for mode in ("graph", "eager")[::1 if i % 2 == 0 else -1]:
             with (eager_passes() if mode == "eager"
                   else contextlib.nullcontext()):
                 _s, te = sync_time(lambda: T.compress(boat, cfg, device=dev))
-            _d, td = sync_time(lambda: T.decompress(stream, cfg, np.uint16,
-                                                    device=dev))
+            _d, td = sync_time(lambda: T.decompress(
+                stream, cfg, np.uint16, device=dev, graph=mode == "graph"))
             walls[mode].append((te, td))
     med = {m: (statistics.median(e for e, _d in v),
                statistics.median(d for _e, d in v)) for m, v in walls.items()}
@@ -3936,8 +4150,9 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
                     f"ms, {h * w / (e + d) / 1e6:.4f} MP/s"
                     for m, (e, d) in med.items()) + f" | {card}")
 
-    # one boat encode each way under the profiler: the encode kernels'
-    # records by name inside the replay's window against the eager one's
+    # one boat encode and decode each way under the profiler: the encode
+    # kernels' records by name inside the replay's window against the
+    # eager one's, and each decode's API launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3945,6 +4160,10 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
             T.compress(boat, cfg, device=dev)
         with eager_passes(), record_function("encode eager"):
             T.compress(boat, cfg, device=dev)
+        with record_function("decode graph"):
+            T.decompress(stream, cfg, np.uint16, device=dev)
+        with record_function("decode eager"):
+            T.decompress(stream, cfg, np.uint16, device=dev, graph=False)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
@@ -3969,12 +4188,36 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
                              f"{tg['encode_kernels']} ({tg['api_launches']} "
                              f"API launches) differ from the eager one's "
                              f"{te['encode_kernels']}")
+    for mode in ("graph", "eager"):
+        r = res["trace"][f"decode {mode}"] = layer_breakdown(
+            events, f"decode {mode}")
+        r["decode_kernels"] = {
+            k: sum(n for name, n in r["kernels"].items() if fn in name)
+            for k, fn in DECODE_KERNELS.items()}
+        log(f"phase 30 boat decode {mode} (profiled): wall "
+            f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms, "
+            f"idle share {r['idle_share']:.4f}, {r['launches']} device "
+            f"launches from {r['api_launches']} API calls; decode kernels "
+            f"in the trace {r['decode_kernels']} | {card}")
+    dg, de = res["trace"]["decode graph"], res["trace"]["decode eager"]
+    if dg["api_launches"] >= de["api_launches"] \
+            or dg["decode_kernels"] != de["decode_kernels"] \
+            or not de["decode_kernels"]["plane_decode"]:
+        raise AssertionError(f"phase 30: the replayed boat decode's kernels "
+                             f"{dg['decode_kernels']} ({dg['api_launches']} "
+                             f"API launches) differ from the eager one's "
+                             f"{de['decode_kernels']}")
 
     res["captures"] = list(cache.captures)
     for c in cache.captures:
         k = c["key"]
-        log(f"phase 30 capture {k[0]}x{k[1]} B={k[6]} "
-            f"{'/'.join(x[0] for x in k[7])} windows {k[8]}: attempt "
+        what = (f"decode {' '.join(map(str, k[1:9]))} units "
+                f"{[u[:3] for u in k[9]]} blob {k[10]}"
+                if k[0] == "decode" and isinstance(k[1], int) else
+                f"decode {k[1:]}" if k[0] == "decode" else
+                f"{k[0]}x{k[1]} B={k[6]} "
+                f"{'/'.join(x[0] for x in k[7])} windows {k[8]}")
+        log(f"phase 30 capture {what}: attempt "
             f"{c['attempt']}, first replay equal {c['equal']}, "
             f"{c['seconds']:.3f} s, pool {gb(c['pool_bytes'])}, static "
             f"{gb(c['static_bytes'])}")
@@ -3983,9 +4226,12 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     res["reserved"], res["bound"] = within_bound("the end")
     res["live"] = cache.pool_total(dev)
     res["static"] = cache.static_bytes(dev)
+    res["tables"] = cache.table_bytes(dev)
+    res["snapshots"] = cache.snapshots
     res["eager_peak"] = max(eager_peaks)
     res["largest_pool"] = max(c["pool_bytes"] for c in cache.captures)
-    log(f"phase 30 graph pools: {len(cache.keys())} graphs, reserve "
+    log(f"phase 30 graph pools: {len(cache.keys())} graphs, pools and "
+        f"keys' tables hold "
         f"{gb(res['reserved'])} against their bound {gb(res['bound'])}, "
         f"live graphs' pools {gb(res['live'])} (after the bench's batch "
         f"{gb(res['bench_reserved'])} against {gb(res['bench_bound'])}; "
@@ -3995,8 +4241,32 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
         f"eager), of which static tensors {gb(res['static'])}; largest "
         f"pool {gb(res['largest_pool'])}, largest eager peak "
         f"{gb(res['eager_peak'])}; evictions {cache.evictions}, replays "
-        f"{cache.replays}, words copied out {cache.snapshots} "
-        f"({gb(cache.snapshot_bytes)}) | {card}")
+        f"{cache.replays}, outputs copied out {cache.snapshots} "
+        f"({gb(cache.snapshot_bytes)}); decode pools "
+        f"{gb(cache.pool_total(dev, 'decode'))}; keys' tables "
+        f"{gb(res['tables'])} ({cache.tables_made} made, "
+        f"{cache.tables_dropped} dropped) | {card}")
+    # step 0: a warm boat decode after a replayed encode, after an eager
+    # one, after the graphs are dropped (last: it drops every graph)
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        import decode_after_encode
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    res["positions"] = decode_after_encode.positions(dev, boat, reps=9,
+                                                     graph=True)
+    for name, r in res["positions"].items():
+        log(f"phase 30 boat decode {name}: wall {r['wall_ms_median']:.2f} "
+            f"ms (median of 9; profiled {r['profiled_wall_ms']:.2f}), busy "
+            f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.4f} "
+            f"(profiled windows {r['profiled_windows']}, records complete "
+            f"{r['records_complete']}), {r['api_launches']} API launches, "
+            f"allocator calls "
+            f"{r['allocator_calls']}, host ms by layer "
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        r["host_ms_by_layer"].items())
+            + f"; reserved {gb(r['reserved_bytes'])}, graph pools "
+            f"{gb(r['graph_pool_bytes'])} before it | {card}")
     return res
 
 
@@ -4236,10 +4506,10 @@ def smoke(host) -> int:
         raise AssertionError("boat lossless decode differs from the input")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not launch: {launches}")
-    # the key's first pass runs eagerly: each launch ran once on the card
-    if encode_runs()["slim_encode"] != launches["slim_encode"]:
-        raise AssertionError(f"K1 ran {encode_runs()} times on the card, "
-                             f"its wrapper launched {launches}")
+    # the keys' first passes run eagerly: each launch ran once on the card
+    if any(encode_runs()[k] != n for k, n in launches.items()):
+        raise AssertionError(f"the kernels ran {encode_runs()} times on the "
+                             f"card, their wrappers launched {launches}")
     log(f"main path boat 512 lossless: {len(stream)} B sha {sha[:16]}... == "
         f"golden, decode pixel-exact; launches {launches}; host re-encode "
         f"lanes {menc.fallback_lanes}")
@@ -4345,37 +4615,49 @@ def smoke(host) -> int:
     long_pins = dict(ln.split(None, 1)[::-1] for ln in
                      (data / "golden_long_lanes.sha256").read_text()
                      .splitlines())
+    mark_captures("phases 1-3 and the kernels' checks")
     lat, new = later_phases(dev, card, boat, img, bucket_words, stream,
                             golden, pins, cfg, cfg50, long_pins)
+    mark_captures("phases 4-12")
     crop_launches = lat["crop_launches"]
     dec = decode_phases(dev, card, boat, st, units, small)
+    mark_captures("phases 13-15")
     col = color_phases(dev, card, boat, [
         ln.split()[0] for ln in
         (data / "golden_color512.sha256").read_text().splitlines()])
+    mark_captures("phases 16-17")
     dfr = deferred_phase(dev, card, boat)
+    mark_captures("phase 18")
     cl = cli_phase(dev, card, boat)
+    mark_captures("phase 19")
     lng = long_lane_phases(dev, card, boat, long_pins, batch, host, long_bw)
+    mark_captures("phase 20")
     del long_bw
     cld, cli_graph = cli_defaults_phase(dev, card, boat)
+    mark_captures("phase 21")
     flt = fault_phase(dev, card, boat, stream, cfg, dict(
         ln.split(None, 1)[::-1] for ln in
         (data / "golden_faults.sha256").read_text().splitlines()))
+    mark_captures("phase 22")
     hst = host_codec_phase(dev, card, boat, cfg, golden, pins, [
         ln.split()[0] for ln in
         (data / "golden_color512.sha256").read_text().splitlines()], {
         "enc": enc_med, "dec": dec_med, "color_enc": col["enc_ms"] / 1e3,
         "color_dec": col["dec_ms"] / 1e3})
     shd = sharded_phase(card, boat, golden, streams, col["batch_streams"])
+    mark_captures("phases 23-24")
     big_pins = dict(ln.split(None, 1)[::-1] for ln in
                     (data / "golden_big_images.sha256").read_text()
                     .splitlines())
     large = big_image_phase(dev, card, boat, big_pins, host, big_k1, big_k4)
+    mark_captures("phase 25")
     del big_k1, big_k4
     w1r = w1_phase(dev, card, boat)
     trc = trace_phase(dev, card, boat)
     cfr = config_phase(dev, card, boat,
                        *read_config_pins(data / "golden_configs.sha256"))
     cpl = coder_plan_phase(dev, card, boat)
+    mark_captures("phases 26-27")
     srt = sorted_pass_phase(
         dev, card, boat, long_pins, big_pins, cpl,
         large["images"]["gray5120x3840 unlimited"]["enc_peak"])
@@ -4392,14 +4674,20 @@ def smoke(host) -> int:
     k1w_plain_s = late_s["K1 two-word long"]
     k1w_huge_plain_s = late_s["K1 two-word past 2^17"]
     # the host workers are done: phase 29's walls share the host with no one
+    mark_captures("phase 28")
     t29 = time.perf_counter()
     prg = programs_phase(card, boat, golden, {
         ln.split(None, 3)[3]: ln.split()[:3] for ln in
         (data / "golden_examples.sha256").read_text().splitlines()})
     t29 = time.perf_counter() - t29
+    mark_captures("phase 29")
     t30 = time.perf_counter()
     g30 = graph_phase(dev, card, boat, golden, pins, cli_graph)
     t30 = time.perf_counter() - t30
+    mark_captures("phase 30")
+    for label, n, secs in capture_counts():
+        log(f"graph captures in {label}: {n}, {secs:.3f} s (this process; "
+            "phase 24's ranks and phase 29's programs capture in their own)")
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
              "plane_decode": {}, "full_encode": {}, "wavelet_inverse": {}}
     for path, counts in (
@@ -4612,9 +4900,15 @@ def smoke(host) -> int:
         f"graph pools {gb(g30['reserved'])} (largest eager pass "
         f"{gb(g30['eager_peak'])}), boat encode graph / eager "
         f"{1e3 * g30['walls']['graph'][0]:.2f} / "
-        f"{1e3 * g30['walls']['eager'][0]:.2f} ms, API launches a boat "
+        f"{1e3 * g30['walls']['eager'][0]:.2f} ms, decode graph / eager "
+        f"{1e3 * g30['walls']['graph'][1]:.2f} / "
+        f"{1e3 * g30['walls']['eager'][1]:.2f} ms, API launches a boat "
         f"encode {g30['trace']['graph']['api_launches']} / "
-        f"{g30['trace']['eager']['api_launches']}"
+        f"{g30['trace']['eager']['api_launches']}, a boat decode "
+        f"{g30['trace']['decode graph']['api_launches']} / "
+        f"{g30['trace']['decode eager']['api_launches']}; decode pools "
+        f"{gb(g30['decode_pools'])}; soak {g30['soak']['trials']} trials, "
+        f"{len(g30['soak']['mismatches'])} mismatches"
         + f"; phases 1-30 {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))

@@ -1,15 +1,21 @@
-"""Captured CUDA graphs of the encoder's device passes, checked on first
+"""Captured CUDA graphs of the codec's device passes, checked on first
 replay.
 
-Counterpart: ``icer_compression_tpu/backend/aot_cache.py``.  The JAX
-encoder runs each pass as one compiled program per (geometry, batch,
-coder, plane windows), and before a fresh program's first output is
+Counterparts: ``icer_compression_tpu/backend/aot_cache.py`` and the
+jitted decode program of ``icer_compression_tpu/models/decode_jax.py``
+(``_run_fused``, one per plan key ``fkey``).  The JAX encoder runs each
+pass as one compiled program per (geometry, batch, coder, plane windows),
+its decoder one per plan key, and before a fresh program's first output is
 returned it runs the program twice on the caller's inputs and compares
 the outputs bit for bit (a mismatch recompiles once, a second raises).
 Here a pass is one ``torch.cuda.CUDAGraph`` per key, replayed with one
-launch; the key holds every field that fixes the pass's shapes (geometry,
-stages, filter, segments, mag_bits, images in the pass, the bucket coders
-and their record modes and call sizes, plane windows, lane share, device).
+launch; the key holds every field that fixes the pass's shapes (for an
+encode pass: geometry, stages, filter, segments, mag_bits, images in the
+pass, the bucket coders and their record modes and call sizes, plane
+windows, lane share, device; for a decode pass, ``DecodePlan.key`` of
+``models/decode.py``: geometry, canvases, the units present with their
+rounds, the padded blob, pack8, device).  A pass reads one tensor or a
+tuple of tensors, its static inputs.
 
 Life of a key.  The dispatch half of a pass (``GraphCache.run``) never
 waits for the card:
@@ -18,15 +24,38 @@ waits for the card:
     upload), and all that a one-off geometry ever pays;
   - its second pass (and any later one dispatched before the capture)
     runs eagerly too and is marked for capture;
-  - once captured, every pass copies its input into the graph's static
-    input and replays.
+  - once captured, every pass copies its inputs into the graph's static
+    inputs and replays.
 The capture itself is the collector's (``GraphCache.capture``), after the
 marked pass's copies to the host are done, where the host waits anyway:
-the pass's function is captured on a static copy of its input, the graph
+the pass's function is captured on a static copy of its inputs, the graph
 is replayed once, and the replay's outputs must equal the eager pass's bit
 for bit.  A mismatch re-captures once; a second mismatch raises
 ``RuntimeError``.  A capture that fails raises too: no path goes on
-eagerly in its place.
+eagerly in its place.  The passes seen per key are kept for the
+``SEEN_KEYS`` most recent keys only (decode keys are many: every quota,
+fault pattern and blob size is its own), so a key forgotten there starts
+again at its first pass.
+
+Tables of a key.  What a pass reads that its key alone fixes (a decode's
+canvas index and lane geometry) is made once per key (``owner``) and kept
+with the cache's record of the key: with the key's count of passes until
+it is captured, with its graph after.  Their device bytes count against
+the bound with the pools; eviction drops those of keys not captured
+first (least recently used; no sync, the caching allocator keeps them
+until the card is done), then graphs, which take theirs along, and
+``clear`` drops them all.
+
+Threads.  Two threads may run passes of one key on one card (the
+round-robin decode of ``parallel.sharded.decode_batch_sharded``).  Each
+cache has a lock (``lock``, re-entrant): ``run``, ``hold``, ``read``,
+``owner``, ``capture``, eviction and ``clear`` hold it, and a caller that
+reads a replay's static outputs after ``run`` (its copies to the host,
+``hold``) holds it around ``run`` and those reads, so no other thread's
+static copy or replay comes between; a held output is read later through
+``read``, under the lock too.  A replay on another stream than the graph's last one waits for
+that stream first, and outputs held for a reader on another stream are
+copied out before that stream may read them.
 
 Launch counts: the counted kernel wrappers (``kernel_counters``) add to
 their ``launches`` in Python for each launch the host issues, which a
@@ -45,23 +74,29 @@ batch's pass of 37).  So each capture turns expandable segments on, and
 then back to the process's own setting.  One pool shared by every graph
 grew past one pass (no pass could reuse another's blocks), so each graph
 has its own pool, whose bytes are read from the allocator's snapshot
-after the capture (``pool_bytes``).  The graphs of a device hold at most
-one pass budget (``ops.encode.PASS_PEAK_BYTES``) beyond their static
-tensors (``bound``): before a capture the least recently used graphs are
-evicted until the new pass's estimate fits beside the rest, and after it
-until its measured pool does.
+after the capture (``pool_bytes``).  The graphs of a device, encode and
+decode passes alike, hold at most one pass budget
+(``ops.encode.PASS_PEAK_BYTES``) beyond their static tensors (``bound``)
+in their pools and the keys' tables (``held_bytes``): before a capture
+the tables of keys not captured, then the least recently used graphs,
+are dropped until the new pass's estimate (from its shapes) fits beside
+the rest, and after it until its measured pool does; a key's new tables
+drop only the tables of other keys not captured, since the dispatch half
+does not wait for the card.
 
 A graph's replay writes only its own pool, so the outputs the host reads
 after the dispatch half (``hold``: the coder words a collector re-encodes
-flagged lanes from) are copied out only before the next replay of the
-same graph; the stream-ordered copies to the host, queued right after a
-replay, read theirs first.
+flagged lanes from, a decode's wide pixels that its pack8 fallback
+copies) are copied out only before the next replay of the same graph; the
+stream-ordered copies to the host, queued right after a replay, read
+theirs first.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -69,15 +104,24 @@ from collections import OrderedDict
 import torch
 
 CAPTURE_AT = 2            # the pass of a key that is captured
+SEEN_KEYS = 4096          # keys whose passes are counted, most recent
 
 
 def kernel_counters():
-    """The counted kernel wrappers an encode pass may run: (module, name)
-    of each function whose ``launches`` it increments."""
+    """The counted kernel wrappers a pass may run: (module, name) of each
+    function whose ``launches`` it increments."""
     from ..ops import entropy_full as EF
     from ..ops import entropy_slim as ES
+    from ..ops import plane_decode as PD
+    from ..ops import wavelet as WV
     return [(ES, "encode_lanes_slim"), (ES, "encode_lanes_slim_two_word"),
-            (EF, "encode_lanes_full"), (EF, "encode_lanes_full_tiled")]
+            (EF, "encode_lanes_full"), (EF, "encode_lanes_full_tiled"),
+            (PD, "decode_planes"), (WV, "inverse_pass")]
+
+
+def is_decode(key) -> bool:
+    """Whether ``key`` is a decode pass's (``models.decode.DecodePlan``)."""
+    return isinstance(key, tuple) and key[:1] == ("decode",)
 
 
 def pass_budget() -> int:
@@ -135,7 +179,7 @@ def expandable_segments():
             _set_allocator("expandable_segments:False")
 
 
-def capture_cuda(fn, static_x: torch.Tensor):
+def capture_cuda(fn, static_x):
     """Capture ``fn(static_x)`` into a CUDA graph with its own pool of
     expandable segments.  Returns (graph, outputs).  A call in this thread
     that capture forbids raises; other threads (a process group's
@@ -151,57 +195,96 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _flat(x) -> tuple:
+    """The tensors of a pass's input: ``x`` itself or its members."""
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _owned(owner, device: torch.device) -> int:
+    """Device bytes of ``owner``'s tables on ``device``: its ``nbytes``,
+    where it has them and its ``device`` is ``device``."""
+    if owner is None or getattr(owner, "device", None) != device:
+        return 0
+    return getattr(owner, "nbytes", 0)
+
+
+def _current_stream(device: torch.device):
+    return torch.cuda.current_stream(device) if device.type == "cuda" \
+        else None
+
+
 class Held:
     """Device outputs of a pass that the host reads after the dispatch
     half: ``tensors`` until ``release``.  Those of a replay are copied
-    out before the next replay of their graph could overwrite them."""
+    out before the next replay of their graph could overwrite them;
+    ``stream`` is the stream that reads them (None: any)."""
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, stream=None):
         self.tensors = list(tensors)
+        self.stream = stream
 
     def release(self) -> None:
         self.tensors = None
 
 
+class _Seen:
+    """A key not captured: the passes seen of it and the object whose
+    device tables they read (None: not made, or dropped)."""
+
+    def __init__(self):
+        self.passes = 0
+        self.owner = None
+
+
 class _Entry:
-    """One captured pass: the graph, its static input and outputs, the
-    bytes of its pool, the outputs of its last replay still held, and the
-    encoder whose device tables the graph reads (kept alive with it)."""
+    """One captured pass: the graph, its static inputs and outputs, the
+    bytes of its pool, the outputs of its last replay still held, the
+    stream of its last replay, and the object whose device tables the
+    graph reads (an encoder, a decode key's tables; kept alive with
+    it)."""
 
     def __init__(self, key, graph, static_x, outs, owner):
         self.key, self.graph = key, graph
         self.static_x, self.outs = static_x, outs
         self.owner = owner
-        self.device = static_x.device
-        self.nbytes = _nbytes((static_x,) + tuple(outs))
+        self.device = _flat(static_x)[0].device
+        self.nbytes = _nbytes(_flat(static_x) + tuple(outs))
         self.pool = 0
         self.held: weakref.WeakSet = weakref.WeakSet()
+        self.stream = None
 
 
 class GraphCache:
-    """The captured passes of every encoder, by key (least recently used
-    first).  ``capture(fn, static_x) -> (graph, outputs)`` records a pass
-    (``capture_cuda`` on the card), ``pool(graph, device)`` measures its
-    pool (``pool_bytes``), ``counters()`` lists the counted kernel
-    wrappers and ``budget`` is one pass's device bytes (None:
-    ``pass_budget()``); the tests give stand-ins for all four.
+    """The captured passes of every encoder and decode plan, by key (least
+    recently used first).  ``capture(fn, static_x) -> (graph, outputs)``
+    records a pass (``capture_cuda`` on the card), ``pool(graph,
+    device)`` measures its pool (``pool_bytes``), ``counters()`` lists
+    the counted kernel wrappers and ``budget`` is one pass's device bytes
+    (None: ``pass_budget()``); the tests give stand-ins for all four.
     ``captures`` lists every capture with its seconds, first-replay check
     and pool bytes; ``evictions``, ``replays``, ``snapshots`` and
-    ``snapshot_bytes`` count the rest."""
+    ``snapshot_bytes`` count the rest, ``tables_made`` and
+    ``tables_dropped`` the keys' tables.  ``seen_keys``: the most recent
+    keys whose passes are counted (``SEEN_KEYS``)."""
 
     def __init__(self, capture=capture_cuda, pool=pool_bytes,
-                 counters=kernel_counters, budget: int | None = None):
+                 counters=kernel_counters, budget: int | None = None,
+                 seen_keys: int = SEEN_KEYS):
         self._capture = capture
         self._pool = pool
         self._counters = counters
         self.budget = budget
+        self.seen_keys = seen_keys
+        self.lock = threading.RLock()
         self._entries: OrderedDict = OrderedDict()
-        self._seen: dict = {}
+        self._seen: OrderedDict = OrderedDict()
         self.captures: list[dict] = []
         self.evictions = 0
         self.replays = 0
         self.snapshots = 0
         self.snapshot_bytes = 0
+        self.tables_made = 0
+        self.tables_dropped = 0
 
     def __contains__(self, key) -> bool:
         return key in self._entries
@@ -209,11 +292,13 @@ class GraphCache:
     def keys(self) -> list:
         return list(self._entries)
 
-    def pool_total(self, device) -> int:
-        """Bytes of the pools of ``device``'s graphs."""
+    def pool_total(self, device, kind: str | None = None) -> int:
+        """Bytes of the pools of ``device``'s graphs: every graph's, or
+        only the ``"decode"`` or ``"encode"`` passes'."""
         device = _device(device)
-        return sum(e.pool for e in self._entries.values()
-                   if e.device == device)
+        return sum(e.pool for k, e in list(self._entries.items())
+                   if e.device == device
+                   and (kind is None or is_decode(k) == (kind == "decode")))
 
     def static_bytes(self, device) -> int:
         """Bytes of the static inputs and outputs of ``device``'s
@@ -222,9 +307,21 @@ class GraphCache:
         return sum(e.nbytes for e in self._entries.values()
                    if e.device == device)
 
+    def table_bytes(self, device) -> int:
+        """Bytes of the keys' tables on ``device``, captured or not."""
+        device = _device(device)
+        return sum(_owned(o, device) for o in
+                   [e.owner for e in list(self._entries.values())]
+                   + [r.owner for r in list(self._seen.values())])
+
+    def held_bytes(self, device) -> int:
+        """What the bound holds on ``device``: the graphs' pools and the
+        keys' tables."""
+        return self.pool_total(device) + self.table_bytes(device)
+
     def bound(self, device) -> int:
-        """The most that ``device``'s graph pools may hold: one pass
-        budget beyond their static tensors."""
+        """The most that ``device``'s graph pools and keys' tables may
+        hold: one pass budget beyond the graphs' static tensors."""
         budget = pass_budget() if self.budget is None else self.budget
         return budget + self.static_bytes(device)
 
@@ -232,34 +329,79 @@ class GraphCache:
         """Drop every graph (once the card is done with them) and forget
         every key's passes; ``torch.cuda.empty_cache`` then returns the
         pools to the device."""
-        for dev in {e.device for e in self._entries.values()
-                    if e.device.type == "cuda"}:
-            torch.cuda.synchronize(dev)
-        self._entries.clear()
-        self._seen.clear()
+        with self.lock:
+            for dev in {e.device for e in self._entries.values()
+                        if e.device.type == "cuda"}:
+                torch.cuda.synchronize(dev)
+            self._entries.clear()
+            self._seen.clear()
 
-    def run(self, key, fn, x: torch.Tensor):
-        """The dispatch half of the pass ``key`` over ``x``: a replay of
-        its graph, else ``fn(x)`` (a tuple of tensors) eagerly.  Returns
-        (outputs, state): ``replay`` (the graph's static outputs, valid
-        until its next replay; ``hold`` keeps what the host reads later),
-        ``eager``, or ``capture``: an eager pass of a key seen
-        ``CAPTURE_AT`` times, whose collector calls ``capture``."""
-        entry = self._entries.get(key)
-        if entry is not None:
-            self._entries.move_to_end(key)
-            return self._replay(entry, x), "replay"
-        seen = self._seen[key] = self._seen.get(key, 0) + 1
-        return tuple(fn(x)), "capture" if seen >= CAPTURE_AT else "eager"
+    def run(self, key, fn, x):
+        """The dispatch half of the pass ``key`` over ``x`` (a tensor or a
+        tuple of tensors): a replay of its graph, else ``fn(x)`` (a tuple
+        of tensors) eagerly.  Returns (outputs, state): ``replay`` (the
+        graph's static outputs, valid until its next replay; ``hold``
+        keeps what the host reads later), ``eager``, or ``capture``: an
+        eager pass of a key seen ``CAPTURE_AT`` times, whose collector
+        calls ``capture``."""
+        with self.lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                return self._replay(entry, x), "replay"
+            rec = self._record_of(key)
+            rec.passes += 1
+            return tuple(fn(x)), \
+                "capture" if rec.passes >= CAPTURE_AT else "eager"
+
+    def _record_of(self, key) -> _Seen:
+        """The key's record of passes, now the most recent one."""
+        rec = self._seen.pop(key, None) or _Seen()
+        self._seen[key] = rec
+        while len(self._seen) > self.seen_keys:
+            self._seen.popitem(last=False)
+        return rec
+
+    def owner(self, key, make, device):
+        """The object whose tables on ``device`` the passes of ``key``
+        read, ``make()`` once per key: the captured graph's owner, else
+        the one kept with the key's record (made now if it has none, then
+        the tables of other keys not captured are dropped down to the
+        bound)."""
+        with self.lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                return entry.owner
+            rec = self._record_of(key)
+            if rec.owner is None:
+                rec.owner = make()
+                self.tables_made += 1
+                self._evict(device, self._keep(device), spare=key,
+                            graphs=False)
+            return rec.owner
+
+    def read(self, held: Held) -> list:
+        """Host copies of ``held``'s tensors, made under the lock, so no
+        replay of their graph comes between (its snapshot, queued ahead of
+        the replay, is what a later read sees)."""
+        with self.lock:
+            stream = None if not held.tensors or held.stream is None \
+                else _current_stream(held.tensors[0].device)
+            if stream is not None and stream != held.stream:
+                stream.wait_stream(held.stream)
+            return [t.to("cpu", copy=True) for t in held.tensors]
 
     def hold(self, key, tensors) -> Held:
         """Keep ``tensors``, outputs of the last replay of ``key``'s
-        graph, readable after its later replays."""
-        h = Held(tensors)
-        self._entries[key].held.add(h)
-        return h
+        graph, readable after its later replays (by the stream of that
+        replay)."""
+        with self.lock:
+            entry = self._entries[key]
+            h = Held(tensors, entry.stream)
+            entry.held.add(h)
+            return h
 
-    def capture(self, key, fn, x: torch.Tensor, ref, owner=None,
+    def capture(self, key, fn, x, ref, owner=None,
                 estimate: int = 0) -> None:
         """The collector's half of a pass that ``run`` marked ``capture``,
         once its eager outputs ``ref`` are done: capture ``fn`` on a
@@ -267,10 +409,14 @@ class GraphCache:
         bit for bit; one re-capture on a mismatch, then ``RuntimeError``.
         ``estimate``: the pass's pool bytes, for the eviction before the
         capture.  Nothing to do if the key was captured since."""
+        with self.lock:
+            self._capture_locked(key, fn, x, ref, owner, estimate)
+
+    def _capture_locked(self, key, fn, x, ref, owner, estimate) -> None:
         if key in self._entries:
             return
-        device = x.device
-        self._evict(device, self._keep(device, estimate))
+        device = _flat(x)[0].device
+        self._evict(device, self._keep(device, estimate), spare=key)
         for attempt in (1, 2):
             t0 = time.perf_counter()
             entry = self._record(key, fn, x, owner)
@@ -285,15 +431,24 @@ class GraphCache:
                 "static_bytes": entry.nbytes, "pool_bytes": entry.pool})
             if equal:
                 self._entries[key] = entry
+                rec = self._seen.get(key)
+                if rec is not None:       # the graph keeps the tables now
+                    rec.owner = None
                 self._evict(device, self._keep(device), spare=key)
                 return
             del entry, outs
         raise RuntimeError(
-            f"the captured encode pass {key!r} disagreed with its eager run "
-            "on its first replay twice (re-captured once); refusing to "
-            "return possibly wrong output")
+            f"the captured pass {key!r} disagreed with its eager run on its "
+            "first replay twice (re-captured once); refusing to return "
+            "possibly wrong output")
 
-    def _replay(self, entry: _Entry, x: torch.Tensor):
+    def _replay(self, entry: _Entry, x):
+        stream = _current_stream(entry.device)
+        if stream is not None and entry.stream is not None \
+                and entry.stream != stream:
+            # the last replay and the reads queued after it, on another
+            # stream, come first
+            stream.wait_stream(entry.stream)
         # copy out what the host still reads of the last replay, queued
         # on the stream ahead of the one that overwrites it
         for h in list(entry.held):
@@ -301,9 +456,13 @@ class GraphCache:
                 h.tensors = [t.clone() for t in h.tensors]
                 self.snapshots += 1
                 self.snapshot_bytes += _nbytes(h.tensors)
+                if h.stream is not None and h.stream != stream:
+                    h.stream.wait_stream(stream)
         entry.held = weakref.WeakSet()
-        entry.static_x.copy_(x)
+        for s, t in zip(_flat(entry.static_x), _flat(x), strict=True):
+            s.copy_(t)
         entry.graph.replay()
+        entry.stream = stream
         self.replays += 1
         return entry.outs
 
@@ -313,8 +472,8 @@ class GraphCache:
         succeeds."""
         counters = self._counters()
         before = [getattr(o, n).launches for o, n in counters]
-        static_x = torch.empty_like(x)
-        static_x.copy_(x)
+        static = tuple(torch.empty_like(t).copy_(t) for t in _flat(x))
+        static_x = static if isinstance(x, (tuple, list)) else static[0]
         try:
             graph, outs = self._capture(fn, static_x)
         finally:
@@ -323,23 +482,33 @@ class GraphCache:
         return _Entry(key, graph, static_x, tuple(outs), owner)
 
     def _keep(self, device, extra: int = 0) -> int:
-        """Pool bytes of ``device``'s graphs beyond their bound, with
+        """Bytes of ``device``'s pools and tables beyond their bound, with
         ``extra`` more."""
         device = _device(device)
-        return self.pool_total(device) + extra - self.bound(device)
+        return self.held_bytes(device) + extra - self.bound(device)
 
-    def _evict(self, device, excess: int, spare=None) -> None:
-        """Evict the least recently used graphs of ``device`` (never
-        ``spare``) until ``excess`` pool bytes are gone; their pools go
-        back to the device."""
+    def _evict(self, device, excess: int, spare=None,
+               graphs: bool = True) -> None:
+        """Drop the tables of ``device``'s keys not captured, then (with
+        ``graphs``) evict its graphs, least recently used first and never
+        ``spare``'s, until ``excess`` bytes are gone; the pools of evicted
+        graphs go back to the device."""
         device = _device(device)
+        for key, rec in self._seen.items():
+            if excess <= 0:
+                return
+            nbytes = _owned(rec.owner, device)
+            if nbytes and key != spare:
+                rec.owner = None
+                self.tables_dropped += 1
+                excess -= nbytes
         drop = []
         for key, e in self._entries.items():
-            if excess <= 0:
+            if excess <= 0 or not graphs:
                 break
             if e.device == device and key != spare:
                 drop.append(key)
-                excess -= e.pool - e.nbytes
+                excess -= e.pool - e.nbytes + _owned(e.owner, device)
         if not drop:
             return
         if device.type == "cuda":

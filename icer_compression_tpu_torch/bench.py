@@ -16,8 +16,10 @@ its configuration: boat 512, lossless (quota w * h), stages 4, filter A,
                   ``allocate_streams``, in device passes of its coder's
                   share of ``ops.encode.PASS_WORDS``), decoded by
                   ``models/decode.decompress_batch`` in chunks of
-                  ``--batch``; peak device memory, and the bytes the
-                  captured graphs' pools hold beside it;
+                  ``--batch`` (each decode pass a captured graph per plan
+                  key once its key repeats); peak device memory, and the
+                  bytes the captured graphs' pools hold beside it, all of
+                  them and the decode passes';
   <dev>_pipelined ``--pipe`` batches in a row through
                   ``encode_batch(defer=True)`` and
                   ``decompress_batch(defer=True)``, each batch dispatched
@@ -29,17 +31,18 @@ its configuration: boat 512, lossless (quota w * h), stages 4, filter A,
                   graphs' pools, as above;
   device_time     ``torch.profiler`` (CPU and CUDA) over one batched
                   encode of ``--batch-enc`` images through an eager
-                  encoder (``graph=False``) and one batched decode of
-                  ``--batch`` streams, each launch put in its layer
-                  (``utils/trace``): per image the device's busy ms (the
-                  union of kernel and copy intervals), idle share,
-                  launches and each layer's device ms, launches and host
-                  ms; beside it the batched mode's encode, its passes
-                  replayed as captured graphs (``encode_graph``: busy ms,
-                  idle share, device and API launches); the ceiling MP/s,
-                  pixels / (graph encode + decode busy time per image),
-                  and the eager encode's.  Card only: a CPU run reports it
-                  as not measured.
+                  encoder (``graph=False``) and one eager batched decode
+                  of ``--batch`` streams (``graph=False``), each launch
+                  put in its layer (``utils/trace``): per image the
+                  device's busy ms (the union of kernel and copy
+                  intervals), idle share, launches and each layer's
+                  device ms, launches and host ms; beside them the
+                  batched mode's encode and decode, their passes replayed
+                  as captured graphs (``encode_graph``, ``decode_graph``:
+                  busy ms, idle share, device and API launches); the
+                  ceiling MP/s, pixels / (graph encode + graph decode busy
+                  time per image), and the eager passes'.  Card only: a
+                  CPU run reports it as not measured.
 
 Every stream must equal the native one (and ``tests/data/golden_boat512
 .sha256`` for boat), the batch's first stream the single-image stream, and
@@ -126,13 +129,14 @@ def no_host_sync(dev: torch.device):
 def peak_memory(dev: torch.device, out: dict):
     """``out`` receives the peak allocated device bytes inside the block,
     the bytes allocated before it and the bytes the captured graphs'
-    pools hold after it (None on the CPU).  A replay runs in its graph's
-    pool, reserved at the capture, so a block that replays graphs
-    captured before it peaks below what it holds on the device."""
+    pools hold after it, all of them and the decode passes' (None on the
+    CPU).  A replay runs in its graph's pool, reserved at the capture, so
+    a block that replays graphs captured before it peaks below what it
+    holds on the device."""
     if dev.type != "cuda":
         yield
         out.update(peak_allocated_bytes=None, base_allocated_bytes=None,
-                   graph_pool_bytes=None)
+                   graph_pool_bytes=None, decode_graph_pool_bytes=None)
         return
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -141,7 +145,9 @@ def peak_memory(dev: torch.device, out: dict):
     torch.cuda.synchronize(dev)
     out.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
                base_allocated_bytes=base,
-               graph_pool_bytes=graph_cache.reserved_bytes(dev))
+               graph_pool_bytes=graph_cache.reserved_bytes(dev),
+               decode_graph_pool_bytes=graph_cache.CACHE.pool_total(
+                   dev, "decode"))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -248,6 +254,7 @@ def batched_mode(imgs, cfg, dev, B, reps, single_stream, warm):
            "encode_peak_allocated_bytes": mem_e["peak_allocated_bytes"],
            "encode_graph_pool_bytes": mem_e["graph_pool_bytes"],
            "decode_peak_allocated_bytes": mem_d["peak_allocated_bytes"],
+           "decode_graph_pool_bytes": mem_d["decode_graph_pool_bytes"],
            "base_allocated_bytes": mem_e["base_allocated_bytes"],
            "per_image_verified": bool(ok)}
     res["verified"] = res["per_image_verified"]
@@ -311,6 +318,7 @@ def pipelined_mode(imgs, cfg, dev, enc, streams, B, K, batched_ok):
            "encode_peak_allocated_bytes": mem_e["peak_allocated_bytes"],
            "encode_graph_pool_bytes": mem_e["graph_pool_bytes"],
            "decode_peak_allocated_bytes": mem_d[B]["peak_allocated_bytes"],
+           "decode_graph_pool_bytes": mem_d[B]["decode_graph_pool_bytes"],
            "per_image_verified": bool(pok_e and pok_d)}
     res["verified"] = res["per_image_verified"]
     return res
@@ -318,9 +326,10 @@ def pipelined_mode(imgs, cfg, dev, enc, streams, B, K, batched_ok):
 
 def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
     """One batched encode of ``imgs`` through an eager encoder and one
-    batched decode of ``B`` streams under ``torch.profiler``, each launch
-    put in its layer; then one encode through ``enc``, whose passes are
-    captured graphs by now, traced as a whole."""
+    eager batched decode of ``B`` streams under ``torch.profiler``, each
+    launch put in its layer; then one encode through ``enc`` and one
+    decode of the same streams, whose passes are captured graphs by now,
+    traced as a whole."""
     from torch.profiler import ProfilerActivity, profile, record_function
     BE, h, w = imgs.shape
     eager = T.make_encoder(w, h, cfg, imgs.dtype, device=dev, graph=False)
@@ -339,16 +348,25 @@ def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
             got = T.allocate_streams(eager.encode_batch(imgs), cfg, eager)
         with record_function("decode"):
             decs = D.decompress_batch(streams[:B], cfg, dtype=np.uint16,
-                                      device=dev, pack8=True)
+                                      device=dev, pack8=True, graph=False)
         torch.cuda.synchronize(dev)
     traces = [(events_of(prof), (("encode", BE), ("decode", B)))]
+    # each replay in a profile of its own: the encode's 28,000 kernel
+    # records would crowd the decode's out of one
     with profile(activities=acts) as gprof:
         with record_function("encode graph"):
             got_g = T.allocate_streams(enc.encode_batch(imgs), cfg, enc)
         torch.cuda.synchronize(dev)
     traces.append((events_of(gprof), (("encode graph", BE),)))
+    with profile(activities=acts) as dprof:
+        with record_function("decode graph"):
+            decs_g = D.decompress_batch(streams[:B], cfg, dtype=np.uint16,
+                                        device=dev, pack8=True)
+        torch.cuda.synchronize(dev)
+    traces.append((events_of(dprof), (("decode graph", B),)))
     if got != streams or got_g != streams or not all(
-            np.array_equal(d, i) for d, i in zip(decs, imgs[:B])):
+            np.array_equal(d, i) and np.array_equal(g, i)
+            for d, g, i in zip(decs, decs_g, imgs[:B])):
         raise AssertionError("the traced batch differs from the batched "
                              "mode's")
     res = {}
@@ -372,16 +390,17 @@ def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
                                "launches_per_image": g["launches"] / n,
                                "host_ms_per_image": g["host_ms"] / n}
                            for k, g in r["layers"].items()}}
-    dec = res["decode"]["per_image"]["busy_ms"]
     res["combined_MPs_ceiling"] = h * w / (
-        (res["encode_graph"]["per_image"]["busy_ms"] + dec) / 1e3) / 1e6
+        (res["encode_graph"]["per_image"]["busy_ms"]
+         + res["decode_graph"]["per_image"]["busy_ms"]) / 1e3) / 1e6
     res["combined_MPs_ceiling_eager"] = h * w / (
-        (res["encode"]["per_image"]["busy_ms"] + dec) / 1e3) / 1e6
+        (res["encode"]["per_image"]["busy_ms"]
+         + res["decode"]["per_image"]["busy_ms"]) / 1e3) / 1e6
     res["note"] = ("torch.profiler, CPU and CUDA traced: one batched encode "
-                   f"of {BE} through an eager encoder (by layer) and one "
-                   f"through the captured graphs (as a whole), a decode of "
-                   f"{B}; busy = union of kernel and copy intervals; the "
-                   "profiler slows the host")
+                   f"of {BE} and a decode of {B}, each eager (by layer) and "
+                   "through the captured graphs (as a whole); busy = "
+                   "union of kernel and copy intervals; the profiler slows "
+                   "the host")
     return res
 
 

@@ -58,6 +58,10 @@
 // warp, the lane's seed column loaded into the canvas first.  A lane whose
 // offset is -1 keeps its seed and reports err as a missing plane does in
 // kernel 2.
+//
+// Each launch counts its own run: thread 0 of block 0 adds one to
+// `run_count` (the kernel's slot of the device's run counters, or null),
+// so a launch that a CUDA graph replays is counted too.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -291,7 +295,8 @@ plane_decode_kernel(const uint8_t* __restrict__ stream,
                     const int32_t* __restrict__ seed, int32_t* out,
                     int32_t* __restrict__ err_out,
                     int32_t* __restrict__ pos_out, int R, int n, int hmax,
-                    int wmax, int lsb0, int mag_bits) {
+                    int wmax, int lsb0, int mag_bits,
+                    unsigned long long* __restrict__ run_count) {
   extern __shared__ int4 smem4[];
   int* const lut = reinterpret_cast<int*>(smem4);
   int* const state = lut + kLutPad;
@@ -309,6 +314,9 @@ plane_decode_kernel(const uint8_t* __restrict__ stream,
   const int k = threadIdx.x >> 5;
   const int npx = hmax * wmax;
   int32_t* const gcv = out + lane;   // the lane's column of `out`
+
+  if (run_count != nullptr && lane == 0 && threadIdx.x == 0)
+    atomicAdd(run_count, 1ull);
 
   for (int i = threadIdx.x; i < kLutSize; i += blockDim.x) lut[i] = luts[i];
   if (threadIdx.x < kMaxRounds) {
@@ -488,7 +496,7 @@ int launch(const void* stream, const void* offs, const void* ebits,
            const void* lane_end, const void* geom, const void* luts,
            const void* seed, void* out, void* err, void* pos, int R, int n,
            int hmax, int wmax, int lsb0, int mag_bits, int force_global,
-           int* placement, void* cuda_stream) {
+           int* placement, void* runs, void* cuda_stream) {
   if (R < 1 || R > kMaxRounds || hmax <= 0 || wmax <= 0 || mag_bits < 1
       || mag_bits > 30 || lsb0 < R - 1 || lsb0 >= mag_bits)
     return (int)cudaErrorInvalidValue;
@@ -515,7 +523,7 @@ int launch(const void* stream, const void* offs, const void* ebits,
       (const uint8_t*)stream, (const int32_t*)offs, (const int32_t*)ebits,
       (const int32_t*)lane_end, (const int32_t*)geom, (const int32_t*)luts,
       (const int32_t*)seed, (int32_t*)out, (int32_t*)err, (int32_t*)pos, R,
-      n, hmax, wmax, lsb0, mag_bits);
+      n, hmax, wmax, lsb0, mag_bits, (unsigned long long*)runs);
   *placement = smem ? 1 : 2;
   return (int)cudaGetLastError();
 }
@@ -530,11 +538,11 @@ extern "C" int plane_decode_launch(const void* stream, const void* offs,
                                    int n, int hmax, int wmax, int lsb0,
                                    int mag_bits, int lut_size,
                                    int force_global, int* placement,
-                                   void* cuda_stream) {
+                                   void* runs, void* cuda_stream) {
   if (lut_size != kLutSize) return (int)cudaErrorInvalidValue;
   return launch<false>(stream, offs, ebits, lane_end, geom, luts, nullptr,
                        out, err, pos, R, n, hmax, wmax, lsb0, mag_bits,
-                       force_global, placement, cuda_stream);
+                       force_global, placement, runs, cuda_stream);
 }
 
 extern "C" int plane_decode_seeded_launch(
@@ -542,9 +550,9 @@ extern "C" int plane_decode_seeded_launch(
     const void* lane_end, const void* geom, const void* seed,
     const void* luts, void* out, void* err, void* pos, int n, int hmax,
     int wmax, int lsb, int mag_bits, int lut_size, int force_global,
-    int* placement, void* cuda_stream) {
+    int* placement, void* runs, void* cuda_stream) {
   if (lut_size != kLutSize) return (int)cudaErrorInvalidValue;
   return launch<true>(stream, offs, ebits, lane_end, geom, luts, seed, out,
                       err, pos, 1, n, hmax, wmax, lsb, mag_bits, force_global,
-                      placement, cuda_stream);
+                      placement, runs, cuda_stream);
 }

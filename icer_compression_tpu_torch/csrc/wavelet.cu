@@ -68,6 +68,9 @@
 //    before: it runs an instance of the same kernels with the chain
 //    removed (kChain false drops the beta d[n+1] term at compile time), and
 //    the compiler interleaves a chunk's independent steps.
+//  - Each launch counts its own run: thread 0 of block 0 adds one to
+//    `runs` (W1's slot of the device's run counters, or null), so a
+//    launch that a CUDA graph replays is counted too.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -157,7 +160,9 @@ template <bool kChain>
 __global__ void __launch_bounds__(kColThreads)
 inverse_column_pass(const int32_t* __restrict__ src,
                     int32_t* __restrict__ dst, int* __restrict__ overflow,
-                    Params p) {
+                    Params p, unsigned long long* __restrict__ runs) {
+  if (runs != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(runs, 1ull);
   const int c = (blockIdx.x % p.tiles) * kColThreads + threadIdx.x;
   if (c >= p.lines) return;
   const size_t plane = static_cast<size_t>(p.H) * p.W;
@@ -193,7 +198,10 @@ inverse_column_pass(const int32_t* __restrict__ src,
 template <bool kChain>
 __global__ void __launch_bounds__(kRows)
 inverse_row_pass(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
-                 int* __restrict__ overflow, Params p) {
+                 int* __restrict__ overflow, Params p,
+                 unsigned long long* __restrict__ runs) {
+  if (runs != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(runs, 1ull);
   // odd pitches: thread t reading or writing its row hits bank (t + j) % 32
   __shared__ int lo_tile[kRows][kLows];              // 35
   __shared__ int hi_tile[kRows][kChunk + 1];         // 33
@@ -273,14 +281,14 @@ inverse_row_pass(const int32_t* __restrict__ src, int32_t* __restrict__ dst,
 template <bool kChain>
 cudaError_t launch(const int32_t* src, int32_t* dst, int* overflow,
                    int blocks, int axis, const Params& p,
-                   cudaStream_t stream) {
+                   unsigned long long* runs, cudaStream_t stream) {
   const dim3 grid(blocks);
   if (axis == 0) {
     inverse_column_pass<kChain><<<grid, kColThreads, 0, stream>>>(
-        src, dst, overflow, p);
+        src, dst, overflow, p, runs);
   } else {
     inverse_row_pass<kChain><<<grid, kRows, 0, stream>>>(src, dst, overflow,
-                                                          p);
+                                                          p, runs);
   }
   return cudaGetLastError();
 }
@@ -292,13 +300,14 @@ cudaError_t launch(const int32_t* src, int32_t* dst, int* overflow,
 // canvases at dst (another buffer; the rest of dst is not touched): axis 0
 // restores the block's columns, axis 1 its rows.  overflow is one int32,
 // set to 1 where a value leaves the sample range (the caller zeroes it).
-// Returns the launch's cudaError_t.
+// runs: W1's run counter (one unsigned 64-bit word), or null.  Returns the
+// launch's cudaError_t.
 extern "C" int wavelet_inverse_pass_launch(const void* src, void* dst,
                                            void* overflow, int nc, int H,
                                            int W, int low_h, int low_w,
                                            int axis, int a_n1, int a_0,
                                            int a_1, int beta, int mag_bits,
-                                           void* cuda_stream) {
+                                           void* runs, void* cuda_stream) {
   if (nc < 0 || low_h < 2 || low_h > H || low_w < 2 || low_w > W
       || (axis != 0 && axis != 1) || (mag_bits != 7 && mag_bits != 15)
       || src == dst)
@@ -318,9 +327,10 @@ extern "C" int wavelet_inverse_pass_launch(const void* src, void* dst,
   auto* d = static_cast<int32_t*>(dst);
   auto* ov = static_cast<int*>(overflow);
   const auto stream = static_cast<cudaStream_t>(cuda_stream);
+  auto* r = static_cast<unsigned long long*>(runs);
   const cudaError_t err =
       (beta != 0 || a_n1 != 0)
-          ? launch<true>(s, d, ov, nc * tiles, axis, p, stream)
-          : launch<false>(s, d, ov, nc * tiles, axis, p, stream);
+          ? launch<true>(s, d, ov, nc * tiles, axis, p, r, stream)
+          : launch<false>(s, d, ov, nc * tiles, axis, p, r, stream);
   return static_cast<int>(err);
 }

@@ -12,8 +12,8 @@ version on a small fixed input) before it takes its final name, so only
 checked libraries are ever found in ``build/``.  Nothing is built or
 imported from CUDA when the module is imported.
 
-The encode kernels (``RUN_SLOTS``) also count their own runs on the
-device: block 0's thread 0 adds one to the kernel's slot of the device's
+Every kernel (``RUN_SLOTS``) also counts its own runs on the device:
+block 0's thread 0 adds one to the kernel's slot of the device's
 ``run_counters`` as the kernel starts.  A launch that a CUDA graph
 recorded runs at each replay without any Python, so these counts, and not
 the wrappers' ``launches`` (one per launch the host issues), say how often
@@ -183,7 +183,8 @@ def check(status: int, name: str) -> None:
 
 # the kernels that count their runs on the device, each its slot
 RUN_SLOTS = ("slim_encode", "slim_encode_two_word", "full_encode",
-             "full_encode_tiled")
+             "full_encode_tiled", "plane_decode", "plane_decode_seeded",
+             "wavelet_inverse")
 
 
 def _device(device) -> str:

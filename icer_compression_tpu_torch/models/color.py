@@ -230,7 +230,8 @@ def compress_yuv_batch(ys, us, vs, config: CodecConfig, device=None,
 
 def decompress_yuv(data: bytes, config: CodecConfig, dtype=np.uint16,
                    device=None, max_pixels: int | None = None,
-                   decode_partition=None, backend: str | None = None):
+                   decode_partition=None, backend: str | None = None,
+                   graph: bool | None = None):
     """Decompress one colour stream into its (y, u, v) planes.
     ``max_pixels`` (default ``models.decode.DEFAULT_MAX_PIXELS``) bounds the
     canvas the untrusted header may ask for.  A channel whose every segment
@@ -238,13 +239,15 @@ def decompress_yuv(data: bytes, config: CodecConfig, dtype=np.uint16,
     that case undefined, icer_color.c:229/555).  ``backend`` and
     ``decode_partition`` as in ``grayscale.decompress``: the host paths
     key the scan by the header's channel and decode each channel in
-    turn."""
+    turn.  ``graph`` (device backend) as in
+    ``models.decode.decompress_batch``."""
     backend = _pick_backend(backend, decode_partition, DECODE_BACKENDS,
                             "python")
     if backend == "device":
         from .decode import decompress_yuv_batch
         return decompress_yuv_batch([data], config, dtype=dtype,
-                                    device=device, max_pixels=max_pixels)[0]
+                                    device=device, max_pixels=max_pixels,
+                                    graph=graph)[0]
     mag_bits = _mag_bits(dtype)
     bitplanes = _bitplanes(mag_bits)
     table, (w, h), ll_means = scan_table(data, 3, max_pixels)

@@ -347,7 +347,8 @@ def compress(image: np.ndarray, config: CodecConfig, device=None,
 def decompress(data: bytes, config: CodecConfig, dtype=np.uint16,
                device=None, max_pixels: int | None = None,
                pack8: bool | None = None, decode_partition=None,
-               backend: str | None = None) -> np.ndarray:
+               backend: str | None = None,
+               graph: bool | None = None) -> np.ndarray:
     """Decompress one grayscale ICER stream.  ``max_pixels`` (default
     ``models.decode.DEFAULT_MAX_PIXELS``) bounds the canvas the untrusted
     header may ask for; ``pack8`` as in ``models.decode.decompress_batch``.
@@ -359,13 +360,16 @@ def decompress(data: bytes, config: CodecConfig, dtype=np.uint16,
     ``decode_partition`` alone picks ``"python"``.  Like the reference's
     grayscale decoder, the host paths ignore the header's channel nibble
     (last in stream wins on duplicates).  All three give the same
-    pixels."""
+    pixels.  ``graph`` (device backend) as in
+    ``models.decode.decompress_batch``: by default on the card the
+    decode's device pass is a captured CUDA graph per plan key."""
     backend = _pick_backend(backend, decode_partition, DECODE_BACKENDS,
                             "python")
     if backend == "device":
         from .decode import decompress_batch
         return decompress_batch([data], config, dtype=dtype, device=device,
-                                max_pixels=max_pixels, pack8=pack8)[0]
+                                max_pixels=max_pixels, pack8=pack8,
+                                graph=graph)[0]
     mag_bits = _mag_bits(dtype)
     bitplanes = _bitplanes(mag_bits)
     table, (w, h), ll_means = scan_table(data, 1, max_pixels)

@@ -49,6 +49,7 @@ to backend/sequential); ``fallback_lanes`` counts them and
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import time
@@ -481,22 +482,26 @@ class TorchGrayscaleEncoder:
         collector makes for this pass's key once its copies are done (or
         None)."""
         state, capture = "eager", None
-        if self.graph:
-            key = self.pass_key(x)
-            outs, state = graph_cache.CACHE.run(key, self.device_pass, x)
-        else:
-            outs = self.device_pass(x)
-        if state == "replay":
-            held = graph_cache.CACHE.hold(key, outs[2::4])
-        else:
-            held = graph_cache.Held(outs[2::4])
+        cache = graph_cache.CACHE
+        # another thread's replay of the key must not come between this
+        # replay and the copies that read its outputs
+        with cache.lock if self.graph else contextlib.nullcontext():
+            if self.graph:
+                key = self.pass_key(x)
+                outs, state = cache.run(key, self.device_pass, x)
+            else:
+                outs = self.device_pass(x)
+            if state == "replay":
+                held = cache.hold(key, outs[2::4])
+            else:
+                held = graph_cache.Held(outs[2::4])
+            fetched = [tuple(to_host(t) for t in outs[i + 1:i + 4])
+                       for i in range(2, len(outs), 4)]
+            checks = to_host(outs[0]), to_host(outs[1])
         if state == "capture":
             capture = functools.partial(
-                graph_cache.CACHE.capture, key, self.device_pass, x, outs,
+                cache.capture, key, self.device_pass, x, outs,
                 owner=self, estimate=self.pass_bytes(x.shape[0]))
-        fetched = [tuple(to_host(t) for t in outs[i + 1:i + 4])
-                   for i in range(2, len(outs), 4)]
-        checks = to_host(outs[0]), to_host(outs[1])
         return x.shape[0], checks, fetched, held, capture
 
     def _collect(self, B, checks, fetched, words):

@@ -421,14 +421,15 @@ def decode_planes(stream, offs, ebits, lane_end, geom, hmax: int, wmax: int,
     fn = kernels.load("plane_decode").plane_decode_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p] * 3
     where = ctypes.c_int(0)
+    runs = kernels.run_slot(dev, "plane_decode")
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*(t.data_ptr() for t in args), luts.data_ptr(),
                     out.data_ptr(), err.data_ptr(), pos.data_ptr(), R, n,
                     hmax, wmax, lsb0, mag_bits, LUT_SIZE, force_device,
-                    ctypes.byref(where), cs)
+                    ctypes.byref(where), runs, cs)
     kernels.check(status, "plane_decode")
     decode_planes.launches += 1
     decode_planes.placement = _PLACEMENTS[where.value]
@@ -485,14 +486,15 @@ def decode_plane_seeded(stream, offs, ebits, lane_end, geom, seg, hmax: int,
     fn = kernels.load("plane_decode").plane_decode_seeded_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p] * 3
     where = ctypes.c_int(0)
+    runs = kernels.run_slot(dev, "plane_decode_seeded")
     with torch.cuda.device(dev):
         cs = torch.cuda.current_stream(dev).cuda_stream
         status = fn(*(t.data_ptr() for t in args), luts.data_ptr(),
                     out.data_ptr(), err.data_ptr(), pos.data_ptr(), n, hmax,
                     wmax, lsb, mag_bits, LUT_SIZE, force_device,
-                    ctypes.byref(where), cs)
+                    ctypes.byref(where), runs, cs)
     kernels.check(status, "plane_decode_seeded")
     decode_plane_seeded.launches += 1
     decode_plane_seeded.placement = _PLACEMENTS[where.value]

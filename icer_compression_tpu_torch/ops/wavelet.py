@@ -316,14 +316,15 @@ def inverse_pass(src: torch.Tensor, low_h: int, low_w: int, axis: int,
     fn = kernels.load("wavelet").wavelet_inverse_pass_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     a_n1, a_0, a_1, beta = (int(v) for v in C.WAVELET_FILTER_PARAMETERS[filt])
     nc, H, W = src.shape
+    runs = kernels.run_slot(src.device, "wavelet_inverse")
     with torch.cuda.device(src.device):
         cs = torch.cuda.current_stream(src.device).cuda_stream
         status = fn(src.data_ptr(), out.data_ptr(), overflow.data_ptr(), nc,
                     H, W, low_h, low_w, axis, a_n1, a_0, a_1, beta, mag_bits,
-                    cs)
+                    runs, cs)
     kernels.check(status, "wavelet_inverse_pass")
     inverse_pass.launches += 1
     return out, overflow

@@ -22,7 +22,10 @@ order, so that every rank returns the whole batch's tables.  The decode
 plans each data row's streams on every rank of the row, runs kernel 2 on
 the rank's run of each unit's lanes, gathers the decoded lane planes
 within the row, finalizes the row's images and gathers the images, so
-that every rank returns the whole batch.  A failure on one rank raises on
+that every rank returns the whole batch.  Its two device halves, kernel 2
+on the rank's share and the finalize, each run as a captured CUDA graph
+of its own key on the card (``models.decode.run_pass``), as the JAX
+sharded decoder jits two programs.  A failure on one rank raises on
 every rank (``_agree``), so no rank waits in a collective for a rank that
 has given up.
 
@@ -280,10 +283,14 @@ class ShardedGrayscaleDecoder:
     its own stream with state of its own), kernel 2 on every rank.  The
     decoded lane planes gather within the data row, which finalizes its
     images; the images then gather so every rank returns the whole batch,
-    each pixel-equal to models.grayscale.decompress of its stream."""
+    each pixel-equal to models.grayscale.decompress of its stream.
+    ``graph`` as in ``models.decode.decompress_batch``: each device half
+    (kernel 2 on the rank's share, the finalize) a captured CUDA graph of
+    its own key."""
 
     def __init__(self, mesh: Mesh, image_w: int, image_h: int, config,
-                 dtype=np.uint16):
+                 dtype=np.uint16, graph: bool | None = None):
+        from ..models.decode import _use_graph
         from ..models.grayscale import _bitplanes, _mag_bits
         self.mesh = mesh
         self.w, self.h = image_w, image_h
@@ -291,20 +298,26 @@ class ShardedGrayscaleDecoder:
         self.dtype = np.dtype(dtype)
         self.mag_bits = _mag_bits(self.dtype)
         self.bitplanes = _bitplanes(self.mag_bits)
+        self.graph = _use_graph(graph, torch.device(mesh.device))
 
     def _plan(self, streams):
         from ..models.decode import plan_batch
-        plan = plan_batch(streams, self.config, self.dtype)
+        plan = plan_batch(streams, self.config, self.dtype, pad=True)
         if plan[:2] != (self.w, self.h):
             raise IcerError(IcerStatus.INVALID_INPUT,
                             "stream geometry differs from decoder plan")
         return plan
 
+    def _key(self, half, *fields):
+        c = self.config
+        return ("decode", half, self.w, self.h, c.stages, c.filt,
+                c.segments, self.mag_bits) + fields + (str(self.mesh.device),)
+
     def _decode_share(self, blob, units):
         """Kernel 2 on this rank's run of every unit's lanes; returns per
         unit (out (hmax * wmax, run length) on the host, run start)."""
         from ..device import to_device
-        from ..models.decode import decode_units, unit_inputs
+        from ..models.decode import decode_units, run_pass, unit_views
         S, s = self.mesh.seg, self.mesh.seg_rank
         dev = self.mesh.device
         runs, mine = [], []
@@ -318,19 +331,61 @@ class ShardedGrayscaleDecoder:
                                  ebits=u["ebits"][:, lo:hi],
                                  lane_end=u["lane_end"][lo:hi],
                                  geom=u["geom"][:, lo:hi]))
-        outs = iter(decode_units(to_device(blob, dev),
-                                 unit_inputs(mine, dev),
-                                 self.bitplanes - 1, self.mag_bits))
+        shapes = [(u["offs"].shape[0], u["offs"].shape[1], u["hmax"],
+                   u["wmax"]) for u in mine]
+        fields = ("offs", "ebits", "lane_end", "geom")
+        meta = np.concatenate([np.zeros(0, np.int32)] + [
+            u[k].ravel() for u in mine for k in fields]).astype(np.int32)
+
+        def share(x):
+            blob_t, meta_t = x
+            inputs = [views + sh[2:] for views, sh in zip(
+                unit_views(meta_t, 0, shapes, fields), shapes)]
+            return tuple(out for out, _e, _p in decode_units(
+                blob_t, inputs, self.bitplanes - 1, self.mag_bits))
+
+        key = self._key("share", S, s, tuple(
+            (u["bucket"],) + sh for u, sh in zip(mine, shapes)), len(blob))
+        estimate = 4 * sum(R * n * 3 + hm * wm * n
+                           for R, n, hm, wm in shapes)
+        # a rank with no lane in any unit has nothing to run (and a graph
+        # with no work is not captured)
+        outs = iter(run_pass(
+            key, share, (to_device(blob, dev), to_device(meta, dev)),
+            self.graph, lambda o: [t.cpu().numpy() for t in o],
+            estimate=estimate) if mine else ())
         pieces = []
         for u, (lo, hi, per) in zip(units, runs):
             piece = np.zeros((u["hmax"] * u["wmax"], per), np.int32)
             if hi > lo:
-                piece[:, :hi - lo] = next(outs)[0].cpu().numpy()
+                piece[:, :hi - lo] = next(outs)
             pieces.append(piece)
         return pieces
 
+    def _finalize(self, outs, units, ll_means):
+        """The finalize of the row's images on this rank's device from
+        each unit's gathered lanes (host arrays); returns the pixels on
+        the host."""
+        from ..device import to_device
+        from ..models.decode import finalize, key_tables, run_pass
+        dev = self.mesh.device
+        NC = len(ll_means)
+        key = self._key("finalize", NC, tuple(
+            (u["bucket"], o.shape[1], u["hmax"], u["wmax"])
+            for u, o in zip(units, outs)))
+        tables = key_tables(key, units, NC, self.w, self.h, dev)
+        x = tuple(to_device(o, dev) for o in outs) \
+            + (to_device(np.asarray(ll_means, np.int32), dev),)
+
+        def fin(x):
+            return (finalize(x[:-1], tables, x[-1], self.w, self.h,
+                             self.config, self.mag_bits),)
+
+        return run_pass(key, fin, x, self.graph,
+                        lambda o: o[0].cpu().numpy(), owner=tables,
+                        estimate=40 * NC * self.h * self.w)
+
     def decode_batch(self, streams) -> list[np.ndarray]:
-        from ..models.decode import finalize
         D, S = self.mesh.data, self.mesh.seg
         B = len(streams)
         Bl = _check_batch(B, D)
@@ -348,12 +403,10 @@ class ShardedGrayscaleDecoder:
             size = p.size
             lanes = np.concatenate([r[off:off + size].reshape(p.shape)
                                     for r in row], axis=1)
-            outs.append(torch.from_numpy(
-                np.ascontiguousarray(lanes[:, :u["offs"].shape[1]])).to(dev))
+            outs.append(np.ascontiguousarray(lanes[:, :u["offs"].shape[1]]))
             off += size
-        px, _keep = finalize(outs, units, ll_means, w, h, self.config,
-                             self.mag_bits, dev)
-        imgs = all_gather_arrays(px.cpu().numpy(), dev)
+        px = _agree(lambda: self._finalize(outs, units, ll_means))
+        imgs = all_gather_arrays(px, dev)
         return [imgs[(b // Bl) * S][b % Bl].astype(self.dtype)
                 for b in range(B)]
 
@@ -366,7 +419,9 @@ def decode_batch_sharded(streams, config, dtype=np.uint16, devices=None,
     device, each under ``torch.cuda.device`` of its card.  Decode needs no
     communication (every stream reconstructs its own image), so with one
     device (or none: ``"cuda"``) this is a loop over
-    models.grayscale.decompress.  ``backend`` as for decompress."""
+    models.grayscale.decompress.  ``backend`` as for decompress.  On the
+    card each decode runs its captured graphs (``models.decode``); threads
+    that share a card share them through the graph cache's lock."""
     from ..models.grayscale import decompress
 
     def one(s, dev):

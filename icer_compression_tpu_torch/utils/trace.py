@@ -7,11 +7,12 @@ reads an exported chrome trace and puts each device launch in the
 innermost layer range around its host call.  ``chip_smoke.py`` (boat's
 main path) and ``bench.py`` (a batch) trace the codec with them.
 
-A captured encode pass (backend/graph_cache) is one graph launch with no
-host range inside it to give a layer, so the table by layer traces an
-eager encoder (``graph=False``) and the graph's replay is read beside it
-as a whole: its device busy time, idle share, device launches and the
-API calls that put work on the device (``api_launches``).
+A captured encode or decode pass (backend/graph_cache) is one graph
+launch with no host range inside it to give a layer, so the table by layer
+traces an eager encoder and decode (``graph=False``) and a graph's replay
+is read beside it as a whole: its device busy time, idle share, device
+launches and the API calls that put work on the device
+(``api_launches``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def trace_layers():
             (enc, "_collect", "host collect"),
             (T, "allocate_streams", "host allocation"),
             (D, "plan_batch", "host plan"),
+            (D, "_upload", "upload"),
             (D, "unit_inputs", "upload"),
             (D, "decode_units", "K2"),
             (D, "finalize", "gather and finalize"),

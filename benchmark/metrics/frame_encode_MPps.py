@@ -1,0 +1,8 @@
+"""Frame encode rate: megapixels whose streams ``compress`` returned in the
+window, over its seconds (host clock)."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.mp_rate(run, readers.ENCODE)

@@ -287,7 +287,19 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from icer_compression_tpu_torch.utils.trace import (  # noqa: E402
-    annotated, layer_breakdown, swapped, trace_layers)
+    layer_breakdown)
+
+
+@contextlib.contextmanager
+def swapped(owner, name, value):
+    """``owner.name`` replaced by ``value`` inside the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 # int32 ALU peak: 64 int32 ops per clock per SM x 132 SMs x 1.98 GHz boost
@@ -2918,51 +2930,51 @@ def w1_entry(w1r, cfr, main_launches) -> dict:
 
 def trace_phase(dev, card, boat):
     """Phase 26's trace: one boat 512 main-path encode and decode (s4 fA
-    g6, lossless; warm) under ``torch.profiler`` with the CPU and the
-    card traced, each device launch put in its layer (``trace_layers``),
-    the encode's and the decode's passes eager (a replay has no host range
-    inside it); logs each layer's device ms, launches and host ms, and
-    each half's wall, busy time, idle share and host time between
-    launches; beside them one encode and one decode through the captured
-    graphs, as a whole."""
+    g6, lossless; warm, so both replay their captured graphs) under
+    ``torch.profiler`` with the CPU and the card traced, each device
+    record put in its layer (``utils/trace.layer_breakdown``: a replay's
+    records by stage mark, the rest by the program's span around their
+    launch); logs each layer's device ms, launches and host ms, each
+    half's wall, busy time, idle share and host time between launches,
+    and the program's counts.  Every record of a replay must fall after a
+    stage mark."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from icer_compression_tpu_torch.models import grayscale as T
     cfg = T.CodecConfig(4, 0, 6, None)
     s = T.compress(boat, cfg, device=dev)
-    for _ in range(3):          # the decode graph's eager passes, capture
+    for _ in range(3):          # each graph's eager passes, capture
+        T.compress(boat, cfg, device=dev)
         T.decompress(s, cfg, np.uint16, device=dev)
-    T.decompress(s, cfg, np.uint16, device=dev, graph=False)
     torch.cuda.synchronize()
-    with annotated(trace_layers()), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with eager_passes(), record_function("encode"):
-            s2 = T.compress(boat, cfg, device=dev)
-        with record_function("decode"):
-            px = T.decompress(s, cfg, np.uint16, device=dev, graph=False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         with record_function("encode graph"):
             s3 = T.compress(boat, cfg, device=dev)
         with record_function("decode graph"):
             px3 = T.decompress(s, cfg, np.uint16, device=dev)
         torch.cuda.synchronize()
-    if s2 != s or s3 != s or not np.array_equal(px, boat) \
-            or not np.array_equal(px3, boat):
+    if s3 != s or not np.array_equal(px3, boat):
         raise AssertionError("the traced main path differs")
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     res = {}
-    for half in ("encode", "decode", "encode graph", "decode graph"):
+    for half in ("encode graph", "decode graph"):
         r = res[half] = layer_breakdown(events, half)
         log(f"trace, boat 512 main-path {half} (profiled): wall "
             f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms, "
             f"idle share {r['idle_share']:.4f}, {r['launches']} launches "
             f"from {r['api_launches']} API calls, "
-            f"{r['host_gap_us']:.1f} us of host between launches | {card}")
+            f"{r['host_gap_us']:.1f} us of host between launches; counts "
+            f"{r['counts']} | {card}")
         for layer, g in sorted(r["layers"].items(),
                                key=lambda kv: -kv[1]["device_ms"]):
             log(f"  {half} layer {layer}: device {g['device_ms']:.3f} ms in "
                 f"{g['launches']} launches, host {g['host_ms']:.2f} ms")
+        if r["unmarked"]:
+            raise AssertionError(f"trace: {r['unmarked']} records of the "
+                                 f"{half} replay before any stage mark")
     return res
 
 
@@ -3651,7 +3663,7 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
     log(f"  bench warm-up walls (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in d["warmup_breakdown_s"].items()))
     dt = d["device_time"]
-    for half in ("encode", "decode"):
+    for half in ("encode_graph", "decode_graph"):
         r = dt[half]
         log(f"  bench device time, {half} of {r['images']} (profiled): wall "
             f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.3f} ms "
@@ -3665,16 +3677,8 @@ def programs_phase(card, boat, golden, example_pins) -> dict:
                 f"({g['device_ms_per_image']:.4f}/img) in {g['launches']} "
                 f"launches, host {g['host_ms']:.2f} ms "
                 f"({g['host_ms_per_image']:.3f}/img)")
-    for half in ("encode", "decode"):
-        r = dt[f"{half}_graph"]
-        log(f"  bench device time, {half} of {r['images']} through the "
-            f"captured graphs (profiled): wall {r['wall_ms']:.2f} ms, device "
-            f"busy {r['busy_ms']:.3f} ms ({r['per_image']['busy_ms']:.4f} "
-            f"ms/img), idle share {r['idle_share']:.4f}, {r['launches']} "
-            f"launches from {r['api_launches']} API calls | {card}")
     log(f"  bench ceiling {dt['combined_MPs_ceiling']:.3f} MP/s (pixels / "
-        f"device busy time per image; with the eager passes "
-        f"{dt['combined_MPs_ceiling_eager']:.3f})")
+        f"device busy time per image of the replayed passes)")
     res["bench"] = bench
     res["bench_s"] = secs
 

@@ -84,6 +84,12 @@ the rest, and after it until its measured pool does; a key's new tables
 drop only the tables of other keys not captured, since the dispatch half
 does not wait for the card.
 
+Counts.  Under ``torch.profiler`` (utils/trace) each pass counts
+``graph.replay.<kind>`` or ``graph.eager.<kind>``, each capture attempt
+``graph.capture.<kind>`` and each eviction ``graph.evict``, ``kind``
+being ``decode`` or ``encode`` (``is_decode``); a capture's first replay,
+its check, counts as a replay, as ``replays`` does.
+
 A graph's replay writes only its own pool, so the outputs the host reads
 after the dispatch half (``hold``: the coder words a collector re-encodes
 flagged lanes from, a decode's wide pixels that its pack8 fallback
@@ -103,6 +109,8 @@ from collections import OrderedDict
 
 import torch
 
+from ..utils import trace
+
 CAPTURE_AT = 2            # the pass of a key that is captured
 SEEN_KEYS = 4096          # keys whose passes are counted, most recent
 
@@ -121,7 +129,7 @@ def kernel_counters():
 
 def is_decode(key) -> bool:
     """Whether ``key`` is a decode pass's (``models.decode.DecodePlan``)."""
-    return isinstance(key, tuple) and key[:1] == ("decode",)
+    return type(key) is tuple and len(key) > 0 and key[0] == "decode"
 
 
 def pass_budget() -> int:
@@ -351,6 +359,8 @@ class GraphCache:
                 return self._replay(entry, x), "replay"
             rec = self._record_of(key)
             rec.passes += 1
+            trace.count("graph.eager.decode" if is_decode(key)
+                        else "graph.eager.encode")
             return tuple(fn(x)), \
                 "capture" if rec.passes >= CAPTURE_AT else "eager"
 
@@ -429,6 +439,8 @@ class GraphCache:
                 "key": key, "attempt": attempt, "equal": equal,
                 "seconds": time.perf_counter() - t0,
                 "static_bytes": entry.nbytes, "pool_bytes": entry.pool})
+            trace.count("graph.capture.decode" if is_decode(key)
+                        else "graph.capture.encode")
             if equal:
                 self._entries[key] = entry
                 rec = self._seen.get(key)
@@ -464,6 +476,8 @@ class GraphCache:
         entry.graph.replay()
         entry.stream = stream
         self.replays += 1
+        trace.count("graph.replay.decode" if is_decode(entry.key)
+                    else "graph.replay.encode")
         return entry.outs
 
     def _record(self, key, fn, x, owner) -> _Entry:
@@ -517,6 +531,7 @@ class GraphCache:
         for key in drop:
             del self._entries[key]
         self.evictions += len(drop)
+        trace.count("graph.evict", len(drop))
         if device.type == "cuda":
             torch.cuda.empty_cache()
 

@@ -29,20 +29,19 @@ its configuration: boat 512, lossless (quota w * h), stages 4, filter A,
                   card; the decode at ``--batch`` and at half of it, the
                   best verified one kept; peak device memory and the
                   graphs' pools, as above;
-  device_time     ``torch.profiler`` (CPU and CUDA) over one batched
-                  encode of ``--batch-enc`` images through an eager
-                  encoder (``graph=False``) and one eager batched decode
-                  of ``--batch`` streams (``graph=False``), each launch
-                  put in its layer (``utils/trace``): per image the
-                  device's busy ms (the union of kernel and copy
-                  intervals), idle share, launches and each layer's
-                  device ms, launches and host ms; beside them the
-                  batched mode's encode and decode, their passes replayed
-                  as captured graphs (``encode_graph``, ``decode_graph``:
-                  busy ms, idle share, device and API launches); the
-                  ceiling MP/s, pixels / (graph encode + graph decode busy
-                  time per image), and the eager passes'.  Card only: a
-                  CPU run reports it as not measured.
+  device_time     ``torch.profiler`` (CPU and CUDA) over the batched
+                  mode's encode of ``--batch-enc`` images and decode of
+                  ``--batch`` streams, their passes replayed as captured
+                  graphs (``encode_graph``, ``decode_graph``), each device
+                  record put in its layer (``utils/trace``: a replay's
+                  records by stage mark, the rest by the program's span
+                  around their launch): per image the device's busy ms
+                  (the union of kernel and copy intervals), idle share,
+                  device and API launches and each layer's device ms,
+                  launches and host ms, and the program's counts; the
+                  ceiling MP/s, pixels / (encode + decode busy time per
+                  image).  Card only: a CPU run reports it as not
+                  measured.
 
 Every stream must equal the native one (and ``tests/data/golden_boat512
 .sha256`` for boat), the batch's first stream the single-image stream, and
@@ -79,7 +78,7 @@ from .models import decode as D
 from .models import grayscale as T
 from .ops import entropy_slim as ES
 from .utils.image_io import load_image
-from .utils.trace import annotated, layer_breakdown, trace_layers
+from .utils.trace import layer_breakdown
 
 REPO = Path(__file__).resolve().parents[1]
 BOAT = REPO / "tests" / "data" / "boat.512.png"
@@ -325,14 +324,11 @@ def pipelined_mode(imgs, cfg, dev, enc, streams, B, K, batched_ok):
 
 
 def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
-    """One batched encode of ``imgs`` through an eager encoder and one
-    eager batched decode of ``B`` streams under ``torch.profiler``, each
-    launch put in its layer; then one encode through ``enc`` and one
-    decode of the same streams, whose passes are captured graphs by now,
-    traced as a whole."""
+    """One encode of ``imgs`` through ``enc`` and one decode of ``B`` of
+    its streams, whose passes are captured graphs by now, each under
+    ``torch.profiler`` by layer (``utils/trace.layer_breakdown``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     BE, h, w = imgs.shape
-    eager = T.make_encoder(w, h, cfg, imgs.dtype, device=dev, graph=False)
     torch.cuda.synchronize(dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
@@ -343,64 +339,50 @@ def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
             prof.export_chrome_trace(str(path))
             return json.loads(path.read_text())["traceEvents"]
 
-    with annotated(trace_layers()), profile(activities=acts) as prof:
-        with record_function("encode"):
-            got = T.allocate_streams(eager.encode_batch(imgs), cfg, eager)
-        with record_function("decode"):
-            decs = D.decompress_batch(streams[:B], cfg, dtype=np.uint16,
-                                      device=dev, pack8=True, graph=False)
-        torch.cuda.synchronize(dev)
-    traces = [(events_of(prof), (("encode", BE), ("decode", B)))]
-    # each replay in a profile of its own: the encode's 28,000 kernel
-    # records would crowd the decode's out of one
-    with profile(activities=acts) as gprof:
-        with record_function("encode graph"):
-            got_g = T.allocate_streams(enc.encode_batch(imgs), cfg, enc)
-        torch.cuda.synchronize(dev)
-    traces.append((events_of(gprof), (("encode graph", BE),)))
-    with profile(activities=acts) as dprof:
-        with record_function("decode graph"):
-            decs_g = D.decompress_batch(streams[:B], cfg, dtype=np.uint16,
-                                        device=dev, pack8=True)
-        torch.cuda.synchronize(dev)
-    traces.append((events_of(dprof), (("decode graph", B),)))
-    if got != streams or got_g != streams or not all(
-            np.array_equal(d, i) and np.array_equal(g, i)
-            for d, g, i in zip(decs, decs_g, imgs[:B])):
+    halves = (("encode graph", BE, lambda: T.allocate_streams(
+                  enc.encode_batch(imgs), cfg, enc)),
+              ("decode graph", B, lambda: D.decompress_batch(
+                  streams[:B], cfg, dtype=np.uint16, device=dev,
+                  pack8=True)))
+    res, got = {}, {}
+    for half, n, fn in halves:
+        # each in a profile of its own: the encode's 28,000 kernel records
+        # would crowd the decode's out of one
+        with profile(activities=acts) as prof:
+            with record_function(half):
+                got[half] = fn()
+            torch.cuda.synchronize(dev)
+        r = layer_breakdown(events_of(prof), half)
+        res[half.replace(" ", "_")] = {
+            "images": n, "wall_ms": r["wall_ms"],
+            "busy_ms": r["busy_ms"], "idle_share": r["idle_share"],
+            "launches": r["launches"], "api_launches": r["api_launches"],
+            "host_gap_us": r["host_gap_us"],
+            "per_image": {"wall_ms": r["wall_ms"] / n,
+                          "busy_ms": r["busy_ms"] / n,
+                          "launches": r["launches"] / n,
+                          "api_launches": r["api_launches"] / n},
+            "layers": {k: {"device_ms": g["device_ms"],
+                           "launches": g["launches"],
+                           "host_ms": g["host_ms"],
+                           "device_ms_per_image": g["device_ms"] / n,
+                           "launches_per_image": g["launches"] / n,
+                           "host_ms_per_image": g["host_ms"] / n}
+                       for k, g in r["layers"].items()},
+            "counts": r["counts"], "unmarked": r["unmarked"]}
+    if got["encode graph"] != streams or not all(
+            np.array_equal(g, i)
+            for g, i in zip(got["decode graph"], imgs[:B])):
         raise AssertionError("the traced batch differs from the batched "
                              "mode's")
-    res = {}
-    for events, halves in traces:
-        for half, n in halves:
-            r = layer_breakdown(events, half)
-            res[half.replace(" ", "_")] = {
-                "images": n, "wall_ms": r["wall_ms"],
-                "busy_ms": r["busy_ms"], "idle_share": r["idle_share"],
-                "launches": r["launches"],
-                "api_launches": r["api_launches"],
-                "host_gap_us": r["host_gap_us"],
-                "per_image": {"wall_ms": r["wall_ms"] / n,
-                              "busy_ms": r["busy_ms"] / n,
-                              "launches": r["launches"] / n,
-                              "api_launches": r["api_launches"] / n},
-                "layers": {k: {"device_ms": g["device_ms"],
-                               "launches": g["launches"],
-                               "host_ms": g["host_ms"],
-                               "device_ms_per_image": g["device_ms"] / n,
-                               "launches_per_image": g["launches"] / n,
-                               "host_ms_per_image": g["host_ms"] / n}
-                           for k, g in r["layers"].items()}}
     res["combined_MPs_ceiling"] = h * w / (
         (res["encode_graph"]["per_image"]["busy_ms"]
          + res["decode_graph"]["per_image"]["busy_ms"]) / 1e3) / 1e6
-    res["combined_MPs_ceiling_eager"] = h * w / (
-        (res["encode"]["per_image"]["busy_ms"]
-         + res["decode"]["per_image"]["busy_ms"]) / 1e3) / 1e6
     res["note"] = ("torch.profiler, CPU and CUDA traced: one batched encode "
-                   f"of {BE} and a decode of {B}, each eager (by layer) and "
-                   "through the captured graphs (as a whole); busy = "
-                   "union of kernel and copy intervals; the profiler slows "
-                   "the host")
+                   f"of {BE} and a decode of {B} through the captured "
+                   "graphs, by layer (a replay's records by stage mark, the "
+                   "rest by program span); busy = union of kernel and copy "
+                   "intervals; the profiler slows the host")
     return res
 
 

@@ -79,7 +79,7 @@ def main() -> int:
                                "cuda_pipelined"))
                   + f" MP/s, all verified {d['all_verified']} | "
                   f"{d['device']['nvidia_smi']}")
-            for half in ("encode", "encode_graph", "decode"):
+            for half in ("encode_graph", "decode_graph"):
                 r = d["device_time"][half]
                 print(f"  {half}: busy {r['per_image']['busy_ms']:.4f} "
                       f"ms/img ({r['per_image']['busy_ms'] / mp:.4f} ms/MP), "

@@ -16,7 +16,8 @@ its outputs are held to pinned digests of the plain version's
 (``WIDE_DIGESTS``, which the CPU tests recompute).  Kernel W1 (one pass of
 the inverse DWT) runs on seeded pairs of canvases, on both axes of stage
 blocks smaller than the canvas, at every filter, both sample widths and
-lines of 2-9 samples.
+lines of 2-9 samples.  The stage marks (``utils/trace``) run once per
+stage, stage S S + 1 times, into a count per stage.
 
 This module imports the kernel wrappers, which import ``kernels``; it is
 imported lazily by ``kernels.build_all`` for that reason.
@@ -37,6 +38,7 @@ from .ops import entropy_full as EF
 from .ops import entropy_slim as ES
 from .ops import plane_decode as PD
 from .ops import wavelet as WV
+from .utils import trace
 
 SEED = 20261017
 L, LANES = 256, 8                 # coder check blocks
@@ -200,6 +202,14 @@ def _w1(dev):
             torch.cat([ov for _out, ov in outs]))
 
 
+def _marks(dev):
+    counts = torch.zeros(len(trace.STAGES), dtype=torch.int64, device=dev)
+    for stage in range(len(trace.STAGES)):
+        for _ in range(stage + 1):
+            trace.mark_into(stage, counts)
+    return (counts,)
+
+
 _SLIM = ("rec", "fstate", "misc", "ev")
 _TWO_WORD = ("rec1", "rec2", "fstate", "misc", "ev1", "ev2", "fopen")
 # ``digest`` of each output of the plain version on ``wide_words`` (largest
@@ -231,6 +241,8 @@ CHECKS = {
     "wavelet": (
         Instance("W1", "wavelet_inverse_pass_launch",
                  ("canvas", "overflow"), _w1),),
+    "stage_mark": (
+        Instance("stage marks", "stage_mark_launch", ("counts",), _marks),),
 }
 
 # the wrappers' launch counts, which the check leaves as it found them (and

@@ -35,7 +35,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-KERNELS = ("slim_encode", "plane_decode", "full_encode", "wavelet")
+KERNELS = ("slim_encode", "plane_decode", "full_encode", "wavelet",
+           "stage_mark")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

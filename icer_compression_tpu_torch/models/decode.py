@@ -33,6 +33,13 @@ The canvas index and the lanes' geometry depend on the key alone and stay
 on the device (``key_tables``), as the JAX program bakes its placements
 in; the graph cache keeps them with its record of the key, under the
 graphs' bound.
+
+Under ``torch.profiler`` (utils/trace) a pass records the spans
+``decode.plan``, ``decode.dispatch`` (upload and run), ``decode.wait``,
+``decode.capture``, ``decode.pack8_fallback`` and ``decode.unpack``, and
+the counts ``decode.passes``, ``decode.pack8_fallbacks`` and
+``decode.wide_copy_bytes``; ``device_pass`` marks kernel 2 and the
+finalize on the card whether or not the profiler records.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from ..core.subbands import decode_subband_order, dim_low, subband_view
 from ..device import Pending, resolve_device, to_device, to_host
 from ..ops import wavelet
 from ..ops.plane_decode import MAX_STREAM_BYTES, decode_planes
+from ..utils import trace
 from .grayscale import CodecConfig, _bitplanes, _mag_bits
 
 # Decode-side allocation guard: header dimensions come from the
@@ -99,83 +107,85 @@ def plan_batch(streams, config: CodecConfig, dtype, nchan: int = 1,
     lane j of a unit being segment lanes[j % n1] of canvas j // n1 and
     ``bucket`` its index in the geometry's buckets.  ``pad``: the blob
     zero-padded to ``padded`` bytes."""
-    bitplanes = _bitplanes(_mag_bits(dtype))
-    B = len(streams)
-    if B == 0:
-        raise IcerError(IcerStatus.INVALID_INPUT, "no streams")
-    NC = B * nchan
-    tables = []
-    ll_means = [0] * NC
-    w = h = 0
-    for b, data in enumerate(streams):
-        found = scan_bytestream(data, with_offsets=True, with_payload=False)
-        if not found:
-            raise IcerError(IcerStatus.DECODER_OUT_OF_DATA,
-                            "no valid segments")
-        t: dict = {}
-        for hdr, _p, off in found:
-            # grayscale ignores the channel nibble, as the reference's
-            # grayscale decoder does (last in stream wins on duplicates);
-            # colour keys by it
-            chan = hdr.channel if nchan > 1 else 0
-            t[(chan, hdr.decomp_level, hdr.subband_type, hdr.segment_number,
-               hdr.lsb)] = (off, hdr.data_length)
-            wi, hi = hdr.image_w, hdr.image_h
-            if chan < nchan:
-                ll_means[b * nchan + chan] = hdr.ll_mean_val
-        if w == 0:
-            w, h = wi, hi
-        elif (w, h) != (wi, hi):
-            raise IcerError(IcerStatus.INVALID_INPUT,
-                            "batched streams must share geometry")
-        tables.append(t)
-    if w <= 0 or h <= 0 or w * h > max_pixels:
-        raise IcerError(
-            IcerStatus.INVALID_INPUT,
-            f"header dimensions {w}x{h} exceed max_pixels={max_pixels}")
-    bases = np.cumsum([0] + [len(s) for s in streams])
-    blob = np.zeros(padded(int(bases[-1])) if pad else int(bases[-1]),
-                    np.uint8)
-    blob[:bases[-1]] = np.frombuffer(b"".join(streams), np.uint8)
+    with trace.span("decode.plan"):
+        bitplanes = _bitplanes(_mag_bits(dtype))
+        B = len(streams)
+        if B == 0:
+            raise IcerError(IcerStatus.INVALID_INPUT, "no streams")
+        NC = B * nchan
+        tables = []
+        ll_means = [0] * NC
+        w = h = 0
+        for b, data in enumerate(streams):
+            found = scan_bytestream(data, with_offsets=True,
+                                    with_payload=False)
+            if not found:
+                raise IcerError(IcerStatus.DECODER_OUT_OF_DATA,
+                                "no valid segments")
+            t: dict = {}
+            for hdr, _p, off in found:
+                # grayscale ignores the channel nibble, as the reference's
+                # grayscale decoder does (last in stream wins on duplicates);
+                # colour keys by it
+                chan = hdr.channel if nchan > 1 else 0
+                t[(chan, hdr.decomp_level, hdr.subband_type,
+                   hdr.segment_number, hdr.lsb)] = (off, hdr.data_length)
+                wi, hi = hdr.image_w, hdr.image_h
+                if chan < nchan:
+                    ll_means[b * nchan + chan] = hdr.ll_mean_val
+            if w == 0:
+                w, h = wi, hi
+            elif (w, h) != (wi, hi):
+                raise IcerError(IcerStatus.INVALID_INPUT,
+                                "batched streams must share geometry")
+            tables.append(t)
+        if w <= 0 or h <= 0 or w * h > max_pixels:
+            raise IcerError(
+                IcerStatus.INVALID_INPUT,
+                f"header dimensions {w}x{h} exceed max_pixels={max_pixels}")
+        bases = np.cumsum([0] + [len(s) for s in streams])
+        blob = np.zeros(padded(int(bases[-1])) if pad else int(bases[-1]),
+                        np.uint8)
+        blob[:bases[-1]] = np.frombuffer(b"".join(streams), np.uint8)
 
-    units = []
-    for bucket, lanes in enumerate(_plan_lanes(w, h, config)):
-        n1 = len(lanes)
-        n = n1 * NC
-        keys = [(t["stage"], t["subband"], t["seg"]) for t in lanes]
-        offs_r, ebits_r = [], []
-        for rnd in range(bitplanes):
-            lsb = bitplanes - 1 - rnd
-            offs = np.full(n, -1, np.int64)
-            ebits = np.zeros(n, np.int64)
-            for c in range(NC):
-                b, chan = divmod(c, nchan)
-                for i, k in enumerate(keys):
-                    ent = tables[b].get((chan,) + k + (lsb,))
-                    if ent is not None:
-                        offs[c * n1 + i] = bases[b] + ent[0]
-                        ebits[c * n1 + i] = ent[1]
-            if not (offs >= 0).any():
-                # every lane retires at its first missing plane
-                break
-            offs_r.append(offs)
-            ebits_r.append(np.minimum(ebits, 2 ** 31 - 1))
-        if not offs_r:
-            continue
-        geom = np.array([[t["h"] for t in lanes], [t["w"] for t in lanes],
-                         [t["subband"] for t in lanes]], np.int32)
-        units.append({
-            "bucket": bucket, "lanes": lanes, "n1": n1,
-            "offs": np.stack(offs_r).astype(np.int32),
-            "ebits": np.stack(ebits_r).astype(np.int32),
-            # a lane reads up to its image's end, shared by its channels
-            "lane_end": np.repeat(np.repeat(bases[1:], nchan),
-                                  n1).astype(np.int32),
-            "geom": np.tile(geom, (1, NC)),
-            "hmax": max(t["h"] for t in lanes),
-            "wmax": max(t["w"] for t in lanes),
-        })
-    return w, h, ll_means, blob, units
+        units = []
+        for bucket, lanes in enumerate(_plan_lanes(w, h, config)):
+            n1 = len(lanes)
+            n = n1 * NC
+            keys = [(t["stage"], t["subband"], t["seg"]) for t in lanes]
+            offs_r, ebits_r = [], []
+            for rnd in range(bitplanes):
+                lsb = bitplanes - 1 - rnd
+                offs = np.full(n, -1, np.int64)
+                ebits = np.zeros(n, np.int64)
+                for c in range(NC):
+                    b, chan = divmod(c, nchan)
+                    for i, k in enumerate(keys):
+                        ent = tables[b].get((chan,) + k + (lsb,))
+                        if ent is not None:
+                            offs[c * n1 + i] = bases[b] + ent[0]
+                            ebits[c * n1 + i] = ent[1]
+                if not (offs >= 0).any():
+                    # every lane retires at its first missing plane
+                    break
+                offs_r.append(offs)
+                ebits_r.append(np.minimum(ebits, 2 ** 31 - 1))
+            if not offs_r:
+                continue
+            geom = np.array([[t["h"] for t in lanes], [t["w"] for t in lanes],
+                             [t["subband"] for t in lanes]], np.int32)
+            units.append({
+                "bucket": bucket, "lanes": lanes, "n1": n1,
+                "offs": np.stack(offs_r).astype(np.int32),
+                "ebits": np.stack(ebits_r).astype(np.int32),
+                # a lane reads up to its image's end, shared by its channels
+                "lane_end": np.repeat(np.repeat(bases[1:], nchan),
+                                      n1).astype(np.int32),
+                "geom": np.tile(geom, (1, NC)),
+                "hmax": max(t["h"] for t in lanes),
+                "wmax": max(t["w"] for t in lanes),
+            })
+        return w, h, ll_means, blob, units
 
 
 def unit_inputs(units, device):
@@ -393,18 +403,23 @@ class DecodePlan:
         2's units, the finalize, then with pack8 whether every pixel fits
         a byte and the pixels as bytes.  Returns (pixels (NC, h, w)
         int32[, fits, pixels uint8]).  No host copy, no sync: it can be
-        captured."""
+        captured.  On the card it marks kernel 2's stage before the fork
+        of its unit streams, the finalize's after their join and the end
+        of the pass (utils/trace ``mark``)."""
         blob, meta = x
         inputs = [views + (geom, hm, wm) for views, geom, (_R, _n, hm, wm)
                   in zip(unit_views(meta, self.NC, self.shapes),
                          self.tables.geoms, self.shapes)]
+        trace.mark(trace.K2, blob)
         outs = [out for out, _err, _pos in decode_units(
             blob, inputs, self.lsb0, self.mag_bits)]
+        trace.mark(trace.FINALIZE, blob)
         px = finalize(outs, self.tables, meta[:self.NC], self.w, self.h,
                       self.config, self.mag_bits)
-        if self.pack8:
-            return px, (px <= 255).all(), px.to(torch.uint8)
-        return (px,)
+        outs = (px, (px <= 255).all(), px.to(torch.uint8)) if self.pack8 \
+            else (px,)
+        trace.mark(trace.END, blob)
+        return outs
 
 
 def _upload(blob, meta, dev):
@@ -447,44 +462,53 @@ def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
     the pass was marked for it, and reads the pixels."""
     w, h, ll_means, blob, units = plan_batch(streams, config, dtype, nchan,
                                              max_pixels, pad=True)
-    plan = DecodePlan(w, h, ll_means, len(blob), units, config, dtype,
-                      nchan, pack8, dev)
-    NC = plan.NC
-    cache = graph_cache.CACHE
-    state, capture = "eager", None
-    with cache.lock if graph else contextlib.nullcontext():
-        x = _upload(blob, plan.meta(ll_means, units), dev)
-        if graph:
-            outs, state = cache.run(plan.key, plan.device_pass, x)
-        else:
-            outs = plan.device_pass(x)
-        held = graph_cache.Held(())
-        if pack8:
-            # the wide pixels the fallback reads in the collector
-            held = cache.hold(plan.key, outs[:1]) if state == "replay" \
-                else graph_cache.Held(outs[:1])
-            fetched = to_host(outs[1]), to_host(outs[2])
-        else:
-            fetched = None, to_host(outs[0])
-    if state == "capture":
-        capture = functools.partial(
-            cache.capture, plan.key, plan.device_pass, x, outs,
-            owner=plan.tables, estimate=plan.estimate())
-    pending = Pending(dev, keep=(x, outs))
+    trace.count("decode.passes")
+    with trace.span("decode.dispatch"):
+        plan = DecodePlan(w, h, ll_means, len(blob), units, config, dtype,
+                          nchan, pack8, dev)
+        NC = plan.NC
+        cache = graph_cache.CACHE
+        state, capture = "eager", None
+        with cache.lock if graph else contextlib.nullcontext():
+            x = _upload(blob, plan.meta(ll_means, units), dev)
+            if graph:
+                outs, state = cache.run(plan.key, plan.device_pass, x)
+            else:
+                outs = plan.device_pass(x)
+            held = graph_cache.Held(())
+            if pack8:
+                # the wide pixels the fallback reads in the collector
+                held = cache.hold(plan.key, outs[:1]) \
+                    if state == "replay" else graph_cache.Held(outs[:1])
+                fetched = to_host(outs[1]), to_host(outs[2])
+            else:
+                fetched = None, to_host(outs[0])
+        if state == "capture":
+            capture = functools.partial(
+                cache.capture, plan.key, plan.device_pass, x, outs,
+                owner=plan.tables, estimate=plan.estimate())
+        pending = Pending(dev, keep=(x, outs))
 
     def collect():
-        pending.wait()
+        with trace.span("decode.wait"):
+            pending.wait()
         try:
             if capture is not None:
-                capture()
+                with trace.span("decode.capture"):
+                    capture()
             fits, pix = fetched
             if fits is not None and not bool(fits):
                 # a pixel exceeds a byte: copy the exact wide result instead
-                (pix,) = cache.read(held)
+                with trace.span("decode.pack8_fallback"):
+                    (pix,) = cache.read(held)
+                trace.count("decode.pack8_fallbacks")
+                trace.count("decode.wide_copy_bytes",
+                            pix.numel() * pix.element_size())
         finally:
             held.release()
-        pix = pix.numpy()
-        return [pix[c].astype(dtype) for c in range(NC)]
+        with trace.span("decode.unpack"):
+            pix = pix.numpy()
+            return [pix[c].astype(dtype) for c in range(NC)]
 
     return (w, h), collect
 

@@ -42,6 +42,7 @@ from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
 from ..core.subbands import decode_subband_order, dim_low, subband_view
 from ..device import resolve_device
+from ..utils import trace
 
 ENCODE_BACKENDS = ("device", "native", "numpy")
 DECODE_BACKENDS = ("device", "native", "python")
@@ -219,7 +220,11 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
     The quota picks a prefix class for the whole batch; when any image's
     allocation needs a plane outside it, the batch widens to the next
     class and encodes only the planes that adds.  ``stats``, if given,
-    receives the first class, the last and the widening steps taken."""
+    receives the first class, the last and the widening steps taken.
+    Under ``torch.profiler`` the call counts ``compress.requests`` and
+    each widening step counts ``compress.widenings`` and runs in a span
+    ``compress.widen`` (utils/trace)."""
+    trace.count("compress.requests")
     images = np.asarray(images)
     if images.ndim != 3:
         raise IcerError(IcerStatus.INVALID_INPUT, "expected (B, h, w)")
@@ -247,27 +252,32 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
     tables: list[dict] = [{} for _ in range(B)]
     means = [0] * B
     prev = (bitplanes,) * config.stages
-    while True:
-        cuts = classes[ci][1]
-        windows = tuple((lo, hi) for lo, hi in zip(cuts, prev))
-        if any(lo < hi for lo, hi in windows):
-            # per-lane payloads do not depend on other lanes, so the union
-            # of the window tables equals the wider class's table
-            enc = _window_encoder(encoder, windows)
-            for i, (table, ll_mean) in enumerate(enc.encode_batch(images)):
-                tables[i].update(table)
-                means[i] = ll_mean
-            prev = tuple(min(a, b) for a, b in zip(cuts, prev))
-        try:
-            out = allocate_streams(zip(tables, means), config, encoder)
-            break
-        except KeyError:
-            # the quota admits more than the encoded prefix: widen
-            if ci + 1 >= len(classes):
-                raise
-            ci += 1
-            if stats is not None:
-                stats["escalations"] += 1
+    out = None
+    step = trace.OFF        # the first class; each widening step's span
+    while out is None:
+        with step:
+            cuts = classes[ci][1]
+            windows = tuple((lo, hi) for lo, hi in zip(cuts, prev))
+            if any(lo < hi for lo, hi in windows):
+                # per-lane payloads do not depend on other lanes, so the
+                # union of the window tables equals the wider class's
+                enc = _window_encoder(encoder, windows)
+                for i, (table, ll_mean) in enumerate(
+                        enc.encode_batch(images)):
+                    tables[i].update(table)
+                    means[i] = ll_mean
+                prev = tuple(min(a, b) for a, b in zip(cuts, prev))
+            try:
+                out = allocate_streams(zip(tables, means), config, encoder)
+            except KeyError:
+                # the quota admits more than the encoded prefix: widen
+                if ci + 1 >= len(classes):
+                    raise
+                ci += 1
+                trace.count("compress.widenings")
+                step = trace.span("compress.widen")
+                if stats is not None:
+                    stats["escalations"] += 1
     if stats is not None:
         stats["last_class"] = ci
     return out
@@ -276,11 +286,14 @@ def compress_batch(images: np.ndarray, config: CodecConfig, device=None,
 def allocate_streams(results, config: CodecConfig, encoder) -> list[bytes]:
     """The streams of ``encoder.encode_batch``'s (payload_table, ll_mean)
     results under ``config``'s quota; raises KeyError when the quota admits
-    a packet outside the encoder's plane windows."""
-    return [_allocate_stream({(0,) + k: v for k, v in table.items()},
-                             ll_mean, config, encoder.w, encoder.h,
-                             encoder.bitplanes)
-            for table, ll_mean in results]
+    a packet outside the encoder's plane windows.  Under
+    ``torch.profiler`` it runs in a span ``alloc.streams``
+    (utils/trace)."""
+    with trace.span("alloc.streams"):
+        return [_allocate_stream({(0,) + k: v for k, v in table.items()},
+                                 ll_mean, config, encoder.w, encoder.h,
+                                 encoder.bitplanes)
+                for table, ll_mean in results]
 
 
 def _allocate_stream(table, ll_mean, config, w, h, bitplanes) -> bytes:

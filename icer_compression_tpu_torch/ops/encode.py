@@ -45,6 +45,13 @@ rows on the device, copies them back at once and codes them in one
 threaded batch of the native runtime (backend/native_backend, held equal
 to backend/sequential); ``fallback_lanes`` counts them and
 ``fallback_seconds`` adds up the time of the gather, copy and batch.
+
+Under ``torch.profiler`` (utils/trace) a pass records the spans
+``encode.dispatch`` (upload and dispatch half), ``encode.wait``,
+``encode.capture``, ``encode.collect`` and ``encode.host_reencode``, and
+the counts ``encode.lanes`` (real lanes coded) and
+``encode.host_reencode_lanes``; ``device_pass`` marks its stages on the
+card whether or not the profiler records.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..core.partition import partition_segments
 from ..core.status import IcerError, IcerStatus
 from ..core.subbands import dim_low, subband_view
 from ..device import Pending, to_device, to_host
+from ..utils import trace
 from . import entropy_full as EF
 from . import entropy_slim as ES
 from . import entropy_sorted as SO
@@ -268,6 +276,11 @@ class TorchGrayscaleEncoder:
                        if self.plane_cuts[gi][0] < self.plane_cuts[gi][1]])
                  for bi, b in enumerate(self.buckets)]
         self._coded = [(bi, gis) for bi, gis in coded if gis]
+        # real (not dummy) lanes an image codes: lanes times window planes
+        self.lanes_per_image = sum(
+            sum(not l.dummy for l in self.groups[gi]["lanes"])
+            * (self.plane_cuts[gi][1] - self.plane_cuts[gi][0])
+            for _bi, gis in self._coded for gi in gis)
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
         # images per device pass: each bucket's coder words of one image,
@@ -356,7 +369,10 @@ class TorchGrayscaleEncoder:
         n = b["call_rows"]
         if words.shape[0] <= n:
             return code(b, words)
-        parts = [code(b, words[i:i + n]) for i in range(0, len(words), n)]
+        parts = []
+        for i in range(0, len(words), n):
+            trace.mark(trace.CODER_INPUT, words)     # each call's own input
+            parts.append(code(b, words[i:i + n]))
         return tuple(torch.cat(p) for p in zip(*parts))
 
     def _code_slim(self, b, words):
@@ -366,8 +382,10 @@ class TorchGrayscaleEncoder:
     def _code_pallas(self, b, words):
         _Lk, Lc, cap_bits = bucket_sizes(b["L"])
         cw, over = compact_words(words, Lc)
-        code, nbits, opn = EF.encode_lanes_full(
-            *(t.t().contiguous() for t in _split_words(cw)))
+        split = [t.t().contiguous() for t in _split_words(cw)]
+        trace.mark(trace.CODER_KERNEL, words)
+        code, nbits, opn = EF.encode_lanes_full(*split)
+        trace.mark(trace.SORT_PACK, words)
         payload, total, flag = EF.order_and_pack_lanes(code, nbits, opn,
                                                        cap_bits)
         return payload, total, flag | over
@@ -376,6 +394,7 @@ class TorchGrayscaleEncoder:
         Lb = b["L"]
         Lc = min(Lb, (-(-(3 * Lb) // 4) + 255) // 256 * 256)
         cw, over = compact_words(words, Lc)
+        trace.mark(trace.SORT_PACK, words)
         payload, total, flag = SO.encode_emissions_sorted(
             *_split_words(cw), max_bits=_cap_bits(Lc))
         return payload, total, flag | over
@@ -416,19 +435,25 @@ class TorchGrayscaleEncoder:
         passes, queued one after the other, so that the coder's
         intermediates stay within its share of ``PASS_WORDS`` coder words
         (``CODER_DIVISORS``)."""
-        x = self._upload(np.asarray(images))
-        P = self.pass_images
-        passes = [self._dispatch(x[i:i + P]) for i in range(0, len(x), P)]
-        pending = Pending(self.device, keep=(x, [p[3] for p in passes]))
+        with trace.span("encode.dispatch"):
+            x = self._upload(np.asarray(images))
+            P = self.pass_images
+            passes = [self._dispatch(x[i:i + P])
+                      for i in range(0, len(x), P)]
+            pending = Pending(self.device, keep=(x, [p[3] for p in passes]))
 
         def collect():
-            pending.wait()
+            with trace.span("encode.wait"):
+                pending.wait()
             out = []
             for B, checks, fetched, held, capture in passes:
                 try:
                     if capture is not None:
-                        capture()
-                    out += self._collect(B, checks, fetched, held.tensors)
+                        with trace.span("encode.capture"):
+                            capture()
+                    with trace.span("encode.collect"):
+                        out += self._collect(B, checks, fetched,
+                                             held.tensors)
                 finally:
                     held.release()
             return out
@@ -460,17 +485,22 @@ class TorchGrayscaleEncoder:
         ``x``: (overflow, ll_mean, then words, payload, total bits and
         flag of each bucket that ``_coded`` lists).  It reads only ``x``
         and the device tables and holds no host copy or sync, so it can
-        be captured."""
+        be captured.  On the card it marks each stage as it queues it,
+        and the end of the pass (utils/trace ``mark``)."""
+        trace.mark(trace.TRANSFORM, x)
         img, ll_mean, overflow = self.transform(x)
+        trace.mark(trace.CONTEXT_MODEL, x)
         emitted = [self.emit(g, img) for g in self.groups]
         del img
         outs = [overflow, ll_mean]
         for bi, _gis in self._coded:
             b = self.buckets[bi]
+            trace.mark(trace.CODER_INPUT, x)
             words = self.bucket_words(b, emitted)
             for gi in b["groups"]:      # each group is in one bucket
                 emitted[gi] = None
             outs += [words, *self._code(b, words)]
+        trace.mark(trace.END, x)
         return tuple(outs)
 
     def _dispatch(self, x: torch.Tensor):
@@ -514,6 +544,7 @@ class TorchGrayscaleEncoder:
         if (means > (1 << self.mag_bits) - 1).any():
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "ll mean")
 
+        trace.count("encode.lanes", B * self.lanes_per_image)
         tables: list[dict] = [{} for _ in range(B)]
         redo = []      # (image, key, bucket, row) of every flagged lane
         for bi, ((_b, gis), (payload, total, flag)) in enumerate(
@@ -537,7 +568,9 @@ class TorchGrayscaleEncoder:
                                     payload[r, :(nb + 7) // 8].tobytes(), nb)
                             r += 1
         if redo:
-            coded = self._host_encode(words, [(bi, r) for *_, bi, r in redo])
+            with trace.span("encode.host_reencode"):
+                coded = self._host_encode(words,
+                                          [(bi, r) for *_, bi, r in redo])
             for (img_i, key, _bi, _r), res in zip(redo, coded):
                 tables[img_i][key] = res
         return [(tables[i], int(means[i])) for i in range(B)]
@@ -565,5 +598,6 @@ class TorchGrayscaleEncoder:
         res = [(out[k, :(nb + 7) // 8].tobytes(), nb)
                for k, nb in enumerate(map(int, bits))]
         self.fallback_lanes += len(rows)
+        trace.count("encode.host_reencode_lanes", len(rows))
         self.fallback_seconds += time.perf_counter() - t0
         return res

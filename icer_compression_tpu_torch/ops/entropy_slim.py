@@ -53,6 +53,7 @@ import torch
 
 from ..core import constants as C
 from .. import kernels
+from ..utils import trace
 from .pack import bitrev16, pack_records
 
 BIG = 2 ** 30
@@ -366,16 +367,20 @@ def code_lanes_slim(words: torch.Tensor, max_bits: int, slice_to: int):
     bool): the flag marks a lane past ``slice_to`` records, past
     ``max_bits`` bits or past the fused-key side buffer, which the caller
     re-encodes on the host.  The two-word mode sizes its side buffer by
-    ``eviction_rows``, so its evictions flag no lane."""
+    ``eviction_rows``, so its evictions flag no lane.  On the card it marks
+    the kernel's stage and then the tail's (utils/trace)."""
     _check_words(words)
     L = words.shape[0]
+    trace.mark(trace.CODER_KERNEL, words)
     if fused_key_ok(L):
         rec, fstate, misc, ev = encode_lanes_slim(words)
+        trace.mark(trace.SORT_PACK, words)
         payload, total, over = order_and_pack_lanes(
             slim_sort_operand_packed(rec, fstate, ev), max_bits, slice_to)
     else:
         rec1, rec2, fstate, misc, ev1, ev2, fopen = \
             encode_lanes_slim_two_word(words, eviction_rows(L))
+        trace.mark(trace.SORT_PACK, words)
         payload, total, over = order_and_pack_lanes_two_word(
             *slim_sort_operands(rec1, rec2, fstate, fopen, ev1, ev2),
             max_bits, slice_to)

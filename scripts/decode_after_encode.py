@@ -12,9 +12,10 @@ position, the default decode (a replayed graph) after a replayed encode.
 Per position: the decode's wall, unprofiled, as the median of ``--reps``
 runs taken in turns with the other positions (the position after
 ``clear``, which drops every graph, after the others are done); then one
-run under ``torch.profiler`` with the codec's layers annotated
-(``utils/trace``; up to five windows, until one holds K2's and W1's
-kernels, since the profiler can drop records late in a long process):
+run under ``torch.profiler``, read by layer from the program's own spans
+and stage marks (``utils/trace.layer_breakdown``; up to five windows,
+until one holds K2's and W1's kernels, since the profiler can drop
+records late in a long process):
 the decode's wall, device busy ms and idle share, the allocator calls the
 profiler sees in the decode's window (``cudaMalloc``, ``cudaFree``,
 ``cudaHostAlloc``, ``cudaFreeHost`` and their variants) and the host ms
@@ -65,8 +66,7 @@ def positions(dev, boat, reps: int = 5, graph: bool = False) -> dict:
 
     from icer_compression_tpu_torch.backend import graph_cache as GC
     from icer_compression_tpu_torch.models import grayscale as T
-    from icer_compression_tpu_torch.utils.trace import (
-        annotated, layer_breakdown, trace_layers)
+    from icer_compression_tpu_torch.utils.trace import layer_breakdown
 
     h, w = boat.shape
     cfg = T.CodecConfig(4, 0, 6, None)
@@ -121,8 +121,8 @@ def positions(dev, boat, reps: int = 5, graph: bool = False) -> dict:
         mem = {"reserved_bytes": torch.cuda.memory_reserved(),
                "allocated_bytes": torch.cuda.memory_allocated(),
                "graph_pool_bytes": GC.reserved_bytes(dev)}
-        with annotated(trace_layers()), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             with record_function("decode"):
                 decode(kw)
             torch.cuda.synchronize()

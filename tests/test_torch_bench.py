@@ -110,15 +110,19 @@ def _event(cat, name, ts, dur, **args):
 
 
 def test_layer_breakdown_on_a_synthetic_trace():
-    """Nested layer ranges and overlapping kernels: a launch belongs to the
-    innermost range, busy time is the union of the device intervals, and a
-    range's host time leaves out the ranges nested in it."""
+    """Nested program spans and overlapping kernels: a launch outside a
+    replay belongs to the innermost span, busy time is the union of the
+    device intervals, a span's host time leaves out the spans nested in
+    it, and the counts in the window are summed."""
     ev = [
         _event("user_annotation", "encode", 0, 1000),
-        _event("user_annotation", "layer:outer", 100, 500),
-        _event("user_annotation", "layer:inner", 200, 100),
-        _event("user_annotation", "layer:inner", 400, 50),
-        _event("user_annotation", "layer:other window", 2000, 10),
+        _event("user_annotation", "icer.outer", 100, 500),
+        _event("user_annotation", "icer.inner", 200, 100),
+        _event("user_annotation", "icer.inner", 400, 50),
+        _event("user_annotation", "icer.other window", 2000, 10),
+        _event("user_annotation", "count:encode.lanes=5", 120, 0),
+        _event("user_annotation", "count:encode.lanes=3", 130, 0),
+        _event("user_annotation", "count:encode.lanes=9", 2005, 0),
         _event("cuda_runtime", "cudaLaunchKernel", 150, 5, correlation=1),
         _event("cuda_runtime", "cudaLaunchKernel", 250, 5, correlation=2),
         _event("cuda_runtime", "cudaMemcpyAsync", 410, 5, correlation=3),
@@ -146,6 +150,7 @@ def test_layer_breakdown_on_a_synthetic_trace():
     assert L["other"] == {"device_ms": pytest.approx(0.2), "launches": 1,
                           "host_ms": 0.0}
     assert "other window" not in L
+    assert r["counts"] == {"encode.lanes": 8} and r["unmarked"] == 0
     with pytest.raises(AssertionError, match="no device work"):
         layer_breakdown([e for e in ev if e["cat"] == "user_annotation"],
                         "encode")
@@ -178,20 +183,34 @@ def test_bench_scaling_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_layer_breakdown_counts_a_graph_replay_as_one_api_launch():
     """A captured pass: one cudaGraphLaunch whose kernels share its
-    correlation id, and the copies around it."""
+    correlation id, and the copies around it.  The replay's records go to
+    the stage of the mark before each until its end mark; a replay
+    without marks is counted as unmarked and goes by span."""
+    mark = "void icer_mark<{}>(unsigned long long*)".format
     ev = [
         _event("user_annotation", "encode graph", 0, 1000),
         _event("cuda_runtime", "cudaMemcpyAsync", 10, 5, correlation=1),
         _event("cuda_runtime", "cudaGraphLaunch", 20, 30, correlation=2),
         _event("cuda_runtime", "cudaMemcpyAsync", 60, 5, correlation=3),
+        _event("cuda_runtime", "cudaGraphLaunch", 600, 30, correlation=4),
         _event("gpu_memcpy", "Memcpy HtoD", 30, 10, correlation=1),
+        _event("kernel", mark(1), 90, 2, correlation=2),
         _event("kernel", "k1", 100, 200, correlation=2),
         _event("kernel", "k2", 300, 100, correlation=2),
-        _event("kernel", "k3", 450, 50, correlation=2),
+        _event("kernel", mark(4), 420, 2, correlation=2),
+        _event("kernel", "k3", 450, 48, correlation=2),
+        _event("kernel", mark(7), 498, 2, correlation=2),
         _event("gpu_memcpy", "Memcpy DtoH", 500, 20, correlation=3),
+        _event("kernel", "k9", 700, 10, correlation=4),
     ]
     r = layer_breakdown(ev, "encode graph")
-    assert r["launches"] == 5 and r["api_launches"] == 3
-    assert r["kernels"] == {"k1": 1, "k2": 1, "k3": 1}
-    assert r["busy_ms"] == pytest.approx((10 + 300 + 70) / 1e3)
-    assert set(r["layers"]) == {"other"}
+    assert r["launches"] == 9 and r["api_launches"] == 4
+    assert r["kernels"] == {"k1": 1, "k2": 1, "k3": 1, "k9": 1,
+                            mark(1): 1, mark(4): 1, mark(7): 1}
+    assert r["busy_ms"] == pytest.approx((10 + 2 + 300 + 2 + 70 + 10)
+                                         / 1e3)
+    L = r["layers"]
+    assert set(L) == {"other", "context model", "sort and pack", "end"}
+    assert L["context model"]["device_ms"] == pytest.approx(0.302)
+    assert L["sort and pack"]["device_ms"] == pytest.approx(0.050)
+    assert L["other"]["launches"] == 3 and r["unmarked"] == 1

@@ -219,11 +219,12 @@ the check and pass it; builds the native host runtime
  30. each encode pass and each decode pass as one captured CUDA graph per
      key (backend/graph_cache, the default on the card, so phases 1-29 run
      through them too; the graphs are dropped before phase 29) against the
-     same pass run eagerly, byte for byte: boat, the bench's 112 in passes
-     of 37, 37, 37 and 1 (every dispatch half, a key's first three passes
-     among them, under ``no_host_sync``), phase 4's batch of 8, phase 16's
-     colour image, 1024x1024, 5120x3840 (two coder calls a pass), quota
-     50,000, and boat and a variant through ``pallas`` and ``sorted``
+     same pass run eagerly, byte for byte: boat, the bench's 112 in four
+     passes of 28, one key (every dispatch half, the key's first four
+     passes among them, under ``no_host_sync``), phase 4's batch of 8,
+     phase 16's colour image, 1024x1024, 5120x3840 (two coder calls a
+     pass), quota 50,000, and boat and a variant through ``pallas`` and
+     ``sorted``
      deferred with two batches in flight; each capture's seconds and
      first-replay check; a replay's K1 / K4 runs, as the kernels count them
      on the card, equal to the eager passes', and the encode kernels'
@@ -3842,8 +3843,9 @@ def decode_soak(dev, card, cfg, streams) -> dict:
 def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     """Phase 30: each encode pass a captured CUDA graph (the default on
     the card) against the same pass run eagerly, byte for byte: boat
-    single image; the bench's 112 noisy variants in passes of 37, 37, 37
-    and 1, each dispatch half under ``no_host_sync``; phase 4's batch of
+    single image; the bench's 112 noisy variants in four passes of 28
+    (passes of at most 37, all of one size), each dispatch half under
+    ``no_host_sync``; phase 4's batch of
     8; phase 16's colour image; 1024x1024 (K1 two-word); 5120x3840 (two
     coder calls a pass); quota 50,000; boat and a noisy variant through
     ``pallas`` and ``sorted``, deferred with two batches in flight (the
@@ -3952,21 +3954,21 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
         -6, 7, boat.shape), 0, 255).astype(np.uint16) for _ in range(112)])
     imgs[0] = boat
     benc = T.make_encoder(w, h, cfg, np.uint16, dev)
-    if (-(-len(imgs) // benc.pass_images), len(imgs) % benc.pass_images) \
-            != (4, 1):
-        raise AssertionError(f"112 images in passes of {benc.pass_images}")
+    if benc.pass_images != 37:
+        raise AssertionError(f"112 images in passes of at most "
+                             f"{benc.pass_images}, not 37")
 
     def bench_batch():
         with no_host_sync():
             collect = benc.encode_batch(imgs, defer=True)
         return T.allocate_streams(collect(), cfg, benc)
 
-    bench_streams = case("bench 112 (passes 37, 37, 37, 1)", bench_batch,
+    bench_streams = case("bench 112 (4 passes of 28)", bench_batch,
                          sha_is(golden, "bench batch"))
     res["bench_reserved"], res["bench_bound"] = within_bound("bench 112")
     res["bench_static"] = cache.static_bytes(dev)
     log(f"phase 30 bench 112: every dispatch half under no_host_sync "
-        f"(set_sync_debug_mode 'error'), the 37-image key's first three "
+        f"(set_sync_debug_mode 'error'), the 28-image key's first four "
         f"passes among them: no host sync; graph pools reserve "
         f"{gb(res['bench_reserved'])} against their bound "
         f"{gb(res['bench_bound'])} (one pass budget beyond static tensors "

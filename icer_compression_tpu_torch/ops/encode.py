@@ -49,9 +49,10 @@ to backend/sequential); ``fallback_lanes`` counts them and
 Under ``torch.profiler`` (utils/trace) a pass records the spans
 ``encode.dispatch`` (upload and dispatch half), ``encode.wait``,
 ``encode.capture``, ``encode.collect`` and ``encode.host_reencode``, and
-the counts ``encode.lanes`` (real lanes coded) and
-``encode.host_reencode_lanes``; ``device_pass`` marks its stages on the
-card whether or not the profiler records.
+the counts ``encode.lanes`` (real lanes coded), ``encode.pad_images``
+(the all-zero images that pad a batch's last pass to the size of its
+others) and ``encode.host_reencode_lanes``; ``device_pass`` marks its
+stages on the card whether or not the profiler records.
 """
 
 from __future__ import annotations
@@ -431,29 +432,45 @@ class TorchGrayscaleEncoder:
         a pipelined caller can overlap this batch's device work with
         other host work); without, it collects at once.
 
-        A batch of more than ``pass_images`` images runs as several device
-        passes, queued one after the other, so that the coder's
+        A batch of N > ``pass_images`` = P images runs as n = ceil(N / P)
+        device passes, queued one after the other, so that the coder's
         intermediates stay within its share of ``PASS_WORDS`` coder words
-        (``CODER_DIVISORS``)."""
+        (``CODER_DIVISORS``).  The passes are of one size, s = ceil(N /
+        n) images, so the batch is one graph key whose pool fits the
+        cache's bound alone (passes of P and a remainder would be two
+        keys, whose pools together pass it, so each capture would evict
+        the other).  The last pass is padded with n * s - N all-zero
+        images on the device (fewer than s), counted as
+        ``encode.pad_images``; its collector drops them before the checks,
+        the table loop and the host re-encodes.  A batch of N <= P runs
+        as one pass of N."""
         with trace.span("encode.dispatch"):
             x = self._upload(np.asarray(images))
-            P = self.pass_images
-            passes = [self._dispatch(x[i:i + P])
-                      for i in range(0, len(x), P)]
-            pending = Pending(self.device, keep=(x, [p[3] for p in passes]))
+            N = len(x)
+            n = -(-N // self.pass_images)
+            s = -(-N // n) if n else 1
+            trace.count("encode.pad_images", -N % s)
+            xs = [x[i:i + s] for i in range(0, N, s)]
+            if xs and len(xs[-1]) < s:
+                xs[-1] = torch.cat([xs[-1], x.new_zeros(
+                    (s - len(xs[-1]),) + tuple(x.shape[1:]))])
+            passes = [(min(s, N - i * s), self._dispatch(xi))
+                      for i, xi in enumerate(xs)]
+            pending = Pending(self.device, keep=(
+                x, xs[-1:], [p[3] for _r, p in passes]))
 
         def collect():
             with trace.span("encode.wait"):
                 pending.wait()
             out = []
-            for B, checks, fetched, held, capture in passes:
+            for real, (B, checks, fetched, held, capture) in passes:
                 try:
                     if capture is not None:
                         with trace.span("encode.capture"):
                             capture()
                     with trace.span("encode.collect"):
                         out += self._collect(B, checks, fetched,
-                                             held.tensors)
+                                             held.tensors, real)
                 finally:
                     held.release()
             return out
@@ -534,18 +551,20 @@ class TorchGrayscaleEncoder:
                 owner=self, estimate=self.pass_bytes(x.shape[0]))
         return x.shape[0], checks, fetched, held, capture
 
-    def _collect(self, B, checks, fetched, words):
-        """The host half of one pass, after its copies are done;
-        ``words`` are its coded buckets' words."""
+    def _collect(self, B, checks, fetched, words, real):
+        """The host half of one pass of ``B`` images, after its copies are
+        done; ``words`` are its coded buckets' words.  Only the first
+        ``real`` images are the caller's (the rest pad the pass, and
+        their all-zero transform cannot overflow)."""
         overflow, ll_mean = checks
         if bool(overflow):
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "wavelet transform")
-        means = ll_mean.numpy()
+        means = ll_mean.numpy()[:real]
         if (means > (1 << self.mag_bits) - 1).any():
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "ll mean")
 
-        trace.count("encode.lanes", B * self.lanes_per_image)
-        tables: list[dict] = [{} for _ in range(B)]
+        trace.count("encode.lanes", real * self.lanes_per_image)
+        tables: list[dict] = [{} for _ in range(real)]
         redo = []      # (image, key, bucket, row) of every flagged lane
         for bi, ((_b, gis), (payload, total, flag)) in enumerate(
                 zip(self._coded, fetched)):
@@ -556,7 +575,7 @@ class TorchGrayscaleEncoder:
             for gi in gis:
                 lanes = self.groups[gi]["lanes"]
                 lo, hi = self.groups[gi]["cut"]
-                for img_i in range(B):
+                for img_i in range(real):
                     for lsb in range(lo, hi):
                         for l in lanes:
                             key = (l.stage, l.subband, lsb, l.seg)
@@ -567,13 +586,14 @@ class TorchGrayscaleEncoder:
                                 tables[img_i][key] = (
                                     payload[r, :(nb + 7) // 8].tobytes(), nb)
                             r += 1
+                r += (B - real) * (hi - lo) * len(lanes)   # the padding's
         if redo:
             with trace.span("encode.host_reencode"):
                 coded = self._host_encode(words,
                                           [(bi, r) for *_, bi, r in redo])
             for (img_i, key, _bi, _r), res in zip(redo, coded):
                 tables[img_i][key] = res
-        return [(tables[i], int(means[i])) for i in range(B)]
+        return [(tables[i], int(means[i])) for i in range(real)]
 
     def _host_encode(self, words, rows):
         """Exact host re-encode of flagged lanes: ``rows`` lists (bucket,

@@ -23,6 +23,7 @@ from icer_compression_tpu_torch.ops import encode as E
 from icer_compression_tpu_torch.ops import entropy_full as EF
 from icer_compression_tpu_torch.utils.image_io import read_png
 from test_torch_entropy_slim import one_torch_thread  # noqa: F401
+from test_torch_pass_plan import pad_counts
 
 BOAT = os.path.join(os.path.dirname(__file__), "data", "boat.512.png")
 
@@ -70,10 +71,12 @@ class FakeGraph:
             flat[0] = ~flat[0] if flat.dtype == torch.bool else flat[0] + 1
 
 
-def fake_cache(counters=(), bad_captures=0, budget=1 << 40, pools=None):
+def fake_cache(counters=(), bad_captures=0, budget=1 << 40, pools=None,
+               pool=None):
     """A GraphCache whose captures are ``FakeGraph``s, each pool the size
     of its outputs (or ``pools[key]`` for a graph of that key's outputs'
-    first value); the first ``bad_captures`` give wrong replays."""
+    first value, or ``pool(graph, device)``); the first ``bad_captures``
+    give wrong replays."""
     left = [bad_captures]
 
     def capture(fn, static_x):
@@ -81,12 +84,14 @@ def fake_cache(counters=(), bad_captures=0, budget=1 << 40, pools=None):
         left[0] -= 1
         return g, g.outs
 
-    def pool(g, dev):
+    def pool_of(g, dev):
+        if pool is not None:
+            return pool(g, dev)
         if pools is None:
             return GC._nbytes(g.outs)
         return pools[int(g.outs[0].view(-1)[0])]
 
-    return GC.GraphCache(capture=capture, pool=pool,
+    return GC.GraphCache(capture=capture, pool=pool_of,
                          counters=lambda: list(counters), budget=budget)
 
 
@@ -146,10 +151,10 @@ def test_boat_crop_equals_jax_package(request, mode):
         assert [c["equal"] for c in cache.captures] == [True]
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_remainder_pass_equals_jax_package(request, mode, monkeypatch):
-    """A batch of 3 in passes of 2 and 1: two keys, each its own graph."""
-    cache = _mode(request, mode)
+def _three_in_passes_of_two(monkeypatch):
+    """Three 48x48 boat crops, their JAX package streams, and an encoder
+    whose passes hold at most 2 of them (``PASS_WORDS`` lowered in the
+    test), the sizes of its passes recorded as they are dispatched."""
     imgs = np.stack([boat_crop(48, dy, dx)
                      for dy, dx in ((0, 0), (40, -30), (-60, 50))])
     cfg = T.CodecConfig(3, 1, 4, None)
@@ -158,12 +163,47 @@ def test_remainder_pass_equals_jax_package(request, mode, monkeypatch):
     enc = T.make_encoder(48, 48, cfg, np.uint16, "cpu")
     assert enc.pass_images == 2
     want = [G.compress(im, G.CodecConfig(3, 1, 4, None)) for im in imgs]
-    for got in _runs(mode, lambda: T.compress_batch(imgs, cfg,
-                                                    encoder=enc)):
+    enc.passes = []
+    real = enc._dispatch
+    monkeypatch.setattr(enc, "_dispatch",
+                        lambda x: enc.passes.append(len(x)) or real(x))
+    return imgs, cfg, enc, want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_remainder_pass_equals_jax_package(request, mode, monkeypatch):
+    """A batch of 3 in passes of at most 2: two passes of 2, the second
+    padded with one all-zero image, so one key and one graph."""
+    cache = _mode(request, mode)
+    imgs, cfg, enc, want = _three_in_passes_of_two(monkeypatch)
+    pads = pad_counts(monkeypatch)
+    runs = _runs(mode, lambda: T.compress_batch(imgs, cfg, encoder=enc))
+    for got in runs:
         assert got == want
+    assert enc.passes == [2, 2] * len(runs)
+    assert pads == [1] * len(runs)
     if cache is not None:
-        assert sorted(k[6] for k in cache.keys()) == [1, 2]
-        assert cache.replays == 2 * 2
+        assert [k[6] for k in cache.keys()] == [2]
+        # the capture's check, then both passes of the next two batches
+        assert cache.replays == 1 + 2 * 2
+
+
+def test_one_key_fits_a_bound_of_one_pass(replays, monkeypatch):
+    """The fake bound holds the pool of one pass of 2 and no more (pools
+    of 2^30 B an image): the batch of 3, encoded three times, evicts
+    nothing and replays every pass after its capture (passes of 2 and 1
+    would be two keys whose pools evict each other)."""
+    unit = 1 << 30
+    cache = fake_cache(budget=2 * unit,
+                       pool=lambda g, dev: unit * len(g.static_x))
+    monkeypatch.setattr(GC, "CACHE", cache)
+    imgs, cfg, enc, want = _three_in_passes_of_two(monkeypatch)
+    for _ in range(3):
+        assert T.compress_batch(imgs, cfg, encoder=enc) == want
+    assert enc.passes == [2, 2] * 3
+    assert cache.evictions == 0 and len(cache.captures) == 1
+    assert cache.pool_total("cpu") == 2 * unit <= cache.bound("cpu")
+    assert cache.replays == 1 + 2 * 2
 
 
 @pytest.mark.parametrize("mode", MODES)

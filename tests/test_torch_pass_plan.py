@@ -2,7 +2,11 @@
 ``auto``, ``slim`` and ``pallas`` plans keep the single word budget's
 passes and calls, ``sorted`` takes a third of them, and a ``sorted`` batch
 gives the same streams in one pass or in several (the JAX package's
-``G.compress`` of each image)."""
+``G.compress`` of each image).  A batch split into passes runs them all
+of one size, the last padded with all-zero images, with the streams of
+one pass."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -10,6 +14,7 @@ import pytest
 from icer_compression_tpu.models import grayscale as G
 from icer_compression_tpu_torch.models import grayscale as T
 from icer_compression_tpu_torch.ops import encode as E
+from icer_compression_tpu_torch.utils import trace
 from test_torch_entropy_slim import one_torch_thread  # noqa: F401
 
 # (pass_images, every bucket's call_rows) that PASS_WORDS = CALL_WORDS =
@@ -89,3 +94,82 @@ def test_sorted_streams_do_not_depend_on_the_split(monkeypatch):
     assert several == one
     jcfg = G.CodecConfig(2, 1, 3, None)
     assert one == [G.compress(im, jcfg) for im in imgs]
+
+
+def pad_counts(monkeypatch) -> list:
+    """The ``encode.pad_images`` count of each batch encoded from now on
+    (``utils/trace.count`` watched in this test)."""
+    got = []
+    real = trace.count
+
+    def count(name, n=1):
+        if name == "encode.pad_images":
+            got.append(n)
+        real(name, n)
+    monkeypatch.setattr(trace, "count", count)
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _split_images():
+    """Eight 20x24 images and the JAX package's lossless stream of each
+    (stages 2, filter B, 3 segments)."""
+    rng = np.random.default_rng(21)
+    ramp = np.add.outer(np.arange(20) * 5, np.arange(24)) % 140
+    imgs = (ramp + rng.integers(0, 70, (8, 20, 24))).astype(np.uint16)
+    jcfg = G.CodecConfig(2, 1, 3, None)
+    return imgs, tuple(G.compress(im, jcfg) for im in imgs)
+
+
+@pytest.mark.parametrize("n_images", [1, 2, 3, 4, 5, 7, 8])
+def test_passes_are_of_one_size(monkeypatch, n_images):
+    """N images with passes of at most P = 3 (``PASS_WORDS`` lowered in
+    this test) run as n = ceil(N / P) passes of s = ceil(N / n) each, one
+    graph key, the last padded with n * s - N all-zero images that
+    ``encode.pad_images`` counts; the streams equal one pass's and the
+    JAX package's."""
+    imgs, want = _split_images()
+    imgs = imgs[:n_images]
+    cfg = T.CodecConfig(2, 1, 3, None)
+    whole = T.make_encoder(24, 20, cfg, np.uint16, "cpu")
+    assert whole.pass_images >= len(imgs)
+    one = T.compress_batch(imgs, cfg, encoder=whole)
+
+    monkeypatch.setattr(E, "PASS_WORDS", 3 * whole.words_per_image)
+    split = T.make_encoder(24, 20, cfg, np.uint16, "cpu")
+    assert split.pass_images == 3
+    n = -(-n_images // 3)
+    s = -(-n_images // n)
+    passes = []
+    real = split._dispatch
+    monkeypatch.setattr(split, "_dispatch",
+                        lambda x: passes.append(len(x)) or real(x))
+    pads = pad_counts(monkeypatch)
+    got = T.compress_batch(imgs, cfg, encoder=split)
+    assert passes == [s] * n
+    assert pads == [n * s - n_images]
+    assert got == one == list(want[:n_images])
+
+
+def test_padding_is_skipped_in_a_bucket_of_several_groups(monkeypatch):
+    """Every stage group in one bucket (``_plan_buckets`` replaced in this
+    test; the planned buckets hold one group each at these sizes): the
+    rows of the padding image sit between one group's rows and the next,
+    and the 5 images, in passes of 3 padded to 6, still give the JAX
+    package's streams."""
+    real_plan = E._plan_buckets
+
+    def one_bucket(groups):
+        order = [gi for b in real_plan(groups) for gi in b["groups"]]
+        return [{"groups": order, "L": max(g["L"] for g in groups)}]
+    monkeypatch.setattr(E, "_plan_buckets", one_bucket)
+    imgs, want = _split_images()
+    imgs = imgs[:5]
+    cfg = T.CodecConfig(2, 1, 3, None)
+    whole = T.make_encoder(24, 20, cfg, np.uint16, "cpu")
+    assert len(whole.buckets) == 1 and len(whole.buckets[0]["groups"]) == 2
+    monkeypatch.setattr(E, "PASS_WORDS", 3 * whole.words_per_image)
+    split = T.make_encoder(24, 20, cfg, np.uint16, "cpu")
+    pads = pad_counts(monkeypatch)
+    assert T.compress_batch(imgs, cfg, encoder=split) == list(want[:5])
+    assert split.pass_images == 3 and pads == [1]

@@ -125,17 +125,19 @@ CONTROLS = ("unbounded_window", "one_plane_short")
 
 def run_check(run, quota, workers: int | None = None,
               control: str | None = None) -> list:
-    """The run's numbers against the reference.  With ``control`` (one of
-    ``CONTROLS``) the answers of the checked frames are first replaced by
-    a reference with that fault, put in the program's place: the numbers
-    must then fail."""
+    """The run's numbers against the reference: ``reference``, or the
+    cell's mode file's own (``run.reference_hook``, same arguments and
+    result).  With ``control`` (one of ``CONTROLS``) the answers of the
+    checked frames are first replaced by a reference with that fault, put
+    in the program's place: the numbers must then fail."""
     if not run.check_keys:
         raise RuntimeError("no answer to check: the window returned none")
     if workers is None:
         workers = min(8, os.cpu_count() or 1)
-    ref = reference(run, quota, workers)
+    expected = run.reference_hook or reference
+    ref = expected(run, quota, workers, None)
     if control is not None:
-        bad = reference(run, quota, workers, control)
+        bad = expected(run, quota, workers, control)
         run.answers = [(k, kind, bad[k][kind]) for k, kind, _ in run.answers
                        if k in bad]
         if getattr(run, "streams", None) is not None:

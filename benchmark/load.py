@@ -19,6 +19,18 @@ frame and the codec.  Modes:
 Every mode warms the shapes it will use (each graph key captured and
 replayed) before the window, runs for ``seconds``, keeps the answers of
 the frames it will check, and hands them to ``check``.
+
+A cell brings a mode of its own as a file: a traffic file whose ``mode``
+is not one of the above names ``modes/<mode>.py``, whose ``run(run,
+seconds, profile, dev)`` keeps the built-in modes' contract (set up and
+warm before the window, measure inside ``_window(run, profile, dev)``,
+fill ``run.requests``, ``run.answers``, ``run.attempted`` and
+``run.answered``, set ``run.check_keys``, return the state to free).  A
+mode file that defines ``reference(run, quota, workers, control)``
+judges its own answers: ``check.run_check`` takes the expected results
+from it instead of the grayscale ``check.reference``, and passes it each
+of ``check.CONTROLS``, whose fault it must put in, so that the controls
+still fail.  ``modes/__init__.py`` has the contract in full.
 """
 
 from __future__ import annotations
@@ -26,11 +38,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import importlib.util
+import re
 import time
+from pathlib import Path
 
 import numpy as np
 
-from . import frames
+from . import Failed, frames
 
 # request kinds recorded per mode, for the metrics
 ENCODE, DECODE = "encode", "decode"
@@ -90,6 +105,7 @@ class Run:
         self.answers: list = []             # (frame key, kind, value)
         self.attempted = 0
         self.answered = 0
+        self.reference_hook = None          # a mode file's ``reference``
 
     @property
     def mp(self) -> float:
@@ -182,11 +198,40 @@ def _window(run, profile, dev):
             torch.cuda.max_memory_reserved(dev)
 
 
-def run_mode(run, seconds: float, profile, dev):
+def run_mode(run, seconds: float, profile, dev, modes_dir: Path):
     """Set up, warm and measure ``run``'s cell; returns the program's
-    state to free before the check."""
-    mode = run.traffic["mode"]
-    return MODES[mode](run, seconds, profile, dev)
+    state to free before the check.  A mode not in ``MODES`` is the
+    ``run`` of ``modes_dir/<mode>.py``, whose ``reference``, where it has
+    one, becomes ``run.reference_hook``."""
+    name = run.traffic["mode"]
+    if name in MODES:
+        return MODES[name](run, seconds, profile, dev)
+    mod = mode_file(name, modes_dir)
+    run.reference_hook = getattr(mod, "reference", None)
+    return mod.run(run, seconds, profile, dev)
+
+
+PLAIN_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+
+def mode_file(name: str, modes_dir: Path):
+    """The module ``modes_dir/<name>.py``, loaded by path (as ``run.reader``
+    loads a metric); ``Failed`` for a name that is not a plain file name
+    and for a file that is missing."""
+    path = Path(modes_dir) / f"{name}.py"
+    if not isinstance(name, str) or not PLAIN_NAME.fullmatch(name) \
+            or ".." in name:
+        raise Failed(f"traffic mode {name!r} is not a plain file name "
+                     f"(it would be {path})")
+    if not path.is_file():
+        raise Failed(f"no traffic mode {name!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark.modes.{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if not callable(getattr(mod, "run", None)):
+        raise Failed(f"traffic mode {name!r}: {path} defines no run()")
+    return mod
 
 
 def _encode_batch(run, seconds, profile, dev):

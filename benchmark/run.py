@@ -44,6 +44,8 @@ import sys  # noqa: E402
 import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
 
+from . import Failed  # noqa: E402
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "icer_compression_tpu")
@@ -60,10 +62,6 @@ KERNEL_FAMILIES = {
 
 def log(msg: str) -> None:
     print(f"benchmark: {msg}", file=sys.stderr, flush=True)
-
-
-class Failed(Exception):
-    """The run cannot give a result."""
 
 
 def forbidden_modules() -> list:
@@ -160,10 +158,13 @@ def execute(bench: dict, workload: str, seed: int, seconds: float,
             trace: bool, dev: str = "cuda", t_start: float = T_START,
             root: Path = ROOT, workers: int | None = None,
             traffic_dir: Path | None = None,
-            control: str | None = None) -> dict:
+            control: str | None = None,
+            modes_dir: Path | None = None) -> dict:
     """One run of ``workload`` on ``dev`` (no look for a chip): the result
     line's object.  ``control`` (``check.CONTROLS``) judges a faulty
-    reference in the program's place instead (``benchmark.control``)."""
+    reference in the program's place instead (``benchmark.control``).
+    A traffic mode that is not built in is found in ``modes_dir``
+    (default ``benchmark/modes`` under ``root``)."""
     import torch
 
     from . import check, load
@@ -172,7 +173,9 @@ def execute(bench: dict, workload: str, seed: int, seconds: float,
     profile = _profiler(run, dev) if trace else _no_profile
     cuda = torch.device(dev).type == "cuda"
     # the program's state is created inside, measured, then freed
-    state = load.run_mode(run, seconds, profile, dev)
+    if modes_dir is None:
+        modes_dir = root / "benchmark" / "modes"
+    state = load.run_mode(run, seconds, profile, dev, Path(modes_dir))
     log(f"set-up {run.first_request - t_start:.3f} s, window "
         f"{run.window[1] - run.window[0]:.3f} s, {run.attempted} attempted")
     counters = run.counters

@@ -203,15 +203,21 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 
 
 def test_reference_imports_nothing_of_the_program():
-    code = ("import sys, numpy as np\n"
+    """Every module under ``benchmark/reference/`` (found by glob, so a
+    reference a later cell adds is held to it too) imported, and a
+    grayscale encode run, in a fresh process."""
+    code = ("import importlib, sys, numpy as np\n"
             "sys.path.insert(0, %r)\n"
+            "for m in %r:\n"
+            "    importlib.import_module('benchmark.reference.' + m)\n"
             "from benchmark.reference import codec\n"
             "from benchmark.reference.workers import Workers\n"
             "from benchmark import frames\n"
             "b = frames.boat()[:64, :64].astype(np.uint16)\n"
             "with Workers(1) as w: codec.encode([b], 1000, codec.Codec(), w)\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))\n"
-            % str(ROOT))
+            % (str(ROOT), sorted(p.stem for p in (ROOT / "benchmark" /
+                                 "reference").glob("*.py"))))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=ROOT)
     assert p.returncode == 0, p.stderr[-3000:]

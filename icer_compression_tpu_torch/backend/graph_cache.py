@@ -22,8 +22,13 @@ waits for the card:
   - the key's first pass runs eagerly: the warm-up that capture needs (the
     kernels build and load at first use, the lru-cached device tables
     upload), and all that a one-off geometry ever pays;
-  - its second pass (and any later one dispatched before the capture)
-    runs eagerly too and is marked for capture;
+  - its second pass runs eagerly too and is marked for capture; a key
+    has one marked pass at a time, since a marked pass keeps its eager
+    outputs until its collector captures (marking every pass dispatched
+    before the capture held four colour batches of 56 1600x1200 frames,
+    136 eager passes in flight, past an 80 GB card).  Should the marked
+    pass's outputs be freed uncaptured (its collector failed before the
+    capture, or never ran), the key's next pass is marked;
   - once captured, every pass copies its inputs into the graph's static
     inputs and replays.
 The capture itself is the collector's (``GraphCache.capture``), after the
@@ -91,11 +96,11 @@ being ``decode`` or ``encode`` (``is_decode``); a capture's first replay,
 its check, counts as a replay, as ``replays`` does.
 
 A graph's replay writes only its own pool, so the outputs the host reads
-after the dispatch half (``hold``: the coder words a collector re-encodes
-flagged lanes from, a decode's wide pixels that its pack8 fallback
-copies) are copied out only before the next replay of the same graph; the
-stream-ordered copies to the host, queued right after a replay, read
-theirs first.
+after the dispatch half (``hold``: a decode's wide pixels that its pack8
+fallback copies) are copied out only before the next replay of the same
+graph; the stream-ordered copies to the host, queued right after a
+replay, read theirs first.  (An encode holds no outputs: a collector that
+re-encodes flagged lanes runs their pass again eagerly, ``ops/encode``.)
 """
 
 from __future__ import annotations
@@ -235,13 +240,20 @@ class Held:
         self.tensors = None
 
 
+def _gone():
+    return None
+
+
 class _Seen:
-    """A key not captured: the passes seen of it and the object whose
-    device tables they read (None: not made, or dropped)."""
+    """A key not captured: the passes seen of it, the object whose device
+    tables they read (None: not made, or dropped), and a weak reference
+    to the first output of its pass marked for capture (dead: none
+    marked, or its outputs freed)."""
 
     def __init__(self):
         self.passes = 0
         self.owner = None
+        self.marked = _gone
 
 
 class _Entry:
@@ -350,7 +362,8 @@ class GraphCache:
         of tensors) eagerly.  Returns (outputs, state): ``replay`` (the
         graph's static outputs, valid until its next replay; ``hold``
         keeps what the host reads later), ``eager``, or ``capture``: an
-        eager pass of a key seen ``CAPTURE_AT`` times, whose collector
+        eager pass of a key seen ``CAPTURE_AT`` times or more, none of
+        whose marked passes still holds its outputs, whose collector
         calls ``capture``."""
         with self.lock:
             entry = self._entries.get(key)
@@ -361,8 +374,11 @@ class GraphCache:
             rec.passes += 1
             trace.count("graph.eager.decode" if is_decode(key)
                         else "graph.eager.encode")
-            return tuple(fn(x)), \
-                "capture" if rec.passes >= CAPTURE_AT else "eager"
+            outs = tuple(fn(x))
+            if rec.passes < CAPTURE_AT or rec.marked() is not None:
+                return outs, "eager"
+            rec.marked = weakref.ref(outs[0])
+            return outs, "capture"
 
     def _record_of(self, key) -> _Seen:
         """The key's record of passes, now the most recent one."""

@@ -222,16 +222,15 @@ def cmd_batch_compress(args) -> int:
                           segments=args.segments, byte_quota=quota)
         if args.color:
             def submit(chunk, cfg=cfg):
-                p = np.stack([im for _, im in chunk])
                 return color_model.compress_yuv_batch(
-                    p[:, 0], p[:, 1], p[:, 2], cfg, device=args.device,
-                    defer=True)
+                    *([im[c] for _, im in chunk] for c in range(3)), cfg,
+                    device=args.device, defer=True)
         else:
             enc = gray_model.make_encoder(w, h, cfg, np.uint16,
                                           device=args.device)
 
             def submit(chunk, cfg=cfg, enc=enc):
-                hold = enc.encode_batch(np.stack([im for _, im in chunk]),
+                hold = enc.encode_batch([im for _, im in chunk],
                                         defer=True)
                 return lambda: gray_model.allocate_streams(hold(), cfg, enc)
 

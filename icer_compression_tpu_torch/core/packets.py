@@ -8,13 +8,13 @@ final stream rearrangement orders mirror icer_compress.c:149-163,
 icer_color.c:184-203 (uint8 color ascending) and icer_color.c:508-527
 (uint16 color descending).
 
-Counterpart: ``icer_compression_tpu/core/packets.py``, copied as it is
+Counterpart: ``icer_compression_tpu/core/packets.py``, copied as it is but
+for ``sort_packets``, which sorts by a key instead of the comparator
 (the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass, field
 
 from .constants import (
@@ -38,15 +38,9 @@ class PacketContext:
     channel: int = 0
 
 
-def _comp_packet(a: PacketContext, b: PacketContext) -> int:
-    """qsort comparator (icer_compress.c:8-15): priority desc, subband asc."""
-    if a.priority == b.priority:
-        return (a.subband_type > b.subband_type) - (a.subband_type < b.subband_type)
-    return -1 if a.priority > b.priority else 1
-
-
 def sort_packets(packets: list[PacketContext]) -> list[PacketContext]:
-    """Stable order identical to glibc qsort on this comparator.
+    """Stable order identical to glibc qsort on the reference's comparator
+    (icer_compress.c:8-15: priority descending, subband ascending).
 
     glibc's qsort is a mergesort (stable) for small element counts, and the
     reference relies on the resulting order.  Python's sorted() is stable,
@@ -59,8 +53,12 @@ def sort_packets(packets: list[PacketContext]) -> list[PacketContext]:
     stable mergesort).  A reference binary built on glibc >= 2.37 may
     order tied packets differently; decode is order-insensitive either
     way (the decoder rescans the whole stream).
+
+    A sort key orders as the comparator does, at a fraction of the cost of
+    calling it (the JAX package's ``sort_packets``, ``functools.cmp_to_key``
+    over the comparator; a colour batch sorts a 351-packet list an image).
     """
-    return sorted(packets, key=functools.cmp_to_key(_comp_packet))
+    return sorted(packets, key=lambda p: (-p.priority, p.subband_type))
 
 
 def _check_packet_count(packets: list[PacketContext], bitplanes: int):

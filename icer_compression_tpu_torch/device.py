@@ -68,6 +68,10 @@ class Pending:
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(device))
 
+    def ready(self) -> bool:
+        """Whether the work and downloads are done, without waiting."""
+        return self.event is None or self.event.query()
+
     def wait(self) -> None:
         if self.event is not None:
             self.event.synchronize()

@@ -31,6 +31,7 @@ from ..core.packets import (build_packets_color, rearrange_order_color_uint8,
                             rearrange_order_color_uint16, sort_packets)
 from ..core.status import IcerError, IcerStatus
 from ..device import resolve_device
+from ..utils import trace
 from .grayscale import (DECODE_BACKENDS, ENCODE_BACKENDS, PLANE_MASS,
                         CodecConfig, _bitplanes, _cached_encoder, _mag_bits,
                         _pick_backend, allocate_from_table, assemble_stream,
@@ -201,31 +202,56 @@ def _compress_yuv_host(planes, config, mag_bits, backend, encode_plane):
 def compress_yuv_batch(ys, us, vs, config: CodecConfig, device=None,
                        defer: bool = False):
     """Compress B same-geometry colour images (``ys``, ``us``, ``vs``: B
-    planes each).  All 3B channel canvases encode in one batch, stacked
-    channel-major (every Y, then every U, then every V), with every
-    bitplane; rate allocation and stream assembly run per image.  Returns
-    one stream per image, each equal to ``compress_yuv`` of its planes;
-    with ``defer`` a zero-argument collector of that list (the encode's
-    dispatch half has run, the collector waits for the card)."""
-    ys, us, vs = (np.stack([np.asarray(p) for p in c]) for c in (ys, us, vs))
-    ys, us, vs, mag_bits = _check_planes(ys, us, vs)
-    if ys.ndim != 3:
-        raise IcerError(IcerStatus.INVALID_INPUT, "expected B (h, w) planes")
-    B, h, w = ys.shape
+    planes each).  All 3B channel canvases encode in one batch, image by
+    image (each image's Y, U and V in turn), with every bitplane; each
+    device pass uploads its own canvases, so the batch is never stacked
+    on the host.  Each image's rate allocation and stream assembly run as
+    soon as its three canvases are collected, so the collector follows
+    the card pass by pass and little host work is left once the last
+    pass is done.  Returns one stream per image, each equal to
+    ``compress_yuv`` of its planes; with ``defer`` a zero-argument
+    collector of that list (the encode's dispatch half has run, the
+    collector waits for the card).  Under ``torch.profiler``
+    (utils/trace) the checks and the ordering of the planes run in a span
+    ``color.stack`` and each image's allocation in a span ``alloc.yuv``;
+    the call counts ``color.images`` (B) and ``color.canvases`` (3B)."""
+    with trace.span("color.stack"):
+        chans = [[np.asarray(p) for p in c] for c in (ys, us, vs)]
+        if not chans[0] or len({len(c) for c in chans}) != 1 or len(
+                {(p.shape, p.dtype) for c in chans for p in c}) != 1:
+            raise IcerError(IcerStatus.INVALID_INPUT, "channel mismatch")
+        if chans[0][0].ndim != 2:
+            raise IcerError(IcerStatus.INVALID_INPUT,
+                            "expected B (h, w) planes")
+        mag_bits = _mag_bits(chans[0][0].dtype)
+        canvases = [p for planes in zip(*chans) for p in planes]
+    B = len(chans[0])
+    h, w = chans[0][0].shape
+    trace.count("color.images", B)
+    trace.count("color.canvases", len(canvases))
     bitplanes = _bitplanes(mag_bits)
     full = ((0, bitplanes),) * config.stages
     enc = _cached_encoder(w, h, config.stages, config.filt, config.segments,
                           mag_bits, "auto", resolve_device(device), full)
-    res = enc.encode_batch(np.concatenate([ys, us, vs]), defer=defer)
     order = _rearrange_order(mag_bits, bitplanes)
+    got, streams = [], []
 
-    def finish(results):
-        return [_allocate_yuv([results[c * B + i] for c in range(3)], config,
-                              w, h, bitplanes, order) for i in range(B)]
+    def each(result):
+        got.append(result)
+        if len(got) == 3:
+            with trace.span("alloc.yuv"):
+                streams.append(_allocate_yuv(got, config, w, h, bitplanes,
+                                             order))
+            got.clear()
 
-    if defer:
-        return lambda: finish(res())
-    return finish(res)
+    res = enc.encode_batch(canvases, defer=defer, each=each)
+    if not defer:
+        return streams
+
+    def collect():
+        res()
+        return streams
+    return collect
 
 
 def decompress_yuv(data: bytes, config: CodecConfig, dtype=np.uint16,

@@ -26,12 +26,12 @@ the device:
              plain PyTorch (ops/entropy_sorted).
 
 Rate allocation and stream assembly stay on the host (models/grayscale).
-``encode_batch`` uploads from pinned host memory and copies its results
-back the same way, so its dispatch half never waits for the card
-(``defer`` returns the collector instead of collecting).  Between those
-host edges a pass is ``device_pass``: it reads only its input and the
-encoder's device tables and writes only its outputs, so on the card it
-runs as one captured CUDA graph per pass shape (``graph=``,
+``encode_batch`` uploads each pass's images from pinned host memory and
+copies its results back the same way, so its dispatch half never waits
+for the card (``defer`` returns the collector instead of collecting).
+Between those host edges a pass is ``device_pass``: it reads only its
+input and the encoder's device tables and writes only its outputs, so on
+the card it runs as one captured CUDA graph per pass shape (``graph=``,
 backend/graph_cache: eager on a key's first two passes, captured by the
 second one's collector and checked against that eager pass, replayed
 after), as the JAX encoder runs one compiled program; on the CPU it runs
@@ -40,10 +40,11 @@ Lanes that a backend flags (kernel 1's fused-key eviction side buffer
 overflow, a reorder-window flush that kernel 4 and the sorted coder leave
 to the host, more records or valid emissions than the compacted length, a
 payload past its cap)
-re-encode exactly on the host: the collect half gathers a pass's flagged
-rows on the device, copies them back at once and codes them in one
-threaded batch of the native runtime (backend/native_backend, held equal
-to backend/sequential); ``fallback_lanes`` counts them and
+re-encode exactly on the host: the collect half runs the pass again
+eagerly on its kept input, gathers the flagged rows of its words on the
+device, copies them back at once and codes them in one threaded batch of
+the native runtime (backend/native_backend, held equal to
+backend/sequential); ``fallback_lanes`` counts them and
 ``fallback_seconds`` adds up the time of the gather, copy and batch.
 
 Under ``torch.profiler`` (utils/trace) a pass records the spans
@@ -57,9 +58,11 @@ stages on the card whether or not the profiler records.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import itertools
+import threading
 import time
 from dataclasses import dataclass
 
@@ -213,6 +216,31 @@ def _split_words(words: torch.Tensor):
     return words & 1, (words >> 1) & 31, (words >> 6) & 1
 
 
+class _Batch:
+    """One ``encode_batch`` call while its passes are collected: how many
+    are left, the results so far, ``each``, and the error that stopped its
+    collection (its collector raises it)."""
+
+    def __init__(self, each):
+        self.left, self.out, self.each, self.error = 0, [], each, None
+
+
+@dataclass
+class _Pass:
+    """A device pass of ``encode_batch``, queued: its real image count,
+    its input (kept for a re-encode of flagged lanes), the host copies of
+    its checks and of each coded bucket's payload, total and flag, the
+    capture its collector makes (or None), the end of its copies, and its
+    batch."""
+    real: int
+    x: torch.Tensor
+    checks: tuple
+    fetched: list
+    capture: object
+    done: Pending
+    batch: _Batch
+
+
 class TorchGrayscaleEncoder:
     """Encoder for one image geometry (one channel) on one device.
 
@@ -284,6 +312,9 @@ class TorchGrayscaleEncoder:
             for _bi, gis in self._coded for gi in gis)
         self.fallback_lanes = 0
         self.fallback_seconds = 0.0
+        # passes dispatched and not yet collected, in dispatch order
+        self._queued: collections.deque = collections.deque()
+        self._queue_lock = threading.RLock()
         # images per device pass: each bucket's coder words of one image,
         # against its coder's share of PASS_WORDS
         self.words_per_image = max(b["words"] for b in self.buckets)
@@ -416,21 +447,32 @@ class TorchGrayscaleEncoder:
                 torch.int32) & 0xFFFF
         return to_device(up.astype(np.int32), self.device)
 
-    def encode_batch(self, images: np.ndarray, defer: bool = False):
-        """(B, h, w) same-geometry images -> list of (payload_table,
-        ll_mean); payload_table maps (stage, subband, lsb, seg) ->
-        (payload bytes, bit length) for the lanes of the plane window.
+    def encode_batch(self, images, defer: bool = False, each=None):
+        """(B, h, w) same-geometry images (an array, or a sequence of
+        (h, w) arrays) -> list of (payload_table, ll_mean); payload_table
+        maps (stage, subband, lsb, seg) -> (payload bytes, bit length) for
+        the lanes of the plane window.
 
-        The call uploads the batch, queues every device pass (a graph
-        replay, or each stage and kernel launch), and starts non-blocking
-        copies of the results into pinned host buffers; nothing on that
-        path waits for the card.  With ``defer`` it then returns a
-        zero-argument collector, which waits for the copies, captures the
-        graph of a pass marked for it (``graph_cache.GraphCache.capture``),
-        and runs the overflow and LL-mean checks, the table loop and the
-        exact host re-encodes (so
-        a pipelined caller can overlap this batch's device work with
-        other host work); without, it collects at once.
+        The call queues the device passes one after the other, each right
+        after the upload of its own images (so the card starts on the
+        first pass while the host stages the next), and starts
+        non-blocking copies of each pass's results into pinned host
+        buffers; nothing on that path waits for the card (but a host
+        re-encode of flagged lanes, below).  With ``defer`` it then
+        returns a zero-argument collector, which takes the passes in
+        order, waiting for each one's copies: it captures the graph of a
+        pass marked for it (``graph_cache.GraphCache.capture``) and runs
+        the overflow and LL-mean checks, the table loop and the exact host
+        re-encodes (so a pipelined caller can overlap this batch's device
+        work with other host work); without, it collects at once.
+        Between its passes a dispatch half collects the encoder's earlier
+        passes (of this batch or of batches still deferred) whose copies
+        are done and that need no capture, in dispatch order, so that the
+        host half of a pipelined batch runs while the card works through
+        the passes queued after it, and a collector finds little left.
+        ``each``, if given, is called with each image's result, in order,
+        as soon as its pass is collected, so that per-image host work
+        follows the card pass by pass too.
 
         A batch of N > ``pass_images`` = P images runs as n = ceil(N / P)
         device passes, queued one after the other, so that the coder's
@@ -444,38 +486,64 @@ class TorchGrayscaleEncoder:
         ``encode.pad_images``; its collector drops them before the checks,
         the table loop and the host re-encodes.  A batch of N <= P runs
         as one pass of N."""
+        batch = _Batch(each)
         with trace.span("encode.dispatch"):
-            x = self._upload(np.asarray(images))
-            N = len(x)
+            N = len(images)
             n = -(-N // self.pass_images)
             s = -(-N // n) if n else 1
             trace.count("encode.pad_images", -N % s)
-            xs = [x[i:i + s] for i in range(0, N, s)]
-            if xs and len(xs[-1]) < s:
-                xs[-1] = torch.cat([xs[-1], x.new_zeros(
-                    (s - len(xs[-1]),) + tuple(x.shape[1:]))])
-            passes = [(min(s, N - i * s), self._dispatch(xi))
-                      for i, xi in enumerate(xs)]
-            pending = Pending(self.device, keep=(
-                x, xs[-1:], [p[3] for _r, p in passes]))
+            for i in range(0, N, s):
+                self._collect_queued()
+                x = self._upload(np.asarray(images[i:i + s]))
+                if len(x) < s:
+                    x = torch.cat([x, x.new_zeros(
+                        (s - len(x),) + tuple(x.shape[1:]))])
+                with self._queue_lock:
+                    self._queued.append(_Pass(min(s, N - i), x,
+                                              *self._dispatch(x),
+                                              Pending(self.device), batch))
+                    batch.left += 1
 
         def collect():
-            with trace.span("encode.wait"):
-                pending.wait()
-            out = []
-            for real, (B, checks, fetched, held, capture) in passes:
-                try:
-                    if capture is not None:
-                        with trace.span("encode.capture"):
-                            capture()
-                    with trace.span("encode.collect"):
-                        out += self._collect(B, checks, fetched,
-                                             held.tensors, real)
-                finally:
-                    held.release()
-            return out
+            self._collect_queued(batch)
+            if batch.error is not None:
+                raise batch.error
+            return batch.out
 
         return collect if defer else collect()
+
+    def _collect_queued(self, until: _Batch | None = None) -> None:
+        """Collect the encoder's queued passes in dispatch order: with
+        ``until``, every pass up to that batch's last, waiting for each;
+        without, only those whose copies are done and that need no
+        capture (a capture waits for the card).  A pass's error stops its
+        batch, whose later passes are dropped uncollected."""
+        with self._queue_lock:
+            q = self._queued
+            while q and (until.left if until is not None else
+                         q[0].capture is None and q[0].done.ready()):
+                p = q.popleft()
+                p.batch.left -= 1
+                if p.batch.error is None:
+                    try:
+                        self._finish(p)
+                    except Exception as e:
+                        p.batch.error = e
+
+    def _finish(self, p: _Pass) -> None:
+        """The host half of the pass ``p``: its results join its batch's
+        and go to the batch's ``each``."""
+        with trace.span("encode.wait"):
+            p.done.wait()
+        if p.capture is not None:
+            with trace.span("encode.capture"):
+                p.capture()
+        with trace.span("encode.collect"):
+            got = self._collect(p)
+        p.batch.out += got
+        if p.batch.each is not None:
+            for r in got:
+                p.batch.each(r)
 
     def pass_bytes(self, images: int) -> int:
         """The pass budget's estimate of a pass over ``images`` images:
@@ -523,11 +591,11 @@ class TorchGrayscaleEncoder:
     def _dispatch(self, x: torch.Tensor):
         """One device pass over the (B, h, w) images ``x`` (a graph replay
         where ``graph`` and the key is captured), then the copies back.
-        Returns (B, checks, fetched, held, capture): the host copies of
-        the checks and of each coded bucket's payload, total and flag,
-        the bucket words held for the collector, and the capture the
-        collector makes for this pass's key once its copies are done (or
-        None)."""
+        Returns (checks, fetched, capture): the host copies of the checks
+        and of each coded bucket's payload, total and flag, and the
+        capture the collector makes for this pass's key once its copies
+        are done (or None).  No device output outlives the copies: a
+        collector that finds flagged lanes runs the pass again."""
         state, capture = "eager", None
         cache = graph_cache.CACHE
         # another thread's replay of the key must not come between this
@@ -538,10 +606,6 @@ class TorchGrayscaleEncoder:
                 outs, state = cache.run(key, self.device_pass, x)
             else:
                 outs = self.device_pass(x)
-            if state == "replay":
-                held = cache.hold(key, outs[2::4])
-            else:
-                held = graph_cache.Held(outs[2::4])
             fetched = [tuple(to_host(t) for t in outs[i + 1:i + 4])
                        for i in range(2, len(outs), 4)]
             checks = to_host(outs[0]), to_host(outs[1])
@@ -549,14 +613,14 @@ class TorchGrayscaleEncoder:
             capture = functools.partial(
                 cache.capture, key, self.device_pass, x, outs,
                 owner=self, estimate=self.pass_bytes(x.shape[0]))
-        return x.shape[0], checks, fetched, held, capture
+        return checks, fetched, capture
 
-    def _collect(self, B, checks, fetched, words, real):
-        """The host half of one pass of ``B`` images, after its copies are
-        done; ``words`` are its coded buckets' words.  Only the first
-        ``real`` images are the caller's (the rest pad the pass, and
-        their all-zero transform cannot overflow)."""
-        overflow, ll_mean = checks
+    def _collect(self, p: _Pass):
+        """The host half of the pass ``p`` after its copies are done.  Only
+        its first ``p.real`` images are the caller's (the rest pad the
+        pass, and their all-zero transform cannot overflow)."""
+        B, real = p.x.shape[0], p.real
+        overflow, ll_mean = p.checks
         if bool(overflow):
             raise IcerError(IcerStatus.INTEGER_OVERFLOW, "wavelet transform")
         means = ll_mean.numpy()[:real]
@@ -567,7 +631,7 @@ class TorchGrayscaleEncoder:
         tables: list[dict] = [{} for _ in range(real)]
         redo = []      # (image, key, bucket, row) of every flagged lane
         for bi, ((_b, gis), (payload, total, flag)) in enumerate(
-                zip(self._coded, fetched)):
+                zip(self._coded, p.fetched)):
             payload = payload.numpy()
             total = total.numpy()
             flag = flag.numpy()
@@ -589,6 +653,12 @@ class TorchGrayscaleEncoder:
                 r += (B - real) * (hi - lo) * len(lanes)   # the padding's
         if redo:
             with trace.span("encode.host_reencode"):
+                # the pass again, eagerly: its words are a function of its
+                # input and the device tables alone, so they are the words
+                # it coded (no pass holds them for this rare case)
+                with graph_cache.CACHE.lock if self.graph \
+                        else contextlib.nullcontext():
+                    words = self.device_pass(p.x)[2::4]
                 coded = self._host_encode(words,
                                           [(bi, r) for *_, bi, r in redo])
             for (img_i, key, _bi, _r), res in zip(redo, coded):

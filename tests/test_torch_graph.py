@@ -242,8 +242,10 @@ def _flag_every_third(monkeypatch):
 def test_pallas_deferred_with_flagged_lanes_equals_jax_package(
         request, mode, monkeypatch):
     """Two different batches through ``pallas`` with both collectors open:
-    the second replay overwrites the words the first collector re-encodes
-    its flagged lanes from, unless they were copied out before it."""
+    the second replay overwrites the graph's words, so the first
+    collector re-encodes its flagged lanes from its pass run again on its
+    own input (no pass holds the graph's outputs, so nothing is
+    snapshotted)."""
     cache = _mode(request, mode)
     _flag_every_third(monkeypatch)
     a, b = boat_crop(64), boat_crop(64, 100, -120)
@@ -264,7 +266,7 @@ def test_pallas_deferred_with_flagged_lanes_equals_jax_package(
     assert [got_a[0], got_b[0]] == want
     assert enc.fallback_lanes > lanes
     if cache is not None:
-        assert cache.replays == 3 and cache.snapshots == 1
+        assert cache.replays == 3 and cache.snapshots == 0
 
 
 def test_a_held_output_is_copied_out_only_before_its_graphs_replay():
@@ -368,17 +370,65 @@ def test_capture_at_the_second_pass():
 
 
 def test_a_pass_dispatched_before_the_capture_does_not_capture_again():
-    """Two passes of a key in flight when its first capture is made (a
-    batch of two passes, or two deferred batches): one capture."""
+    """Passes of a key in flight when its first capture is made (a batch
+    of many passes, or several deferred batches): only the second is
+    marked, so only it keeps its eager outputs for the capture; one
+    capture."""
     cache = fake_cache()
     x = torch.arange(3)
     fn = lambda x: (x * 2,)     # noqa: E731
     cache.run("k", fn, x)
-    marked = [cache.run("k", fn, x), cache.run("k", fn, x)]
-    assert [state for _o, state in marked] == ["capture", "capture"]
-    for outs, _state in marked:
-        cache.capture("k", fn, x, outs)
+    passes = [cache.run("k", fn, x) for _ in range(3)]
+    assert [state for _o, state in passes] == ["capture", "eager", "eager"]
+    cache.capture("k", fn, x, passes[0][0])
     assert len(cache.captures) == 1 and cache.replays == 1
+    assert cache.run("k", fn, x)[1] == "replay"
+
+
+def test_a_marked_pass_freed_uncaptured_marks_the_next():
+    """While the marked pass holds its outputs no other pass is marked;
+    once they are freed uncaptured (its collector failed before the
+    capture, or never ran), the key's next pass is marked and captures."""
+    cache = fake_cache()
+    x = torch.arange(3)
+    fn = lambda x: (x * 2,)     # noqa: E731
+    cache.run("k", fn, x)
+    outs, state = cache.run("k", fn, x)
+    assert state == "capture"
+    assert cache.run("k", fn, x)[1] == "eager"
+    del outs
+    outs, state = cache.run("k", fn, x)
+    assert state == "capture"
+    cache.capture("k", fn, x, outs)
+    assert "k" in cache and len(cache.captures) == 1
+    assert cache.run("k", fn, x)[1] == "replay"
+
+
+def test_a_collector_that_fails_before_its_capture_leaves_the_key_armed(
+        replays, monkeypatch):
+    """A batch of two passes whose collector raises on its first pass,
+    before the second (marked) pass's capture: once that collector is
+    dropped, the next batch's first pass is marked, its collector
+    captures, and the batch after replays; the streams are the JAX
+    package's."""
+    imgs, cfg, enc, want = _three_in_passes_of_two(monkeypatch)
+    real = enc._collect
+    fail = [True]
+
+    def collect_once(p):
+        if fail.pop() if fail else False:
+            raise RuntimeError("collector failed")
+        return real(p)
+    monkeypatch.setattr(enc, "_collect", collect_once)
+    collect = enc.encode_batch(imgs, defer=True)
+    with pytest.raises(RuntimeError, match="collector failed"):
+        collect()
+    del collect
+    assert replays.captures == []
+    assert T.compress_batch(imgs, cfg, encoder=enc) == want
+    assert len(replays.captures) == 1
+    assert T.compress_batch(imgs, cfg, encoder=enc) == want
+    assert len(replays.captures) == 1 and replays.replays == 1 + 2
 
 
 def test_the_dispatch_half_never_captures(replays):

@@ -14,6 +14,7 @@ import pytest
 from icer_compression_tpu.models import grayscale as G
 from icer_compression_tpu_torch.models import grayscale as T
 from icer_compression_tpu_torch.ops import encode as E
+from icer_compression_tpu_torch.ops import entropy_slim as ES
 from icer_compression_tpu_torch.utils import trace
 from test_torch_entropy_slim import one_torch_thread  # noqa: F401
 
@@ -173,3 +174,70 @@ def test_padding_is_skipped_in_a_bucket_of_several_groups(monkeypatch):
     pads = pad_counts(monkeypatch)
     assert T.compress_batch(imgs, cfg, encoder=split) == list(want[:5])
     assert split.pass_images == 3 and pads == [1]
+
+
+def _flag_every_third_slim_lane(monkeypatch):
+    real = ES.encode_lanes_slim
+
+    def flag_every_third(words):
+        rec, fstate, misc, ev = real(words)
+        misc = misc.clone()
+        misc[0, ::3] = 1
+        return rec, fstate, misc, ev
+    monkeypatch.setattr(ES, "encode_lanes_slim", flag_every_third)
+
+
+def _encoder_of_passes_of_three(monkeypatch):
+    cfg = T.CodecConfig(2, 1, 3, None)
+    words = T.make_encoder(24, 20, cfg, np.uint16, "cpu").words_per_image
+    monkeypatch.setattr(E, "PASS_WORDS", 3 * words)
+    enc = T.make_encoder(24, 20, cfg, np.uint16, "cpu")
+    assert enc.pass_images == 3
+    return cfg, enc
+
+
+@pytest.mark.parametrize("n_images", [2, 4, 5])
+def test_flagged_lanes_reencode_from_their_pass_run_again(monkeypatch,
+                                                          n_images):
+    """Every third slim lane flagged (the coder's output altered in this
+    test), passes of at most 3 images (the last padded), and two batches
+    dispatched before either collector is called: no pass keeps its
+    coder words, so each pass with flagged lanes runs again, once, on its
+    own input, and the streams equal the JAX package's."""
+    _flag_every_third_slim_lane(monkeypatch)
+    imgs, want = _split_images()
+    cfg, enc = _encoder_of_passes_of_three(monkeypatch)
+    inputs = []
+    device_pass = enc.device_pass
+    monkeypatch.setattr(enc, "device_pass",
+                        lambda x: inputs.append(x) or device_pass(x))
+    order = [list(range(n_images)), list(range(8 - n_images, 8))[::-1]]
+    collectors = [enc.encode_batch(imgs[o], defer=True) for o in order]
+    got = [T.allocate_streams(c(), cfg, enc) for c in collectors[::-1]]
+    assert got[::-1] == [[want[i] for i in o] for o in order]
+    assert enc.fallback_lanes > 0
+    n = -(-n_images // 3)
+    assert len(inputs) == 4 * n
+    assert sorted(map(id, inputs)) == sorted(
+        [id(x) for x in {id(x): x for x in inputs}.values()] * 2)
+
+
+def test_a_dispatch_collects_the_passes_already_done(monkeypatch):
+    """Between its passes a dispatch half collects the encoder's earlier
+    passes whose copies are done, in dispatch order, and none whose copies
+    are not (``Pending.ready`` set in this test): a deferred batch's
+    results reach ``each`` during the next batch's dispatch, before its
+    collector is called; the streams are the JAX package's."""
+    imgs, want = _split_images()
+    cfg, enc = _encoder_of_passes_of_three(monkeypatch)
+    ready = [False]
+    monkeypatch.setattr(E.Pending, "ready", lambda self: ready[0])
+    seen = []
+    first = enc.encode_batch(imgs[:5], defer=True, each=seen.append)
+    assert seen == [] and len(enc._queued) == 2
+    ready[0] = True
+    second = enc.encode_batch(imgs[5:], defer=True)
+    assert len(seen) == 5 and len(enc._queued) == 1
+    assert T.allocate_streams(first(), cfg, enc) == list(want[:5])
+    assert T.allocate_streams(second(), cfg, enc) == list(want[5:])
+    assert len(enc._queued) == 0

@@ -204,8 +204,9 @@ the check and pass it; builds the native host runtime
  28. the ``sorted`` coder at full passes under its own plan: 9 1024x1024
      images (a slim pass, three of sorted's) and the 5120x3840 frame; each
      stream equals its pin or the ``auto`` stream of its image, and each
-     peak stays at or under slim two-word's full pass (phase 27) and the
-     frame's ``auto`` encode (phase 25); walls and host re-encode lanes.
+     peak stays within the pass budget that sizes every coder's passes
+     and calls (``ops.encode.PASS_PEAK_BYTES``); walls and host re-encode
+     lanes.
  29. the port's counterparts of the repository's top-level programs, each
      run as ``python -m`` in a process of its own once the host workers
      are done: ``icer_compression_tpu_torch.bench`` at its defaults
@@ -247,13 +248,22 @@ the check and pass it; builds the native host runtime
      Phases 20, 27 and 28 measure eager encode passes (``graph=False``),
      whose peak a graph's pool holds.  Each phase's captures and their
      seconds are logged at the end.
+ 31. sort and pack (``csrc/slim_pack.cu``) against its plain version, the
+     sort-based tail, on the card: kernel 1's outputs for every coder call
+     of 1024x1024's stages 1 (two-word) and 2 (fused-key), 1600x1200's
+     stages 1-2 and 5120x3840's stage 1 (two calls), payload, total and
+     flag byte for byte (with the slice and the payload cap cut on the
+     1024x1024 blocks, so lanes are flagged by each), each timed beside
+     its bound and the plain tail; a replayed 1024x1024 encode runs sort
+     and pack once per kernel 1 run in each record mode, as the kernels
+     count their runs on the card.
 
 The wrappers' ``launches`` count the launches the host issues (phase 3,
 the main path, reads them on its keys' first, eager passes); a replayed
 graph issues none from Python, so every other phase counts the kernels'
 runs as the kernels count them on the card (``kernels.device_runs``: K1,
-K2, K3, K4, K5 and W1 each add one to a slot of their own as they
-start).
+sort and pack, K2, K3, K4, K5 and W1 each add one to a slot of their own
+as they start).
 
 After the build it reads each kernel's registers and spills from the
 compiler's ``-Xptxas -v`` log and counts the local-memory loads and stores
@@ -1817,6 +1827,8 @@ def long_lane_phases(dev, card, boat, pins, batch8, host, bw):
         runs = encode_runs()
         return {"slim_encode": runs["slim_encode"],
                 "slim_encode_two_word": runs["slim_encode_two_word"],
+                "slim_pack": runs["slim_pack"],
+                "slim_pack_two_word": runs["slim_pack_two_word"],
                 "plane_decode": encode_runs()["plane_decode"]}
 
     def tag(q):
@@ -2191,6 +2203,8 @@ def big_image_phase(dev, card, boat, pins, host, k1_block, k4_ins):
         runs = encode_runs()
         return {"slim_encode": runs["slim_encode"],
                 "slim_encode_two_word": runs["slim_encode_two_word"],
+                "slim_pack": runs["slim_pack"],
+                "slim_pack_two_word": runs["slim_pack_two_word"],
                 "full_encode": runs["full_encode"],
                 "plane_decode": encode_runs()["plane_decode"]}
 
@@ -2574,25 +2588,26 @@ def coder_plan_phase(dev, card, boat) -> dict:
 SORTED_BATCH = 9
 
 
-def sorted_pass_phase(dev, card, boat, long_pins, big_pins, plan,
-                      big_auto_peak) -> dict:
+def sorted_pass_phase(dev, card, boat, long_pins, big_pins) -> dict:
     """Phase 28: the ``sorted`` coder (the JAX encoders' default) at full
     passes under its own plan, lossless s4 fA g6: ``SORTED_BATCH``
     1024x1024 images, a slim pass's worth, so at least two of its passes,
     and phase 25's 5120x3840 frame (its buckets in calls of a third of
     slim's).  Each stream equals its pin (phase 20's, phase 25's) or the
-    ``auto`` stream of the same image; each peak stays at or under the
-    budget: slim two-word's full 1024x1024 pass (phase 27, ``plan``) and
-    the 5120x3840 frame's ``auto`` encode (phase 25, ``big_auto_peak``).
-    Its passes run eagerly, as phase 27's, so that the peaks are theirs."""
+    ``auto`` stream of the same image; each peak stays within the pass
+    budget, ``ops.encode.PASS_PEAK_BYTES``: a full pass at slim
+    two-word's peak per coder word while its tail was a sort, which
+    sorted's ``CODER_DIVISORS`` entry was sized against (slim's own full
+    pass now peaks far lower, phase 27).  Its passes run eagerly, as phase 27's,
+    so that the peaks are theirs."""
     from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
     cfg = T.CodecConfig(4, 0, 6, None)
     res = {}
     imgs = _tiled(boat, 1024, 1024, SORTED_BATCH)
     frame = _tiled(boat, 3840, 5120)
-    for key, batch, budget in (
-            ("gray1024", imgs, plan["slim two-word gray1024 x9"]["peak"]),
-            ("gray5120x3840", frame, big_auto_peak)):
+    budget = E.PASS_PEAK_BYTES
+    for key, batch in (("gray1024", imgs), ("gray5120x3840", frame)):
         h, w = batch.shape[1:]
         enc = T.make_encoder(w, h, cfg, np.uint16, dev, entropy="sorted",
                              graph=False)
@@ -4313,6 +4328,180 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     return res
 
 
+# phase 31: sort and pack (csrc/slim_pack.cu) against its plain version,
+# the sort-based tail, on the card at the main path's shapes: each coder
+# call of these frames' buckets at the CLI's defaults
+SORT_PACK_FRAMES = (("1024x1024", 2), ("1600x1200", 2), ("5120x3840", 1))
+
+
+def sort_pack_blocks(dev, boat):
+    """[(label, words (L, lanes) on the card, payload cap bits, slice)]:
+    kernel 1's input of every coder call the main path makes for the
+    first ``SORT_PACK_FRAMES`` buckets (stages) of phase 20's 1024x1024
+    frame and phase 25's 1600x1200 and 5120x3840 frames, in their calls of
+    ``call_rows`` lanes (two at 5120x3840's stage 1)."""
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import encode as E
+    images = {"1024x1024": long_lane_images(boat)["gray1024"][:1],
+              "1600x1200": _tiled(boat, 1200, 1600),
+              "5120x3840": _tiled(boat, 3840, 5120)}
+    for name, nb in SORT_PACK_FRAMES:
+        img = images[name]
+        enc = T.make_encoder(img.shape[2], img.shape[1],
+                             T.CodecConfig(4, 0, 6, None), np.uint16, dev,
+                             graph=False)
+        x = torch.as_tensor(img.astype(np.int32), device=dev)
+        em = [enc.emit(g, enc.transform(x)[0]) for g in enc.groups]
+        for bi, b in enumerate(enc.buckets[:nb]):
+            words = enc.bucket_words(b, em)
+            _lk, lc, cap = E.bucket_sizes(b["L"])
+            n = b["call_rows"]
+            for i in range(0, len(words), n):
+                call = f" call {i // n + 1}" if len(words) > n else ""
+                yield (f"{name} stage {bi + 1}{call}",
+                       words[i:i + n].t().contiguous(), cap, lc)
+        del em, x
+
+
+def sort_pack_bound(recs, misc, max_bits: int, slice_to: int):
+    """(least ms, "bytes" or "operations", ms of the scratch round trip) of
+    sort and pack: the bytes the function has to move, every record and
+    state row and the allocation counts read once, the payload, total and
+    flag written once (operations are not its bound: tens a record);
+    beside it, at the same bandwidth, the kernels' own scratch traffic,
+    each packed codeword's word written once and read twice."""
+    nbytes = sum(t.numel() * t.element_size() for t in recs) \
+        + 4 * misc.shape[1] + misc.shape[1] * (max_bits // 8 + 9)
+    packed = int(torch.clamp(misc[1].to(torch.int64), max=slice_to).sum())
+    return bound(nbytes, 0) + (bound(12 * packed, 0)[0],)
+
+
+def sort_pack_entry(sp, main_launches: int, paths: dict) -> dict:
+    """The kernels line's entry of sort and pack: phase 31's blocks (each
+    equal to the plain tail, or the phase stops), its 1024x1024 stage-1
+    block as the entry's shape, phase 3's launches on boat and the
+    launches by path of both record modes."""
+    key = "1024x1024 stage 1 main path"
+    b = sp["blocks"][key]
+    return {"name": "slim_pack", "route": "cuda",
+            "source": "icer_compression_tpu_torch/csrc/slim_pack.cu",
+            "replaces": "icer_compression_tpu/ops/pallas_entropy.py:986",
+            "mode": "fused-key records (slim_pack_launch) and two-word "
+                    "records (slim_pack_two_word_launch, :1061)",
+            "launches": main_launches, "max_abs_err": 0,
+            "equal_to_plain": True,
+            "shape": f"L={b['L']} lanes={b['lanes']} ({key}, {b['mode']})",
+            "ms": b["ms"], "plain_ms": b["plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "scratch_ms": b["scratch_ms"], "library_ms": None,
+            "launches_by_path": paths["slim_pack"],
+            "two_word_launches_by_path": paths["slim_pack_two_word"],
+            "replay_runs": sp["replay_runs"], "blocks": sp["blocks"]}
+
+
+def sort_pack_phase(dev, card, boat) -> dict:
+    """Phase 31: on each block of ``sort_pack_blocks``, kernel 1 on the
+    card, then sort and pack through ``csrc/slim_pack.cu`` and through the
+    plain version on the card: payload and total byte for byte on every
+    lane whose misc[0] is clear, the flag (misc[0] ORed in) on every lane;
+    on the 1024x1024 stage-1 and stage-2 blocks also with the slice at the
+    third quartile of the lanes' allocations and the payload cap at the
+    median of their bits, so that lanes are cut by each.  Each block's
+    kernel and plain times (CUDA events) beside the kernel's bound.  Then
+    a 1024x1024 encode replayed from its graph: sort and pack ran once
+    per kernel 1 run, in each record mode, as the kernels count their
+    runs on the card."""
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+
+    def same(label, got, want, misc):
+        ok = misc[0] == 0
+        assert_equal(f"{label} payload", got[0][ok], want[0][ok])
+        assert_equal(f"{label} total", got[1][ok], want[1][ok])
+        assert_equal(f"{label} flag", got[2] | ~ok, want[2] | ~ok)
+
+    res = {"blocks": {}}
+    for label, words, cap, lc in sort_pack_blocks(dev, boat):
+        L, lanes = words.shape
+        if ES.fused_key_ok(L):
+            rec, fstate, misc, ev = ES.encode_lanes_slim(words)
+            recs = (rec, fstate, ev)
+
+            def kernel(mb, sl, recs=recs, misc=misc):
+                return ES.pack_lanes_slim(*recs, misc, mb, sl)
+
+            def plain(mb, sl, recs=recs):
+                return ES.order_and_pack_lanes(
+                    ES.slim_sort_operand_packed(*recs), mb, sl)
+        else:
+            rec1, rec2, fstate, misc, ev1, ev2, fopen = \
+                ES.encode_lanes_slim_two_word(words, ES.eviction_rows(L))
+            recs = (rec1, rec2, fstate, fopen, ev1, ev2)
+
+            def kernel(mb, sl, recs=recs, misc=misc):
+                return ES.pack_lanes_slim_two_word(*recs, misc, mb, sl)
+
+            def plain(mb, sl, recs=recs):
+                return ES.order_and_pack_lanes_two_word(
+                    *ES.slim_sort_operands(*recs), mb, sl)
+        del words
+        cuts = [("main path", cap, lc)]
+        got = kernel(cap, lc)
+        same(label, got, plain(cap, lc), misc)
+        if label.startswith("1024x1024"):
+            sl = int(torch.quantile(misc[1].double(), 0.75))
+            mb = int(got[1].double().median()) // 32 * 32
+            cuts.append(("cut", max(mb, 32), max(sl, 1)))
+        for tag, mb, sl in cuts:
+            got, want = kernel(mb, sl), plain(mb, sl)
+            same(f"{label} {tag}", got, want, misc)
+            flags = got[2] | (misc[0] != 0)
+            k_ms = event_ms(lambda: kernel(mb, sl), reps=5)
+            p_ms = event_ms(lambda: plain(mb, sl), reps=2)
+            bd = sort_pack_bound(recs, misc, mb, sl)
+            key = f"{label} {tag}"
+            res["blocks"][key] = {
+                "L": L, "lanes": lanes, "mode": "fused-key"
+                if ES.fused_key_ok(L) else "two-word", "max_bits": mb,
+                "slice": sl, "flagged": int(flags.sum()),
+                "misc0": int((misc[0] != 0).sum()),
+                "evictions_max": int(misc[2].max()), "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bd[0], "bound_by": bd[1],
+                "scratch_ms": bd[2]}
+            log(f"phase 31 {key}: L={L} x {lanes} "
+                f"{res['blocks'][key]['mode']}, cap {mb} bits, slice {sl}: "
+                f"kernel equal to the plain tail on every lane ({int(flags.sum())} "
+                f"flagged, evictions up to {int(misc[2].max())}); "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {bd[0]:.4f} ms "
+                f"({bd[1]}; the scratch round trip {bd[2]:.4f} ms more) | "
+                f"{card}")
+        del recs, misc, got
+        torch.cuda.empty_cache()
+
+    img = long_lane_images(boat)["gray1024"][:1]
+    enc = T.make_encoder(img.shape[2], img.shape[1],
+                         T.CodecConfig(4, 0, 6, None), np.uint16, dev)
+    want = [enc.encode_batch(img) for _ in range(3)][0]
+    r0 = GC.CACHE.replays
+    reset_runs()
+    if enc.encode_batch(img) != want:
+        raise AssertionError("phase 31: the replayed 1024x1024 encode "
+                             "differs from its eager pass")
+    runs = encode_runs()
+    if GC.CACHE.replays <= r0 or runs["slim_pack"] != runs["slim_encode"] \
+            or runs["slim_pack_two_word"] != runs["slim_encode_two_word"] \
+            or not runs["slim_pack"] or not runs["slim_pack_two_word"]:
+        raise AssertionError(f"phase 31: a replayed 1024x1024 encode ran "
+                             f"{runs} (replays {GC.CACHE.replays - r0})")
+    res["replay_runs"] = {k: runs[k] for k in (
+        "slim_encode", "slim_encode_two_word", "slim_pack",
+        "slim_pack_two_word")}
+    log(f"phase 31: a replayed 1024x1024 encode ran sort and pack once per "
+        f"kernel 1 run: {res['replay_runs']}")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:
         a = sys.argv[2:]
@@ -4326,7 +4515,7 @@ def main() -> int:
 
 
 def smoke(host) -> int:
-    """Phases 1-30 on the card; ``host`` runs the plain versions that are
+    """Phases 1-31 on the card; ``host`` runs the plain versions that are
     checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
@@ -4529,6 +4718,7 @@ def smoke(host) -> int:
 
     # ---- phase 3: main path --------------------------------------------
     ES.encode_lanes_slim.launches = 0
+    ES.pack_lanes_slim.launches = 0
     PDc.decode_planes.launches = 0
     EF.encode_lanes_full.launches = 0
     WV.inverse_pass.launches = 0
@@ -4537,6 +4727,7 @@ def smoke(host) -> int:
     stream = T.compress_batch(boat[None], cfg, encoder=menc)[0]
     out = T.decompress(stream, cfg, dtype=np.uint16, device=dev)
     launches = {"slim_encode": ES.encode_lanes_slim.launches,
+                "slim_pack": ES.pack_lanes_slim.launches,
                 "plane_decode": PDc.decode_planes.launches,
                 "wavelet_inverse": WV.inverse_pass.launches}
     if set(menc.bucket_coders) != {"slim"} or EF.encode_lanes_full.launches:
@@ -4701,9 +4892,7 @@ def smoke(host) -> int:
                        *read_config_pins(data / "golden_configs.sha256"))
     cpl = coder_plan_phase(dev, card, boat)
     mark_captures("phases 26-27")
-    srt = sorted_pass_phase(
-        dev, card, boat, long_pins, big_pins, cpl,
-        large["images"]["gray5120x3840 unlimited"]["enc_peak"])
+    srt = sorted_pass_phase(dev, card, boat, long_pins, big_pins)
     # phase 1's long blocks against their plain versions (host CPU)
     late_s = {}
     for name, kout, blk in (("K1 two-word long", kl, lw),
@@ -4728,10 +4917,18 @@ def smoke(host) -> int:
     g30 = graph_phase(dev, card, boat, golden, pins, cli_graph)
     t30 = time.perf_counter() - t30
     mark_captures("phase 30")
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    GC.CACHE.clear()
+    torch.cuda.empty_cache()
+    t31 = time.perf_counter()
+    sp31 = sort_pack_phase(dev, card, boat)
+    t31 = time.perf_counter() - t31
+    mark_captures("phase 31")
     for label, n, secs in capture_counts():
         log(f"graph captures in {label}: {n}, {secs:.3f} s (this process; "
             "phase 24's ranks and phase 29's programs capture in their own)")
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
+             "slim_pack": {}, "slim_pack_two_word": {},
              "plane_decode": {}, "full_encode": {}, "wavelet_inverse": {}}
     for path, counts in (
             [("grayscale", launches), ("color", col["launches"]),
@@ -4876,6 +5073,7 @@ def smoke(host) -> int:
              for label, r in large["images"].items() if r.get("k1")},
          "path": "compress of a 1024x1024 image at the CLI's defaults: the "
                  "stage-1 bucket"},
+        sort_pack_entry(sp31, launches["slim_pack"], paths),
         w1_entry(w1r, cfr, launches["wavelet_inverse"]),
     ] + new
     bd, bb, bp = (bdt["device_time"], bdt["cuda_batched"],
@@ -4952,7 +5150,11 @@ def smoke(host) -> int:
         f"{g30['trace']['decode eager']['api_launches']}; decode pools "
         f"{gb(g30['decode_pools'])}; soak {g30['soak']['trials']} trials, "
         f"{len(g30['soak']['mismatches'])} mismatches"
-        + f"; phases 1-30 {time.perf_counter() - t_start:.1f} s")
+        + f"; phase 31 {t31:.1f} s, sort and pack ms (kernel, plain, "
+        "bound) " + "; ".join(
+            f"{k} {r['ms']:.3f}, {r['plain_ms']:.2f}, {r['bound_ms']:.4f}"
+            for k, r in sp31["blocks"].items())
+        + f"; phases 1-31 {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

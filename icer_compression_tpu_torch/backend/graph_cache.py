@@ -128,6 +128,7 @@ def kernel_counters():
     from ..ops import plane_decode as PD
     from ..ops import wavelet as WV
     return [(ES, "encode_lanes_slim"), (ES, "encode_lanes_slim_two_word"),
+            (ES, "pack_lanes_slim"), (ES, "pack_lanes_slim_two_word"),
             (EF, "encode_lanes_full"), (EF, "encode_lanes_full_tiled"),
             (PD, "decode_planes"), (WV, "inverse_pass")]
 

@@ -17,7 +17,11 @@ its outputs are held to pinned digests of the plain version's
 the inverse DWT) runs on seeded pairs of canvases, on both axes of stage
 blocks smaller than the canvas, at every filter, both sample widths and
 lines of 2-9 samples.  The stage marks (``utils/trace``) run once per
-stage, stage S S + 1 times, into a count per stage.
+stage, stage S S + 1 times, into a count per stage.  Sort and pack (both
+record modes) runs on the plain kernel 1's outputs for a block of 2,560
+steps whose lanes pass 2,048 ordinals and evict, uncut and with a slice
+and a payload cap that flag some lanes each, against the sort-based plain
+version.
 
 This module imports the kernel wrappers, which import ``kernels``; it is
 imported lazily by ``kernels.build_all`` for that reason.
@@ -43,6 +47,11 @@ from .utils import trace
 SEED = 20261017
 L, LANES = 256, 8                 # coder check blocks
 WIDE_L = 133120                   # the two-word block past 2**17 ordinals
+PACK_L = 2560                     # the sort-and-pack block
+# (payload cap bits, slice) of the sort-and-pack check: every record kept,
+# then cuts that flag some lanes by their allocations (past 2,170) and
+# others by their bits (past 2,048)
+PACK_CUTS = ((8192, PACK_L + 17 + 32), (2048, 2170))
 UNIT_H, UNIT_W = 32, 22           # one stage: four 16x11 subbands
 UNIT_QUOTA = 1600                 # cuts the stream inside its last plane
 W1_CANVAS = (2, 11, 12)           # two canvases larger than every block
@@ -134,6 +143,57 @@ def _k1_wide(dev):
                                          ES.eviction_rows(WIDE_L))
 
 
+@functools.lru_cache(maxsize=None)
+def pack_words() -> torch.Tensor:
+    """(PACK_L, LANES) int32 emission words for the sort-and-pack check:
+    skewed contexts warmed up into many bins, then uncoded emissions with a
+    zero fed to each context in turn (every 4 to 64 steps by lane), so that
+    lanes pass one block's 2,048 ordinals and the reorder window evicts up
+    to a few codewords a lane; lane 0 empty, lane 7 cut short."""
+    rng = np.random.default_rng(SEED)
+    warm = 384
+    p = np.exp(rng.uniform(np.log(0.003), np.log(0.2), (16, LANES)))
+    ctx = np.full((PACK_L, LANES), 17)
+    bit = rng.integers(0, 2, (PACK_L, LANES))
+    wc = rng.integers(0, 16, (warm, LANES))
+    ctx[:warm] = wc
+    bit[:warm] = rng.random((warm, LANES)) < p[wc, np.arange(LANES)]
+    t = np.arange(PACK_L - warm)[:, None]
+    feed = np.array([[8, 4, 16, 32, 8, 64, 12, 6]])
+    fed = t % feed == 0
+    ctx[warm:] = np.where(fed, (t // feed) % 16, 17)
+    bit[warm:] = np.where(fed, 0, bit[warm:])
+    valid = np.ones((PACK_L, LANES), bool)
+    valid[:, 0] = False
+    valid[1500:, 7] = False
+    words = np.where(valid, 1 | (ctx << 1) | (bit << 6), 0)
+    return torch.from_numpy(words.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_records(two_word: bool) -> tuple:
+    """Kernel 1's outputs on ``pack_words``, from its plain version (so the
+    check of the sort-and-pack library needs no other library)."""
+    w = pack_words()
+    if two_word:
+        return ES.encode_lanes_slim_plain(w, True, ES.eviction_rows(PACK_L))
+    return ES.encode_lanes_slim_plain(w)
+
+
+def _pack(dev, two_word: bool):
+    """Sort and pack of ``_pack_records`` at each of PACK_CUTS."""
+    outs = [t.to(dev) for t in _pack_records(two_word)]
+    if two_word:
+        rec1, rec2, fstate, misc, ev1, ev2, fopen = outs
+        args = (rec1, rec2, fstate, fopen, ev1, ev2, misc)
+        fn = ES.pack_lanes_slim_two_word
+    else:
+        rec, fstate, misc, ev = outs
+        args, fn = (rec, fstate, ev, misc), ES.pack_lanes_slim
+    return sum((fn(*args, max_bits, slice_to)
+                for max_bits, slice_to in PACK_CUTS), ())
+
+
 def digest(t: torch.Tensor) -> str:
     """A short digest of a tensor's shape, type and values."""
     t = t.cpu().contiguous()
@@ -219,6 +279,8 @@ WIDE_DIGESTS = {
     "fstate": "544691770cc1429a", "misc": "f938ab6c4148f003",
     "ev1": "8e9868f99d8f1134", "ev2": "6d4ba91385b48d7d",
     "fopen": "bdb7501232e7e689"}
+_PACK = tuple(f"{out} at cut {i}" for i in range(len(PACK_CUTS))
+              for out in ("payload", "total", "over"))
 _FULL = ("code", "nbits", "open")
 _DECODE = ("out", "err", "pos")
 
@@ -230,6 +292,11 @@ CHECKS = {
                  _k1_two_word),
         Instance("K1 two-word past 2^17", "slim_encode_two_word_launch",
                  _TWO_WORD, lambda dev: _k1_wide(dev), WIDE_DIGESTS)),
+    "slim_pack": (
+        Instance("sort and pack fused-key", "slim_pack_launch", _PACK,
+                 lambda dev: _pack(dev, False)),
+        Instance("sort and pack two-word", "slim_pack_two_word_launch",
+                 _PACK, lambda dev: _pack(dev, True))),
     "plane_decode": (
         Instance("K2", "plane_decode_launch", _DECODE, _k2),
         Instance("K3", "plane_decode_seeded_launch", _DECODE, _k3)),
@@ -248,6 +315,7 @@ CHECKS = {
 # the wrappers' launch counts, which the check leaves as it found them (and
 # the device's run counts, kernels.run_counters)
 _COUNTED = (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word,
+            ES.pack_lanes_slim, ES.pack_lanes_slim_two_word,
             EF.encode_lanes_full, EF.encode_lanes_full_tiled,
             PD.decode_planes, PD.decode_plane_seeded,
             WV.inverse_pass)

@@ -14,7 +14,8 @@ imported from CUDA when the module is imported.
 
 Every kernel (``RUN_SLOTS``) also counts its own runs on the device:
 block 0's thread 0 adds one to the kernel's slot of the device's
-``run_counters`` as the kernel starts.  A launch that a CUDA graph
+``run_counters`` as the kernel starts (sort and pack, three kernels a
+launch, in its last).  A launch that a CUDA graph
 recorded runs at each replay without any Python, so these counts, and not
 the wrappers' ``launches`` (one per launch the host issues), say how often
 such a kernel ran.
@@ -35,8 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-KERNELS = ("slim_encode", "plane_decode", "full_encode", "wavelet",
-           "stage_mark")
+KERNELS = ("slim_encode", "slim_pack", "plane_decode", "full_encode",
+           "wavelet", "stage_mark")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -185,7 +186,7 @@ def check(status: int, name: str) -> None:
 # the kernels that count their runs on the device, each its slot
 RUN_SLOTS = ("slim_encode", "slim_encode_two_word", "full_encode",
              "full_encode_tiled", "plane_decode", "plane_decode_seeded",
-             "wavelet_inverse")
+             "wavelet_inverse", "slim_pack", "slim_pack_two_word")
 
 
 def _device(device) -> str:

@@ -108,11 +108,15 @@ CALL_WORDS = PASS_WORDS
 # 48 GB.  A third of slim's words keeps sorted near 126 B per slim word.
 # Since each pass drops its emissions once they are coder words
 # (``device_pass``), the four peak 3-4% lower: 123, 136, 109 and 373.
+# These slim figures are from before its sort and pack became a kernel
+# (csrc/slim_pack.cu): since then a slim pass peaks near 18 B per word
+# with fused-key records and 21 with two-word ones (chip_smoke.py
+# phase 20), and the sizes here are kept.
 CODER_DIVISORS = {"slim": 1, "pallas": 1, "sorted": 3}
 # Device bytes of one full pass, the pass budget: PASS_WORDS at the
 # largest peak per coder word that sized them, slim's with two-word
-# records.  backend/graph_cache holds the pools of a device's captured
-# passes to it beyond their static tensors.
+# records and its sort-based tail.  backend/graph_cache holds the pools
+# of a device's captured passes to it beyond their static tensors.
 PASS_PEAK_BYTES = PASS_WORDS * 141
 
 

@@ -38,9 +38,15 @@ Each lane is one segment-bitplane stream.  ``encode_lanes_slim`` runs the
 fused-key mode and ``encode_lanes_slim_two_word`` the two-word mode;
 ``code_lanes_slim`` picks the mode from L and runs the kernel and its
 tail.  The wrappers run the CUDA kernel on a CUDA tensor and the
-plain PyTorch version ``encode_lanes_slim_plain`` on a CPU tensor; the
-sort, codeword rebuild and bit packing after it are PyTorch ops on either
-device.
+plain PyTorch version ``encode_lanes_slim_plain`` on a CPU tensor.
+
+The tail (sort and pack) puts a lane's records in allocation order,
+rebuilds each codeword and packs them LSB-first: ``pack_lanes_slim`` and
+``pack_lanes_slim_two_word`` launch ``csrc/slim_pack.cu`` on CUDA tensors,
+which writes each record at its ordinal (the ordinals of a lane's valid
+records are 0 .. misc[1] - 1, each once), and on CPU tensors run the plain
+version, a sort of the records (``order_and_pack_lanes``,
+``order_and_pack_lanes_two_word``).
 """
 
 from __future__ import annotations
@@ -375,19 +381,114 @@ def code_lanes_slim(words: torch.Tensor, max_bits: int, slice_to: int):
     if fused_key_ok(L):
         rec, fstate, misc, ev = encode_lanes_slim(words)
         trace.mark(trace.SORT_PACK, words)
-        payload, total, over = order_and_pack_lanes(
-            slim_sort_operand_packed(rec, fstate, ev), max_bits, slice_to)
+        payload, total, over = pack_lanes_slim(rec, fstate, ev, misc,
+                                               max_bits, slice_to)
     else:
         rec1, rec2, fstate, misc, ev1, ev2, fopen = \
             encode_lanes_slim_two_word(words, eviction_rows(L))
         trace.mark(trace.SORT_PACK, words)
-        payload, total, over = order_and_pack_lanes_two_word(
-            *slim_sort_operands(rec1, rec2, fstate, fopen, ev1, ev2),
-            max_bits, slice_to)
+        payload, total, over = pack_lanes_slim_two_word(
+            rec1, rec2, fstate, fopen, ev1, ev2, misc, max_bits, slice_to)
     return payload, total, over | (misc[0] != 0)
 
 
-# ---- tail: ordering sort, codeword rebuild, packing ---------------------
+# ---- tail on the card: csrc/slim_pack.cu ---------------------------------
+
+PACK_CHUNK = 2048   # ordinals one block of slim_pack.cu sums and packs
+PACK_ALIGN = 16     # scratch rows are padded to this many ordinals
+
+
+def _pack_launch(recs, misc, max_bits: int, slice_to: int):
+    """One launch of ``csrc/slim_pack.cu`` over kernel 1's outputs:
+    ``recs`` (rec, fstate, ev) in the fused-key mode or (rec1, rec2,
+    fstate, fopen, ev1, ev2) in the two-word mode.  Returns (payload,
+    total, over) as ``order_and_pack_lanes``."""
+    two_word = len(recs) == 6
+    recs = [t.contiguous() for t in recs]
+    misc = misc.contiguous()
+    L, lanes = recs[0].shape
+    nev = recs[-1].shape[0]
+    dev = recs[0].device
+    stride = -(-max(slice_to, 1) // PACK_ALIGN) * PACK_ALIGN
+    nch = -(-max(slice_to, 1) // PACK_CHUNK)
+    scratch = torch.empty((lanes, stride), dtype=torch.int32, device=dev)
+    sums = torch.empty((lanes, nch), dtype=torch.int32, device=dev)
+    payload = torch.empty((lanes, max_bits // 8), dtype=torch.uint8,
+                          device=dev)
+    total = torch.empty(lanes, dtype=torch.int64, device=dev)
+    over = torch.empty(lanes, dtype=torch.bool, device=dev)
+    if two_word:
+        rec1, rec2, fstate, fopen, ev1, ev2 = recs
+    else:
+        (rec1, fstate, ev1), rec2, fopen, ev2 = recs, None, None, None
+    lib = kernels.load("slim_pack")
+    fn = lib.slim_pack_two_word_launch if two_word else lib.slim_pack_launch
+    runs = kernels.run_slot(dev, "slim_pack_two_word" if two_word
+                            else "slim_pack")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 7
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*map(ptr, (rec1, rec2, fstate, fopen, ev1, ev2, misc,
+                               slim_luts(str(dev)))),
+                    L, lanes, nev, slice_to, stride, nch, max_bits, LUT_SIZE,
+                    *map(ptr, (scratch, sums, payload, total, over)), runs,
+                    stream)
+    kernels.check(status, "slim_pack")
+    return payload, total, over
+
+
+def _check_pack(max_bits: int, slice_to: int) -> None:
+    if max_bits % 32 or max_bits < 0 or slice_to < 0:
+        raise ValueError(f"payload cap {max_bits} bits is not a multiple of "
+                         f"32, or slice {slice_to} is negative")
+
+
+def pack_lanes_slim(rec, fstate, ev, misc, max_bits: int, slice_to: int):
+    """Sort and pack after kernel 1's fused-key mode: (rec, fstate, misc,
+    ev) -> per lane (payload uint8 (lanes, max_bits // 8), total bits
+    int64, overflow bool), as ``order_and_pack_lanes`` on
+    ``slim_sort_operand_packed``, equal to it on every lane whose misc[0]
+    is 0.  A CUDA tensor launches ``csrc/slim_pack.cu``; a CPU tensor runs
+    that sort-based plain version."""
+    _check_pack(max_bits, slice_to)
+    if rec.device.type == "cpu":
+        return order_and_pack_lanes(slim_sort_operand_packed(rec, fstate, ev),
+                                    max_bits, slice_to)
+    res = _pack_launch((rec, fstate, ev), misc, max_bits, slice_to)
+    pack_lanes_slim.launches += 1
+    return res
+
+
+pack_lanes_slim.launches = 0
+
+
+def pack_lanes_slim_two_word(rec1, rec2, fstate, fopen, ev1, ev2, misc,
+                             max_bits: int, slice_to: int):
+    """Sort and pack after kernel 1's two-word mode, as
+    ``order_and_pack_lanes_two_word`` on ``slim_sort_operands``; a CUDA
+    tensor launches ``csrc/slim_pack.cu``, a CPU tensor runs that plain
+    version."""
+    _check_pack(max_bits, slice_to)
+    if rec1.device.type == "cpu":
+        return order_and_pack_lanes_two_word(
+            *slim_sort_operands(rec1, rec2, fstate, fopen, ev1, ev2),
+            max_bits, slice_to)
+    res = _pack_launch((rec1, rec2, fstate, fopen, ev1, ev2), misc,
+                       max_bits, slice_to)
+    pack_lanes_slim_two_word.launches += 1
+    return res
+
+
+pack_lanes_slim_two_word.launches = 0
+
+
+# ---- plain tail: ordering sort, codeword rebuild, packing ---------------
 
 _GOL_M = np.ones(32, np.int64)
 _GOL_L = np.ones(32, np.int64)

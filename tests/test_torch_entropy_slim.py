@@ -347,3 +347,53 @@ def test_wrapper_rejects_bad_shapes():
 def test_wrapper_rejects_a_bad_dtype_or_rank(words):
     with pytest.raises(ValueError):
         ES.encode_lanes_slim(words)
+
+
+def _zero_context_lanes(L=16384, lanes=4):
+    """Uncoded emissions with a zero fed to context 16 every 150, 400,
+    1,000 and 97 steps by lane: context 16 codes only zeros, so it skews
+    into golomb bins whose runs stay open until the reorder window evicts
+    them; the last lane stops half way."""
+    rng = np.random.default_rng(23)
+    t = np.arange(L)[:, None]
+    fed = t % np.array([[150, 400, 1000, 97]]) == 0
+    ctx = np.where(fed, 16, 17)
+    bit = np.where(fed, 0, rng.integers(0, 2, (L, lanes)))
+    valid = np.ones((L, lanes), bool)
+    valid[L // 2:, 3] = False
+    words = np.where(valid, 1 | (ctx << 1) | (bit << 6), 0)
+    return torch.from_numpy(words.astype(np.int32))
+
+
+@pytest.mark.parametrize("two_word", [False, True])
+def test_valid_records_take_every_ordinal_once(two_word):
+    """The property the sort-and-pack kernel (``csrc/slim_pack.cu``) rests
+    on: in every lane the allocation ordinals of the valid records (the
+    completions, the evictions and the end-of-plane flushes) are exactly
+    0 .. misc[1] - 1, each once, so each record can be written to its slot
+    without a sort.  A lane with more than ``slice_to`` allocations sets
+    the sort-based tail's flag."""
+    words = _zero_context_lanes()
+    L, lanes = words.shape
+    slice_to = 3 * L // 4
+    if two_word:
+        rec1, rec2, fstate, misc, ev1, ev2, fopen = \
+            ES.encode_lanes_slim_plain(words, True, ES.eviction_rows(L))
+        ops, keys = ES.slim_sort_operands(rec1, rec2, fstate, fopen, ev1,
+                                          ev2)
+        ords = [keys[:, j][keys[:, j] != ES.BIG] for j in range(lanes)]
+        over = ES.order_and_pack_lanes_two_word(ops, keys, 2 * L,
+                                                slice_to)[2]
+    else:
+        rec, fstate, misc, ev = ES.encode_lanes_slim_plain(words)
+        ops = ES.slim_sort_operand_packed(rec, fstate, ev)
+        keys = ops >> 16
+        ords = [keys[:, j][keys[:, j] != ES.BIG15] for j in range(lanes)]
+        over = ES.order_and_pack_lanes(ops, 2 * L, slice_to)[2]
+    assert not misc[0].any() and bool((misc[2] >= 4).all())
+    for j in range(lanes):
+        assert torch.equal(torch.sort(ords[j].to(torch.int64)).values,
+                           torch.arange(int(misc[1, j]))), j
+    cut = misc[1] > slice_to
+    assert 0 < int(cut.sum()) < lanes
+    assert bool(over[cut].all())

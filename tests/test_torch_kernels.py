@@ -51,7 +51,7 @@ def test_every_kernel_source_is_named():
 
 @pytest.mark.parametrize("source,module", [
     ("slim_encode", "entropy_slim"), ("full_encode", "entropy_full"),
-    ("plane_decode", "plane_decode")])
+    ("plane_decode", "plane_decode"), ("slim_pack", "entropy_slim")])
 def test_lut_layouts_match_the_cuda_sources(source, module):
     """Every ``constexpr int kLut<Name> = <offset>;`` of a kernel source
     equals the wrapper's ``LUT_<NAME>`` (the launch refuses a LUT of
@@ -178,7 +178,7 @@ def wide_plain():
 
 
 @pytest.mark.parametrize("name", ["slim_encode", "plane_decode",
-                                  "full_encode"])
+                                  "full_encode", "slim_pack"])
 def test_guard_inputs_run_through_every_wrapper(name, request, monkeypatch):
     """The check's fixed inputs are valid for each instance's wrapper (here
     the plain versions on both sides; the block past 2**17 ordinals, run
@@ -249,3 +249,52 @@ def test_first_difference_names_the_index():
     assert "K2: output out" in msg and "index (2, 1)" in msg \
         and "2 elements" in msg
     assert "int32 (4, 3)" in first_difference("K2", "pos", a, b[:2])
+
+
+def _device_functions(src: str) -> list:
+    """Names of the ``__global__`` and ``__device__`` functions that a CUDA
+    source defines."""
+    src = re.sub(r"__launch_bounds__\([^)]*\)", "", src)
+    return re.findall(r"__(?:global|device)__[^(;{]*?(\w+)\s*\(", src)
+
+
+def test_sort_pack_source_names_and_wiring():
+    """``csrc/slim_pack.cu``: no kernel or device function name holds a
+    name the benchmark counts as kernel 1 or kernel 2 (its K1 and K2
+    records and roofline shares match names by fragment); the source is a
+    library of ``KERNELS``; each launch function has its run slot, which
+    the launch wrapper passes, and an instance of the first-use check."""
+    from benchmark.roofline import K1_NAMES, K2_NAMES
+    from icer_compression_tpu_torch import kernel_check
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    src = (kernels.CSRC / "slim_pack.cu").read_text()
+    names = _device_functions(src)
+    assert {"slim_pack_place_kernel", "slim_pack_sums_kernel",
+            "slim_pack_bits_kernel", "codeword"} <= set(names)
+    for name in names:
+        for fragment in K1_NAMES + K2_NAMES:
+            assert fragment not in name, (name, fragment)
+    assert "slim_pack" in kernels.KERNELS
+    exported = re.findall(r'extern "C" int (\w+)\(', src)
+    assert sorted(exported) == ["slim_pack_launch",
+                                "slim_pack_two_word_launch"]
+    checked = {i.symbol for i in kernel_check.CHECKS["slim_pack"]}
+    assert checked == set(exported)
+    for symbol in exported:
+        slot = symbol[:-len("_launch")]
+        assert slot in kernels.RUN_SLOTS
+    launch = (kernels.CSRC.parent / "ops" / "entropy_slim.py").read_text()
+    assert '"slim_pack_two_word" if two_word' in launch
+    assert ES.pack_lanes_slim in kernel_check._COUNTED
+    assert ES.pack_lanes_slim_two_word in kernel_check._COUNTED
+
+
+def test_sort_pack_blocks_match_the_wrapper():
+    """The wrapper sizes the scratch rows and the per-block sums by the
+    source's ordinals a thread holds and a block takes."""
+    from icer_compression_tpu_torch.ops import entropy_slim as ES
+    src = (kernels.CSRC / "slim_pack.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kPer"]) == ES.PACK_ALIGN
+    assert int(consts["kThreads"]) * int(consts["kPer"]) == ES.PACK_CHUNK
+    assert "kChunk = kThreads * kPer" in src

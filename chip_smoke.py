@@ -297,6 +297,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
+from benchmark.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S, INT32_OPS_PER_S)
 from icer_compression_tpu_torch.utils.trace import (  # noqa: E402
     layer_breakdown)
 
@@ -312,10 +314,6 @@ def swapped(owner, name, value):
         setattr(owner, name, old)
 
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
-# int32 ALU peak: 64 int32 ops per clock per SM x 132 SMs x 1.98 GHz boost
-# (Hopper architecture white paper)
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations of one step, counted from the kernels' source:
 # kernel 1: 16 cutoff compares + ~32 for counters, bin state, completion
 # and the record per valid emission, + a 17-row scan per allocation;
@@ -3852,6 +3850,14 @@ def same_output(a, b) -> bool:
     return a == b
 
 
+def top_pixel(out) -> int:
+    """The largest pixel of a decode's output (an array, or lists and
+    tuples of them)."""
+    if isinstance(out, np.ndarray):
+        return int(out.max())
+    return max(top_pixel(x) for x in out)
+
+
 # phase 30's soak of two decode threads on one card
 SOAK_TRIALS = 200
 SOAK_SEED = 16
@@ -3910,10 +3916,11 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     the eager decode (``graph=False``), byte for byte, three graph runs
     and one eager as above, the third run replaying every pass and its K2
     / W1 runs counted on the card equal to the eager run's, the graph
-    pools and the keys' tables within their bound after each: boat's golden stream; the
-    bench's 56 streams (pack8); the 11 fault pins one by one and as one
-    batch (each equal to its pin); phase 16's colour stream; the
-    5120x3840 frame.  Then the soak (``decode_soak``): two decode threads
+    pools and the keys' tables within their bound after each: boat's
+    golden stream; the bench's 56 streams; boat's quota-50000 stream,
+    whose pinned decode has a pixel of 259 (at least one case must have a
+    pixel above 255); the 11 fault pins one by one and as one batch (each
+    equal to its pin); phase 16's colour stream; the 5120x3840 frame.  Then the soak (``decode_soak``): two decode threads
     on the card through one cache.  Then: each capture's seconds and
     check, the bytes the graphs' pools and the keys' tables hold on the
     device against their bound
@@ -4059,9 +4066,10 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     fstream = case("5120x3840 lossless (stage 1 in two coder calls)",
                    lambda: T.compress(frame, cfg, device=dev))
     del fenc
-    case("boat quota 50000", lambda: T.compress(
-        boat, T.CodecConfig(4, 0, 6, 50000), device=dev),
-        sha_is(pins[0], "quota 50000"))
+    cfg50 = T.CodecConfig(4, 0, 6, 50000)
+    s50 = case("boat quota 50000", lambda: T.compress(boat, cfg50,
+                                                      device=dev),
+               sha_is(pins[0], "quota 50000"))
 
     # pallas and sorted, deferred with two batches in flight
     res["deferred"] = {}
@@ -4076,7 +4084,7 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
             if T.allocate_streams(enc.encode_batch(b), cfg, enc)[0] != s:
                 raise AssertionError(f"phase 30 {coder}: graph differs")
         seen = watch_host_lanes(enc)
-        lanes0, snaps0 = enc.fallback_lanes, cache.snapshots
+        lanes0 = enc.fallback_lanes
         first = enc.encode_batch(pair[0], defer=True)
         second = enc.encode_batch(pair[1], defer=True)
         got1 = T.allocate_streams(second(), cfg, enc)[0]
@@ -4084,17 +4092,14 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
         if [got0, got1] != want or hashlib.sha256(got0).hexdigest() != golden:
             raise AssertionError(f"phase 30 {coder} deferred: streams differ")
         nlanes, _secs = check_host_lanes(f"phase 30 {coder}", seen)
-        if cache.snapshots != snaps0 or nlanes != enc.fallback_lanes - lanes0:
-            raise AssertionError(f"phase 30 {coder}: a host lane uncounted, "
-                                 "or a held encode output snapshotted")
-        res["deferred"][coder] = {"host_lanes": [len(s[1]) for s in seen],
-                                  "snapshots": cache.snapshots - snaps0}
+        if nlanes != enc.fallback_lanes - lanes0:
+            raise AssertionError(f"phase 30 {coder}: a host lane uncounted")
+        res["deferred"][coder] = {"host_lanes": [len(s[1]) for s in seen]}
         log(f"phase 30 {coder}, boat and a variant deferred with two "
             f"batches in flight: streams equal the eager encoder's (boat's "
             f"the golden one); host lanes {[len(s[1]) for s in seen]}, each "
             f"native payload equal to the sequential coder's on the words it "
-            f"re-encoded from its pass run again; graph snapshots "
-            f"{cache.snapshots - snaps0} | {card}")
+            f"re-encoded from its pass run again | {card}")
         del enc, ref, seen
 
     # the decode's passes: each case three times on the graph path (a
@@ -4126,6 +4131,7 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
             check(want)
         reserved, bound = within_bound(f"decode {label}")
         res["decode_cases"][label] = {
+            "top_pixel": top_pixel(want),
             "runs": eager_n, "replays": runs[2][4],
             "walls_s": [r[2] for r in runs], "eager_s": eager_s,
             "eager_peak": eager_pk, "graph_peaks": [r[3] for r in runs],
@@ -4133,7 +4139,8 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
             "tables": cache.table_bytes(dev),
             "reserved": reserved, "bound": bound}
         log(f"phase 30 decode {label}: 3 graph runs equal the eager decode "
-            f"byte for byte; the third replayed {runs[2][4]} pass(es), "
+            f"byte for byte, largest pixel {top_pixel(want)}; the third "
+            f"replayed {runs[2][4]} pass(es), "
             f"kernel runs counted on the card {runs[2][1]} = eager's; walls "
             f"{[round(r[2], 4) for r in runs]} s, eager {eager_s:.4f} s; "
             f"peaks {[gb(r[3]) for r in runs]}, eager {gb(eager_pk)}; "
@@ -4152,10 +4159,20 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     decode_case("boat 512 lossless (golden stream)",
                 lambda g: [T.decompress(stream, cfg, np.uint16, device=dev,
                                         graph=g)], 1, lossless([boat]))
-    decode_case("bench 56 (pack8)",
+    decode_case("bench 56",
                 lambda g: D.decompress_batch(
                     bench_streams[:56], cfg, np.uint16, device=dev,
-                    pack8=True, graph=g), 1, lossless(imgs[:56]))
+                    graph=g), 1, lossless(imgs[:56]))
+
+    def pinned(px):
+        if pixels_sha(px[0]) != pins[1]:
+            raise AssertionError("phase 30: boat's quota-50000 decode "
+                                 "differs from its pin")
+
+    # a pixel past a byte (259): the pass copies it back once, as uint16
+    decode_case("boat quota 50000 (pinned)",
+                lambda g: [T.decompress(s50, cfg50, np.uint16, device=dev,
+                                        graph=g)], 1, pinned)
     from icer_compression_tpu_torch.utils import faults
     fpins = dict(ln.split(None, 1)[::-1] for ln in (
         REPO / "tests" / "data" / "golden_faults.sha256")
@@ -4184,6 +4201,9 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
                 lambda g: [T.decompress(fstream, cfg, np.uint16, device=dev,
                                         graph=g)], 1, lossless([frame]))
     del frame, fstream
+    wide = [k for k, c in res["decode_cases"].items() if c["top_pixel"] > 255]
+    if not wide:
+        raise AssertionError("phase 30: no decode case has a pixel above 255")
     res["decode_reserved"], res["decode_bound"] = within_bound("decodes")
     res["decode_pools"] = cache.pool_total(dev, "decode")
     res["soak"] = decode_soak(dev, card, cfg, [stream]
@@ -4285,7 +4305,6 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
     res["live"] = cache.pool_total(dev)
     res["static"] = cache.static_bytes(dev)
     res["tables"] = cache.table_bytes(dev)
-    res["snapshots"] = cache.snapshots
     res["eager_peak"] = max(eager_peaks)
     res["largest_pool"] = max(c["pool_bytes"] for c in cache.captures)
     log(f"phase 30 graph pools: {len(cache.keys())} graphs, pools and "
@@ -4299,8 +4318,7 @@ def graph_phase(dev, card, boat, golden, pins, cli_graph) -> dict:
         f"eager), of which static tensors {gb(res['static'])}; largest "
         f"pool {gb(res['largest_pool'])}, largest eager peak "
         f"{gb(res['eager_peak'])}; evictions {cache.evictions}, replays "
-        f"{cache.replays}, outputs copied out {cache.snapshots} "
-        f"({gb(cache.snapshot_bytes)}); decode pools "
+        f"{cache.replays}; decode pools "
         f"{gb(cache.pool_total(dev, 'decode'))}; keys' tables "
         f"{gb(res['tables'])} ({cache.tables_made} made, "
         f"{cache.tables_dropped} dropped) | {card}")

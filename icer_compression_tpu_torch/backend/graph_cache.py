@@ -14,7 +14,7 @@ encode pass: geometry, stages, filter, segments, mag_bits, images in the
 pass, the bucket coders and their record modes and call sizes, plane
 windows, lane share, device; for a decode pass, ``DecodePlan.key`` of
 ``models/decode.py``: geometry, canvases, the units present with their
-rounds, the padded blob, pack8, device).  A pass reads one tensor or a
+rounds, the padded blob, device).  A pass reads one tensor or a
 tuple of tensors, its static inputs.
 
 Life of a key.  The dispatch half of a pass (``GraphCache.run``) never
@@ -53,14 +53,14 @@ until the card is done), then graphs, which take theirs along, and
 
 Threads.  Two threads may run passes of one key on one card (the
 round-robin decode of ``parallel.sharded.decode_batch_sharded``).  Each
-cache has a lock (``lock``, re-entrant): ``run``, ``hold``, ``read``,
-``owner``, ``capture``, eviction and ``clear`` hold it, and a caller that
-reads a replay's static outputs after ``run`` (its copies to the host,
-``hold``) holds it around ``run`` and those reads, so no other thread's
-static copy or replay comes between; a held output is read later through
-``read``, under the lock too.  A replay on another stream than the graph's last one waits for
-that stream first, and outputs held for a reader on another stream are
-copied out before that stream may read them.
+cache has a lock (``lock``, re-entrant): ``run``, ``owner``, ``capture``,
+eviction and ``clear`` hold it.  A replay's static outputs are read only
+by the copies its caller queues right after ``run``, under ``lock``, on
+the replay's stream; nothing reads them later.  So the caller holds the
+lock around ``run`` and those copies, and no other thread's static copy
+or replay comes between; a replay on another stream than the graph's
+last one waits for that stream first, and so for the copies queued
+there.
 
 Launch counts: the counted kernel wrappers (``kernel_counters``) add to
 their ``launches`` in Python for each launch the host issues, which a
@@ -95,12 +95,9 @@ Counts.  Under ``torch.profiler`` (utils/trace) each pass counts
 being ``decode`` or ``encode`` (``is_decode``); a capture's first replay,
 its check, counts as a replay, as ``replays`` does.
 
-A graph's replay writes only its own pool, so the outputs the host reads
-after the dispatch half (``hold``: a decode's wide pixels that its pack8
-fallback copies) are copied out only before the next replay of the same
-graph; the stream-ordered copies to the host, queued right after a
-replay, read theirs first.  (An encode holds no outputs: a collector that
-re-encodes flagged lanes runs their pass again eagerly, ``ops/encode``.)
+No pass holds a replay's outputs past its dispatch half: a decode copies
+its pixels back once, at the caller's width, and an encode collector that
+re-encodes flagged lanes runs their pass again eagerly (``ops/encode``).
 """
 
 from __future__ import annotations
@@ -227,20 +224,6 @@ def _current_stream(device: torch.device):
         else None
 
 
-class Held:
-    """Device outputs of a pass that the host reads after the dispatch
-    half: ``tensors`` until ``release``.  Those of a replay are copied
-    out before the next replay of their graph could overwrite them;
-    ``stream`` is the stream that reads them (None: any)."""
-
-    def __init__(self, tensors, stream=None):
-        self.tensors = list(tensors)
-        self.stream = stream
-
-    def release(self) -> None:
-        self.tensors = None
-
-
 def _gone():
     return None
 
@@ -259,10 +242,9 @@ class _Seen:
 
 class _Entry:
     """One captured pass: the graph, its static inputs and outputs, the
-    bytes of its pool, the outputs of its last replay still held, the
-    stream of its last replay, and the object whose device tables the
-    graph reads (an encoder, a decode key's tables; kept alive with
-    it)."""
+    bytes of its pool, the stream of its last replay, and the object
+    whose device tables the graph reads (an encoder, a decode key's
+    tables; kept alive with it)."""
 
     def __init__(self, key, graph, static_x, outs, owner):
         self.key, self.graph = key, graph
@@ -271,7 +253,6 @@ class _Entry:
         self.device = _flat(static_x)[0].device
         self.nbytes = _nbytes(_flat(static_x) + tuple(outs))
         self.pool = 0
-        self.held: weakref.WeakSet = weakref.WeakSet()
         self.stream = None
 
 
@@ -283,10 +264,10 @@ class GraphCache:
     the counted kernel wrappers and ``budget`` is one pass's device bytes
     (None: ``pass_budget()``); the tests give stand-ins for all four.
     ``captures`` lists every capture with its seconds, first-replay check
-    and pool bytes; ``evictions``, ``replays``, ``snapshots`` and
-    ``snapshot_bytes`` count the rest, ``tables_made`` and
-    ``tables_dropped`` the keys' tables.  ``seen_keys``: the most recent
-    keys whose passes are counted (``SEEN_KEYS``)."""
+    and pool bytes; ``evictions`` and ``replays`` count the rest,
+    ``tables_made`` and ``tables_dropped`` the keys' tables.
+    ``seen_keys``: the most recent keys whose passes are counted
+    (``SEEN_KEYS``)."""
 
     def __init__(self, capture=capture_cuda, pool=pool_bytes,
                  counters=kernel_counters, budget: int | None = None,
@@ -302,8 +283,6 @@ class GraphCache:
         self.captures: list[dict] = []
         self.evictions = 0
         self.replays = 0
-        self.snapshots = 0
-        self.snapshot_bytes = 0
         self.tables_made = 0
         self.tables_dropped = 0
 
@@ -361,11 +340,10 @@ class GraphCache:
         """The dispatch half of the pass ``key`` over ``x`` (a tensor or a
         tuple of tensors): a replay of its graph, else ``fn(x)`` (a tuple
         of tensors) eagerly.  Returns (outputs, state): ``replay`` (the
-        graph's static outputs, valid until its next replay; ``hold``
-        keeps what the host reads later), ``eager``, or ``capture``: an
-        eager pass of a key seen ``CAPTURE_AT`` times or more, none of
-        whose marked passes still holds its outputs, whose collector
-        calls ``capture``."""
+        graph's static outputs, valid until its next replay), ``eager``,
+        or ``capture``: an eager pass of a key seen ``CAPTURE_AT`` times
+        or more, none of whose marked passes still holds its outputs,
+        whose collector calls ``capture``."""
         with self.lock:
             entry = self._entries.get(key)
             if entry is not None:
@@ -406,27 +384,6 @@ class GraphCache:
                 self._evict(device, self._keep(device), spare=key,
                             graphs=False)
             return rec.owner
-
-    def read(self, held: Held) -> list:
-        """Host copies of ``held``'s tensors, made under the lock, so no
-        replay of their graph comes between (its snapshot, queued ahead of
-        the replay, is what a later read sees)."""
-        with self.lock:
-            stream = None if not held.tensors or held.stream is None \
-                else _current_stream(held.tensors[0].device)
-            if stream is not None and stream != held.stream:
-                stream.wait_stream(held.stream)
-            return [t.to("cpu", copy=True) for t in held.tensors]
-
-    def hold(self, key, tensors) -> Held:
-        """Keep ``tensors``, outputs of the last replay of ``key``'s
-        graph, readable after its later replays (by the stream of that
-        replay)."""
-        with self.lock:
-            entry = self._entries[key]
-            h = Held(tensors, entry.stream)
-            entry.held.add(h)
-            return h
 
     def capture(self, key, fn, x, ref, owner=None,
                 estimate: int = 0) -> None:
@@ -475,19 +432,9 @@ class GraphCache:
         stream = _current_stream(entry.device)
         if stream is not None and entry.stream is not None \
                 and entry.stream != stream:
-            # the last replay and the reads queued after it, on another
+            # the last replay and the copies queued after it, on another
             # stream, come first
             stream.wait_stream(entry.stream)
-        # copy out what the host still reads of the last replay, queued
-        # on the stream ahead of the one that overwrites it
-        for h in list(entry.held):
-            if h.tensors is not None:
-                h.tensors = [t.clone() for t in h.tensors]
-                self.snapshots += 1
-                self.snapshot_bytes += _nbytes(h.tensors)
-                if h.stream is not None and h.stream != stream:
-                    h.stream.wait_stream(stream)
-        entry.held = weakref.WeakSet()
         for s, t in zip(_flat(entry.static_x), _flat(x), strict=True):
             s.copy_(t)
         entry.graph.replay()

@@ -8,7 +8,7 @@ its configuration: boat 512, lossless (quota w * h), stages 4, filter A,
   native          the native host runtime (``backend="native"``), single
                   image, best of ``--reps``;
   <dev>           the card path, single image: ``models/grayscale.compress``
-                  and ``decompress(pack8=True)`` on ``--device``, best of
+                  and ``decompress`` on ``--device``, best of
                   ``--reps-card``, after a warm-up that includes the
                   kernels' first-use build and check;
   <dev>_batched   ``--batch-enc`` noisy variants of the image through one
@@ -194,11 +194,11 @@ def single_mode(image, cfg, dev, reps, golden, native_stream, warm):
     k1 = {"fused-key": ES.encode_lanes_slim.launches,
           "two-word": ES.encode_lanes_slim_two_word.launches}
     t0 = time.perf_counter()
-    dec = T.decompress(stream, cfg, dtype=np.uint16, device=dev, pack8=True)
+    dec = T.decompress(stream, cfg, dtype=np.uint16, device=dev)
     warm["single_decode"] = time.perf_counter() - t0
     enc_s = best(lambda: T.compress(image, cfg, device=dev), reps)
     dec_s = best(lambda: T.decompress(stream, cfg, dtype=np.uint16,
-                                      device=dev, pack8=True), reps)
+                                      device=dev), reps)
     sha = hashlib.sha256(stream).hexdigest()
     res = {"encode_s": enc_s, "decode_s": dec_s,
            "MPs": image.size / (enc_s + dec_s) / 1e6,
@@ -223,8 +223,7 @@ def batched_mode(imgs, cfg, dev, B, reps, single_stream, warm):
         return T.allocate_streams(enc.encode_batch(imgs), cfg, enc)
 
     def decode(streams):
-        return D.decompress_batch(streams, cfg, dtype=np.uint16, device=dev,
-                                  pack8=True)
+        return D.decompress_batch(streams, cfg, dtype=np.uint16, device=dev)
 
     mem_e, mem_d = {}, {}
     t0 = time.perf_counter()
@@ -284,7 +283,7 @@ def pipelined_mode(imgs, cfg, dev, enc, streams, B, K, batched_ok):
                 with no_host_sync(dev):
                     nxt = D.decompress_batch(streams[:bd], cfg,
                                              dtype=np.uint16, device=dev,
-                                             defer=True, pack8=True)
+                                             defer=True)
                 if hold is not None:
                     out.extend(hold())
                 hold = nxt
@@ -342,8 +341,7 @@ def device_time_mode(imgs, cfg, dev, enc, streams, B) -> dict:
     halves = (("encode graph", BE, lambda: T.allocate_streams(
                   enc.encode_batch(imgs), cfg, enc)),
               ("decode graph", B, lambda: D.decompress_batch(
-                  streams[:B], cfg, dtype=np.uint16, device=dev,
-                  pack8=True)))
+                  streams[:B], cfg, dtype=np.uint16, device=dev)))
     res, got = {}, {}
     for half, n, fn in halves:
         # each in a profile of its own: the encode's 28,000 kernel records

@@ -279,7 +279,7 @@ def cmd_batch_decompress(args) -> int:
 
     def submit(chunk):
         return decode([d for _, d in chunk], cfg, dtype=np.uint16,
-                      device=args.device, defer=True, pack8=True)
+                      device=args.device, defer=True)
 
     def finish(imgs, chunk):
         for img, (path, _d) in zip(imgs, chunk):

@@ -19,10 +19,11 @@ address decodes in passes of at most ``PASS_BYTES`` bytes each.
 
 A pass is a host plan (``plan_batch``: the headers' scan, each unit's
 offsets) and a device pass (``device_pass``: kernel 2's units, the
-finalize, the pack8 check) that holds no host copy and no sync.  As the
-JAX decoder runs one jitted program per plan key, the device pass runs as
-one captured CUDA graph per plan key (``DecodePlan.key``) on the card by
-default
+finalize, the pixels narrowed to the caller's sample width) that holds
+no host copy and no sync; its pixels come back to the host in one copy.
+As the JAX decoder runs one jitted program per plan key, the device pass
+runs as one captured CUDA graph per plan key (``DecodePlan.key``) on the
+card by default
 (``graph=``; ``backend/graph_cache``): eager at the key's first two
 passes, captured by the second's collector and held bit for bit to it on
 its first replay, replayed after.  The joined streams are padded to a
@@ -35,11 +36,10 @@ in; the graph cache keeps them with its record of the key, under the
 graphs' bound.
 
 Under ``torch.profiler`` (utils/trace) a pass records the spans
-``decode.plan``, ``decode.dispatch`` (upload and run), ``decode.wait``,
-``decode.capture``, ``decode.pack8_fallback`` and ``decode.unpack``, and
-the counts ``decode.passes``, ``decode.pack8_fallbacks`` and
-``decode.wide_copy_bytes``; ``device_pass`` marks kernel 2 and the
-finalize on the card whether or not the profiler records.
+``decode.plan``, ``decode.dispatch`` (upload, run and the copy back),
+``decode.wait``, ``decode.capture`` and ``decode.unpack``, and the count
+``decode.passes``; ``device_pass`` marks kernel 2 and the finalize on the
+card whether or not the profiler records.
 """
 
 from __future__ import annotations
@@ -296,6 +296,15 @@ def finalize(outs, tables: KeyTables, llv, w: int, h: int,
     return torch.clamp(img, min=0)
 
 
+def narrow(px, mag_bits: int):
+    """The finalized pixels ``px`` (int32) at the sample width that
+    ``mag_bits`` fixes, on their device: the low 8 bits as uint8
+    (mag_bits 7), else the low 16 bits as int16, which the host reads as
+    uint16.  Those are the bits NumPy's ``astype`` of the wide pixels to
+    ``uint8`` or ``uint16`` keeps."""
+    return px.to(torch.uint8 if mag_bits == 7 else torch.int16)
+
+
 def _passes(streams):
     """[start, end) ranges of consecutive streams whose joined bytes stay
     below ``PASS_BYTES``; a single stream that reaches it raises."""
@@ -362,26 +371,25 @@ class DecodePlan:
     """One pass's plan on the device side: its key (every field that fixes
     the pass's shapes: geometry, stages, filter, segments, mag_bits,
     channels, canvases, each unit present with its rounds, lanes and
-    canvas, the padded blob's bytes, pack8, device), the key's tables and
+    canvas, the padded blob's bytes, device), the key's tables and
     the device pass over the static inputs (blob, meta), ``meta`` being
     int32: the LL means, then each unit's offs, ebits and lane_end,
     raveled."""
 
     def __init__(self, w, h, ll_means, blob_len, units, config, dtype,
-                 nchan, pack8, dev):
+                 nchan, dev):
         self.w, self.h = w, h
         self.config = config
         self.mag_bits = _mag_bits(dtype)
         self.lsb0 = _bitplanes(self.mag_bits) - 1
         self.NC = len(ll_means)
-        self.pack8 = pack8
         self.shapes = [(u["offs"].shape[0], u["offs"].shape[1], u["hmax"],
                         u["wmax"]) for u in units]
         self.key = ("decode", w, h, config.stages, config.filt,
                     config.segments, self.mag_bits, nchan, self.NC,
                     tuple((u["bucket"],) + sh
                           for u, sh in zip(units, self.shapes)),
-                    blob_len, bool(pack8), str(dev))
+                    blob_len, str(dev))
         self.tables = key_tables(self.key, units, self.NC, w, h, dev)
 
     def meta(self, ll_means, units) -> np.ndarray:
@@ -400,12 +408,12 @@ class DecodePlan:
 
     def device_pass(self, x) -> tuple:
         """The device half of the pass over ``x`` = (blob, meta): kernel
-        2's units, the finalize, then with pack8 whether every pixel fits
-        a byte and the pixels as bytes.  Returns (pixels (NC, h, w)
-        int32[, fits, pixels uint8]).  No host copy, no sync: it can be
-        captured.  On the card it marks kernel 2's stage before the fork
-        of its unit streams, the finalize's after their join and the end
-        of the pass (utils/trace ``mark``)."""
+        2's units, the finalize and the pixels narrowed to the sample
+        width (``narrow``).  Returns (pixels (NC, h, w) uint8 or int16,).
+        No host copy, no sync: it can be captured.  On the card it marks
+        kernel 2's stage before the fork of its unit streams, the
+        finalize's after their join and the end of the pass (utils/trace
+        ``mark``)."""
         blob, meta = x
         inputs = [views + (geom, hm, wm) for views, geom, (_R, _n, hm, wm)
                   in zip(unit_views(meta, self.NC, self.shapes),
@@ -414,12 +422,11 @@ class DecodePlan:
         outs = [out for out, _err, _pos in decode_units(
             blob, inputs, self.lsb0, self.mag_bits)]
         trace.mark(trace.FINALIZE, blob)
-        px = finalize(outs, self.tables, meta[:self.NC], self.w, self.h,
-                      self.config, self.mag_bits)
-        outs = (px, (px <= 255).all(), px.to(torch.uint8)) if self.pack8 \
-            else (px,)
+        px = narrow(finalize(outs, self.tables, meta[:self.NC], self.w,
+                             self.h, self.config, self.mag_bits),
+                    self.mag_bits)
         trace.mark(trace.END, blob)
-        return outs
+        return (px,)
 
 
 def _upload(blob, meta, dev):
@@ -428,7 +435,7 @@ def _upload(blob, meta, dev):
 
 
 def _decode(streams, config: CodecConfig, dtype, nchan: int, device,
-            defer: bool, max_pixels, pack8, graph):
+            defer: bool, max_pixels, graph):
     """Decode B same-geometry streams as B * nchan canvases; returns the
     list of (h, w) canvases of ``dtype``, or with ``defer`` a collector of
     it.  The streams decode in passes of at most ``PASS_BYTES`` bytes,
@@ -437,12 +444,8 @@ def _decode(streams, config: CodecConfig, dtype, nchan: int, device,
     graph = _use_graph(graph, dev)
     if max_pixels is None:
         max_pixels = DEFAULT_MAX_PIXELS
-    if pack8 is None:
-        # uint8-path pixels always fit a byte after the clamp; the uint16
-        # path stays wide unless the caller opts in
-        pack8 = np.dtype(dtype) == np.uint8
     passes = [_dispatch(streams[a:b], config, dtype, nchan, dev, max_pixels,
-                        pack8, graph) for a, b in _passes(streams)]
+                        graph) for a, b in _passes(streams)]
     if len({geom for geom, _collect in passes}) > 1:
         raise IcerError(IcerStatus.INVALID_INPUT,
                         "batched streams must share geometry")
@@ -454,18 +457,18 @@ def _decode(streams, config: CodecConfig, dtype, nchan: int, device,
 
 
 def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
-              max_pixels, pack8: bool, graph: bool):
+              max_pixels, graph: bool):
     """One decode pass: the host plan, then the device pass queued on the
     card (a graph replay where ``graph`` and its key is captured), and the
-    copy back started into a pinned buffer.  Returns ((w, h), the pass's
-    collector), which waits for the copies, captures the key's graph if
-    the pass was marked for it, and reads the pixels."""
+    copy of its pixels back started into a pinned buffer.  Returns ((w,
+    h), the pass's collector), which waits for the copy, captures the
+    key's graph if the pass was marked for it, and reads the pixels."""
     w, h, ll_means, blob, units = plan_batch(streams, config, dtype, nchan,
                                              max_pixels, pad=True)
     trace.count("decode.passes")
     with trace.span("decode.dispatch"):
         plan = DecodePlan(w, h, ll_means, len(blob), units, config, dtype,
-                          nchan, pack8, dev)
+                          nchan, dev)
         NC = plan.NC
         cache = graph_cache.CACHE
         state, capture = "eager", None
@@ -475,14 +478,7 @@ def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
                 outs, state = cache.run(plan.key, plan.device_pass, x)
             else:
                 outs = plan.device_pass(x)
-            held = graph_cache.Held(())
-            if pack8:
-                # the wide pixels the fallback reads in the collector
-                held = cache.hold(plan.key, outs[:1]) \
-                    if state == "replay" else graph_cache.Held(outs[:1])
-                fetched = to_host(outs[1]), to_host(outs[2])
-            else:
-                fetched = None, to_host(outs[0])
+            pix = to_host(outs[0])
         if state == "capture":
             capture = functools.partial(
                 cache.capture, plan.key, plan.device_pass, x, outs,
@@ -492,26 +488,14 @@ def _dispatch(streams, config: CodecConfig, dtype, nchan: int, dev,
     def collect():
         with trace.span("decode.wait"):
             pending.wait()
-        try:
-            if capture is not None:
-                with trace.span("decode.capture"):
-                    capture()
-            fits, pix = fetched
-            if fits is not None and not bool(fits):
-                # a pixel exceeds a byte: copy the exact wide result instead
-                with trace.span("decode.pack8_fallback"):
-                    (pix,) = cache.read(held)
-                trace.count("decode.pack8_fallbacks")
-                trace.count("decode.wide_copy_bytes",
-                            pix.numel() * pix.element_size())
-        finally:
-            held.release()
+        if capture is not None:
+            with trace.span("decode.capture"):
+                capture()
         with trace.span("decode.unpack"):
-            pix = pix.numpy()
-            return [pix[c].astype(dtype) for c in range(NC)]
+            px = pix.numpy().view(dtype)
+            return [px[c].copy() for c in range(NC)]
 
     return (w, h), collect
-
 
 
 def decompress_batch(streams, config: CodecConfig, dtype=np.uint16,
@@ -524,15 +508,16 @@ def decompress_batch(streams, config: CodecConfig, dtype=np.uint16,
 
     ``defer`` returns a zero-argument collector right after the dispatch.
     ``max_pixels`` (default ``DEFAULT_MAX_PIXELS``) bounds the canvas the
-    untrusted header dimensions may ask for.  ``pack8`` copies the pixels
-    back one byte each when every pixel fits a byte and the exact wide
-    result otherwise; default on for uint8, off for uint16.  ``graph``: run
+    untrusted header dimensions may ask for.  ``pack8`` is accepted as
+    the JAX package's ``decompress_batch`` takes it and changes neither
+    the pixels nor the copies: each pass copies its pixels back once, at
+    the width of ``dtype``.  ``graph``: run
     each device pass as a captured CUDA graph per plan key (module
     docstring); None means on for a CUDA device, True on another device
     raises, False runs eagerly (for comparisons and the by-layer
     trace)."""
     return _decode(streams, config, dtype, 1, device, defer, max_pixels,
-                   pack8, graph)
+                   graph)
 
 
 def decompress_yuv_batch(streams, config: CodecConfig, dtype=np.uint16,
@@ -549,7 +534,7 @@ def decompress_yuv_batch(streams, config: CodecConfig, dtype=np.uint16,
         return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
 
     res = _decode(streams, config, dtype, 3, device, defer, max_pixels,
-                  pack8, graph)
+                  graph)
     if defer:
         return lambda: group(res())
     return group(res)

@@ -9,8 +9,8 @@ decode pass (``DecodePlan.device_pass`` and its host edges) is held to the
 eager CPU decode and to the JAX package's decode of the same streams,
 pixel for pixel, with the third decode of a key a replay; the plan key,
 the padded blob, the key tables kept by the cache under its bound, the
-two-thread lock (the pack8 fallback's read too) and the bounded count of
-seen keys are held to their contract."""
+two-thread lock, collectors of passes that a later replay overwrote and
+the bounded count of seen keys are held to their contract."""
 
 import hashlib
 import os
@@ -84,7 +84,7 @@ def test_boat_crop_third_decode_replays_and_gives_the_input(replays):
     assert replays.replays == 2 and len(replays.keys()) == 1
     assert [c["equal"] for c in replays.captures] == [True]
     (key,) = replays.keys()
-    assert GC.is_decode(key) and key[-3] == D.STREAM_PAD
+    assert GC.is_decode(key) and key[-2] == D.STREAM_PAD
 
 
 def test_two_streams_of_other_lengths_share_one_key(replays):
@@ -103,11 +103,11 @@ def test_two_streams_of_other_lengths_share_one_key(replays):
                                        graph=False), b)
 
 
-def _key(streams, cfg, nchan=1, pack8=False, dtype=np.uint16):
+def _key(streams, cfg, nchan=1, dtype=np.uint16):
     w, h, ll, blob, units = D.plan_batch(streams, cfg, dtype, nchan,
                                          pad=True)
     return D.DecodePlan(w, h, ll, len(blob), units, cfg, dtype, nchan,
-                        pack8, torch.device("cpu")).key
+                        torch.device("cpu")).key
 
 
 def test_a_truncated_stream_has_its_own_key(replays):
@@ -190,16 +190,16 @@ def test_a_colour_stream_replays(replays):
 
 
 def test_a_deferred_pack8_fallback_reads_its_own_pass(replays):
-    """Two 10-bit images of one key, decoded with pack8 and both
-    collectors open: the second replay overwrites the wide pixels that the
-    first collector's fallback copies, unless they were copied out before
-    it."""
+    """Two 10-bit images of one key, decoded (``pack8`` set, which
+    changes nothing) with both collectors open: the second replay
+    overwrites the static pixels, and the first collector still returns
+    its own pass exactly, from the copy queued with its replay."""
     cfg = T.CodecConfig(3, 0, 4, 1 << 20)
     a, b = boat_crop(32, scale=4), boat_crop(32, -80, 70, scale=4)
     sa, sb = (G.compress(im, jax_cfg(cfg)) for im in (a, b))
     want = [G.decompress(s, jax_cfg(cfg), dtype=np.uint16) for s in (sa, sb)]
     assert min(w.max() for w in want) > 255
-    assert _key([sa], cfg, pack8=True) == _key([sb], cfg, pack8=True)
+    assert _key([sa], cfg) == _key([sb], cfg)
     for s, w in zip((sa, sb), want):      # the eager pass, the capture
         assert np.array_equal(D.decompress_batch(
             [s], cfg, np.uint16, device="cpu", pack8=True)[0], w)
@@ -211,7 +211,7 @@ def test_a_deferred_pack8_fallback_reads_its_own_pass(replays):
     assert np.array_equal(got_a, want[0]) and np.array_equal(got_b, want[1])
     assert np.array_equal(got_a, D.decompress_batch(
         [sa], cfg, np.uint16, device="cpu", graph=False)[0])
-    assert replays.replays == 3 and replays.snapshots == 1
+    assert replays.replays == 3
 
 
 def test_two_threads_share_one_capture(replays):
@@ -314,14 +314,17 @@ def test_the_lock_is_held_around_a_dispatch(monkeypatch, replays):
     assert seen == [False]
 
 
-def test_plan_keys_hold_every_field_that_fixes_a_pass():
+def test_plan_keys_hold_every_field_that_fixes_a_pass(replays):
     cfg = T.CodecConfig(3, 0, 4, None)
     a, b = boat_crop(32), boat_crop(48)
     sa, sb = (G.compress(im, jax_cfg(cfg)) for im in (a, b))
     base = _key([sa], cfg)
+    # pack8 fixes nothing of a pass: both settings decode under one key
+    for pack8 in (True, False):
+        D.decompress_batch([sa], cfg, np.uint16, device="cpu", pack8=pack8)
+    assert replays.keys() == [base]
     keys = {
         "base": base,
-        "pack8": _key([sa], cfg, pack8=True),
         "geometry": _key([sb], cfg),
         "canvases": _key([sa, sa], cfg),
         "filter": _key([sa], T.CodecConfig(3, 1, 4, None)),
@@ -356,7 +359,7 @@ def test_key_tables_are_made_once_per_plan_and_bounded(replays):
 
     def plan():
         return D.DecodePlan(w, h, ll, len(blob), units, cfg, np.uint16, 1,
-                            False, torch.device("cpu"))
+                            torch.device("cpu"))
     one = plan()
     assert plan().tables is one.tables and replays.tables_made == 1
     first, step = D._canvas_index(units, 1, 32, 32)
@@ -376,9 +379,9 @@ def test_key_tables_are_made_once_per_plan_and_bounded(replays):
     ws, hs, lls, blobs, unitss = D.plan_batch([s, s], cfg, np.uint16,
                                               pad=True)
     two = D.DecodePlan(ws, hs, lls, len(blobs), unitss, cfg, np.uint16, 1,
-                       False, torch.device("cpu"))
+                       torch.device("cpu"))
     three_ = D.DecodePlan(ws, hs, lls, len(blobs) + 1, unitss, cfg,
-                          np.uint16, 1, False, torch.device("cpu"))
+                          np.uint16, 1, torch.device("cpu"))
     assert replays._seen[two.key].owner is None
     assert replays._seen[three_.key].owner is three_.tables
     assert replays.tables_dropped == 1 and one.key in replays
@@ -389,8 +392,9 @@ def test_key_tables_are_made_once_per_plan_and_bounded(replays):
 
 
 def test_a_wide_decode_holds_nothing_for_its_collector(replays):
-    """Without pack8 the wide copy to the host is queued with the replay,
-    so a later replay of the key copies nothing out for the collector."""
+    """The copy to the host is queued with the replay, so a later replay
+    of the key, before the first collector runs, leaves its pixels
+    whole."""
     cfg = T.CodecConfig(3, 0, 4, None)
     a, b = boat_crop(32), boat_crop(32, -80, 70)
     sa, sb = (G.compress(im, jax_cfg(cfg)) for im in (a, b))
@@ -401,14 +405,14 @@ def test_a_wide_decode_holds_nothing_for_its_collector(replays):
     second = D.decompress_batch([sb], cfg, np.uint16, device="cpu",
                                 defer=True)
     assert np.array_equal(second()[0], b) and np.array_equal(first()[0], a)
-    assert replays.replays == 3 and replays.snapshots == 0
+    assert replays.replays == 3
 
 
 def test_two_threads_pack8_fallbacks_read_their_own_pass(replays):
-    """The pack8 fallback reads its held pixels under the cache's lock: a
-    collector waits while another thread holds it, and then reads its own
-    pass, copied out by the other thread's replay of the key.  Two threads
-    of such decodes, four each, are all exact."""
+    """A collector whose key another thread has replayed since (over the
+    static pixels its pass wrote) returns its own pass exactly; then two
+    threads of 10-bit decodes of the two streams, four each, with
+    ``pack8`` set, are all exact."""
     cfg = T.CodecConfig(3, 0, 4, 1 << 20)
     imgs = [boat_crop(32, scale=4), boat_crop(32, -80, 70, scale=4)]
     streams = [G.compress(im, jax_cfg(cfg)) for im in imgs]
@@ -422,16 +426,12 @@ def test_two_threads_pack8_fallbacks_read_their_own_pass(replays):
         decode(i)
     first = decode(0, defer=True)
     got = []
-    with replays.lock:
-        t = threading.Thread(target=lambda: got.append(first()[0]))
-        t.start()
-        t.join(0.5)
-        assert t.is_alive() and not got
-        second = decode(1, defer=True)    # overwrites the static pixels
-    t.join()
-    assert np.array_equal(got[0], want[0])
-    assert np.array_equal(second()[0], want[1])
-    assert replays.snapshots == 1
+    t = threading.Thread(target=lambda: got.append(decode(1)[0]))
+    t.start()
+    t.join(60)
+    assert not t.is_alive() and replays.replays == 3
+    assert np.array_equal(first()[0], want[0])
+    assert np.array_equal(got[0], want[1])
 
     out = {0: [], 1: []}
     errors = []

@@ -142,6 +142,45 @@ def test_pack8_gives_the_wide_result_past_a_byte():
     assert out.dtype == np.uint16 and np.array_equal(out, ref2)
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_the_pixels_come_back_once_at_the_callers_width(dtype, monkeypatch):
+    """``narrow`` keeps the bits that NumPy's ``astype`` of the wide
+    pixels keeps, past a byte and past 16 bits; ``device_pass`` returns one
+    tensor, of the caller's width; ``decompress_batch`` equals the JAX
+    package's decode whatever ``pack8`` says."""
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    mag_bits, narrow_dt = ((7, torch.uint8) if dtype == np.uint8
+                           else (15, torch.int16))
+    rng = np.random.default_rng(12)
+    wide = np.concatenate([
+        [0, 1, 255, 256, 1000, 32767, 32768, 65535, 65536, 70000,
+         (1 << 20) - 1, 1 << 20],
+        rng.integers(0, (1 << 20) + 1, 500)]).astype(np.int32)
+    got = TD.narrow(torch.from_numpy(wide), mag_bits)
+    assert got.dtype == narrow_dt
+    assert np.array_equal(got.numpy().view(dtype), wide.astype(dtype))
+
+    monkeypatch.setattr(GC, "CACHE", GC.GraphCache())
+    # the uint8 path's transform holds 7 magnitude bits without overflow
+    img = make_test_image(H, W, rng, dtype=dtype, amplitude=60, noise=20)
+    if dtype == np.uint16:
+        img[3, 5] = 1000
+    stream = T.compress(img, CFG, device="cpu")
+    ref = G.decompress(stream, G.CodecConfig(2, 0, 4, None), dtype=dtype)
+    assert (ref.max() > 255) == (dtype == np.uint16)
+    cpu = torch.device("cpu")
+    w, h, ll, blob, units = TD.plan_batch([stream], CFG, dtype, pad=True)
+    plan = TD.DecodePlan(w, h, ll, len(blob), units, CFG, dtype, 1, cpu)
+    (px,) = plan.device_pass(TD._upload(blob, plan.meta(ll, units), cpu))
+    assert px.dtype == narrow_dt and px.shape == (1, H, W)
+    assert np.array_equal(px.numpy().view(dtype)[0], ref)
+    for pack8 in (None, False, True):
+        (out,) = TD.decompress_batch([stream], CFG, dtype, device="cpu",
+                                     pack8=pack8)
+        assert out.dtype == dtype and out.flags.c_contiguous
+        assert np.array_equal(out, ref)
+
+
 def test_max_pixels_bounds_the_decode():
     img = _batches(k=1, b=1)[0][0]
     stream = T.compress(img, CFG, device="cpu")

@@ -4520,6 +4520,146 @@ def sort_pack_phase(dev, card, boat) -> dict:
     return res
 
 
+# phase 32: the context model (csrc/context_model.cu) against its plain
+# version, Encoder.emit and Encoder.bucket_words, on the card at the main
+# path's shapes: stages 4, filter A, 6 segments
+def context_model_cases(boat):
+    """[(label, images (B, h, w), dtype, lane_share)]: phase 20's 1024x1024
+    frames and one more (B = 8), phase 25's 5120x3840 frame, a 1600x1200
+    colour pass of 5 frames (15 YCbCr canvases, as the colour cell's
+    passes), phase 20's 999x601 crops as uint8, and two 1024x1024 frames
+    as share 1 of 2 of every group's lanes (its dummy lanes)."""
+    gray = long_lane_images(boat)
+    g1024 = np.concatenate([gray["gray1024"], _tiled(boat, 1024, 1024)])
+    rgb = color_boat(np.tile(boat, (4, 4))[:1600, :1600].astype(np.uint8))[
+        :1200]
+    canvases = np.stack([c for im in color_batch(rgb, 5)
+                         for c in color_planes(im, np.uint16)])
+    return (("1024x1024 B=8", g1024, np.uint16, (1, 0)),
+            ("5120x3840", _tiled(boat, 3840, 5120), np.uint16, (1, 0)),
+            ("1600x1200 colour pass", canvases, np.uint16, (1, 0)),
+            ("999x601 uint8 B=7", gray["gray999x601"].astype(np.uint8),
+             np.uint8, (1, 0)),
+            ("1024x1024 lane share (2, 1)", g1024[:2], np.uint16, (2, 1)))
+
+
+def context_model_phase(dev, card, boat) -> dict:
+    """Phase 32: for each of ``context_model_cases``, the pass's
+    coefficients through ``Encoder.coder_words`` of every coded bucket on
+    the card (one kernel launch per coded group, counted by the kernel on
+    the card) and through
+    the plain version on the card, word for word equal in every coded
+    bucket; both timed (CUDA events) beside the kernel's bound, the bytes
+    it has to move (the words written, the coefficients read once).  Then
+    1024x1024 encodes through a captured graph with
+    ``plane_emissions_words`` made to raise: every pass ran the kernel
+    once per coded group, replays included, and never the plain chain."""
+    from icer_compression_tpu_torch.backend import graph_cache as GC
+    from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import context_model as CM
+    from icer_compression_tpu_torch.ops import encode as E
+
+    def kernel(enc, img):
+        return [enc.coder_words(enc.buckets[bi], gis, img)
+                for bi, gis in enc._coded]
+
+    def plain(enc, img):
+        emitted = [enc.emit(g, img) for g in enc.groups]
+        return [enc.bucket_words(enc.buckets[bi], emitted)
+                for bi, _gis in enc._coded]
+
+    res = {"cases": {}}
+    for label, images, dtype, share in context_model_cases(boat):
+        B, h, w = images.shape
+        enc = E.TorchGrayscaleEncoder(w, h, 4, 0, 6,
+                                      7 if dtype == np.uint8 else 15, dev,
+                                      lane_share=share, graph=False)
+        x = torch.as_tensor(images.astype(np.int32), device=dev)
+        img = enc.transform(x)[0]
+        del x
+        groups = sum(len(gis) for _bi, gis in enc._coded)
+        launches = CM.context_words.launches
+        reset_runs()
+        got = kernel(enc, img)
+        runs = encode_runs()["context_model"]
+        if runs != groups or CM.context_words.launches - launches != groups:
+            raise AssertionError(f"phase 32 {label}: {runs} runs, "
+                                 f"{CM.context_words.launches - launches} "
+                                 f"launches for {groups} coded groups")
+        err = max(assert_equal(f"phase 32 {label} bucket {bi}", a, b)
+                  for (bi, _gis), a, b in zip(enc._coded, got,
+                                              plain(enc, img), strict=True))
+        nbytes = sum(t.numel() * 4 for t in got) + img.numel() * 4
+        del got
+        torch.cuda.empty_cache()
+        k_ms = event_ms(lambda: kernel(enc, img), reps=5)
+        p_ms = event_ms(lambda: plain(enc, img), reps=2)
+        bound_ms = bound(nbytes, 0)[0]
+        mp = B * w * h / 1e6
+        res["cases"][label] = {
+            "images": B, "w": w, "h": h, "groups": groups, "bytes": nbytes,
+            "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "ms_per_MP": k_ms / mp, "plain_ms_per_MP": p_ms / mp,
+            "bound_ms_per_MP": bound_ms / mp}
+        log(f"phase 32 {label}: {B} x {w}x{h}, {groups} launches, words "
+            f"equal to the plain version's in every coded bucket; kernel "
+            f"{k_ms:.3f} ms ({k_ms / mp:.4f} ms/MP), plain {p_ms:.2f} ms "
+            f"({p_ms / mp:.3f} ms/MP), bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB; {k_ms / bound_ms:.2f}x) | {card}")
+        del img, enc
+        torch.cuda.empty_cache()
+
+    def boom(*_a, **_k):
+        raise AssertionError("phase 32: an encode pass on the card ran "
+                             "plane_emissions_words")
+
+    img = long_lane_images(boat)["gray1024"][:1]
+    enc = T.make_encoder(img.shape[2], img.shape[1],
+                         T.CodecConfig(4, 0, 6, None), np.uint16, dev)
+    groups = sum(len(gis) for _bi, gis in enc._coded)
+    with swapped(CM, "plane_emissions_words", boom):
+        reset_runs()
+        want = [enc.encode_batch(img) for _ in range(3)][0]
+        eager = encode_runs()["context_model"]
+        r0 = GC.CACHE.replays
+        reset_runs()
+        for _ in range(2):
+            if enc.encode_batch(img) != want:
+                raise AssertionError("phase 32: a replayed 1024x1024 "
+                                     "encode differs from its eager pass")
+        runs = encode_runs()["context_model"]
+    replays = GC.CACHE.replays - r0
+    if replays < 2 or runs != 2 * groups or eager < 2 * groups:
+        raise AssertionError(f"phase 32: {runs} context-model runs in "
+                             f"{replays} replays of {groups} coded groups "
+                             f"({eager} in the first three passes)")
+    res["replay_runs"] = {"groups": groups, "replays": replays,
+                          "runs": runs, "first_three_passes": eager}
+    log(f"phase 32: 1024x1024 encodes ran the kernel once per coded group "
+        f"and never plane_emissions_words: {res['replay_runs']}")
+    return res
+
+
+def context_model_entry(cm: dict, main_launches: int, paths: dict) -> dict:
+    """The kernels line's entry of the context model: phase 32's cases,
+    its 1024x1024 batch as the entry's shape, phase 3's launches on boat,
+    the launches by path and the largest difference from the plain
+    version over the cases."""
+    c = cm["cases"]["1024x1024 B=8"]
+    return {"name": "context_model", "route": "cuda",
+            "source": "icer_compression_tpu_torch/csrc/context_model.cu",
+            "replaces": "icer_compression_tpu/ops/context_model.py:255",
+            "launches": main_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in cm["cases"].values()),
+            "equal_to_plain": True,
+            "shape": "1024x1024 x 8, stages 4, 6 segments, 9 planes",
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "launches_by_path": paths,
+            "replay_runs": cm["replay_runs"], "cases": cm["cases"]}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:
         a = sys.argv[2:]
@@ -4533,11 +4673,12 @@ def main() -> int:
 
 
 def smoke(host) -> int:
-    """Phases 1-31 on the card; ``host`` runs the plain versions that are
+    """Phases 1-32 on the card; ``host`` runs the plain versions that are
     checked on the host CPU."""
     from icer_compression_tpu_torch import kernels
     from icer_compression_tpu_torch.models import decode as D
     from icer_compression_tpu_torch.models import grayscale as T
+    from icer_compression_tpu_torch.ops import context_model as CM
     from icer_compression_tpu_torch.ops import entropy_full as EF
     from icer_compression_tpu_torch.ops import entropy_slim as ES
     from icer_compression_tpu_torch.ops import plane_decode as PDc
@@ -4737,6 +4878,7 @@ def smoke(host) -> int:
     # ---- phase 3: main path --------------------------------------------
     ES.encode_lanes_slim.launches = 0
     ES.pack_lanes_slim.launches = 0
+    CM.context_words.launches = 0
     PDc.decode_planes.launches = 0
     EF.encode_lanes_full.launches = 0
     WV.inverse_pass.launches = 0
@@ -4746,6 +4888,7 @@ def smoke(host) -> int:
     out = T.decompress(stream, cfg, dtype=np.uint16, device=dev)
     launches = {"slim_encode": ES.encode_lanes_slim.launches,
                 "slim_pack": ES.pack_lanes_slim.launches,
+                "context_model": CM.context_words.launches,
                 "plane_decode": PDc.decode_planes.launches,
                 "wavelet_inverse": WV.inverse_pass.launches}
     if set(menc.bucket_coders) != {"slim"} or EF.encode_lanes_full.launches:
@@ -4942,11 +5085,17 @@ def smoke(host) -> int:
     sp31 = sort_pack_phase(dev, card, boat)
     t31 = time.perf_counter() - t31
     mark_captures("phase 31")
+    GC.CACHE.clear()
+    torch.cuda.empty_cache()
+    t32 = time.perf_counter()
+    cm32 = context_model_phase(dev, card, boat)
+    t32 = time.perf_counter() - t32
+    mark_captures("phase 32")
     for label, n, secs in capture_counts():
         log(f"graph captures in {label}: {n}, {secs:.3f} s (this process; "
             "phase 24's ranks and phase 29's programs capture in their own)")
     paths = {"slim_encode": {}, "slim_encode_two_word": {},
-             "slim_pack": {}, "slim_pack_two_word": {},
+             "slim_pack": {}, "slim_pack_two_word": {}, "context_model": {},
              "plane_decode": {}, "full_encode": {}, "wavelet_inverse": {}}
     for path, counts in (
             [("grayscale", launches), ("color", col["launches"]),
@@ -5092,6 +5241,8 @@ def smoke(host) -> int:
          "path": "compress of a 1024x1024 image at the CLI's defaults: the "
                  "stage-1 bucket"},
         sort_pack_entry(sp31, launches["slim_pack"], paths),
+        context_model_entry(cm32, launches["context_model"],
+                            paths["context_model"]),
         w1_entry(w1r, cfr, launches["wavelet_inverse"]),
     ] + new
     bd, bb, bp = (bdt["device_time"], bdt["cuda_batched"],
@@ -5172,7 +5323,11 @@ def smoke(host) -> int:
         "bound) " + "; ".join(
             f"{k} {r['ms']:.3f}, {r['plain_ms']:.2f}, {r['bound_ms']:.4f}"
             for k, r in sp31["blocks"].items())
-        + f"; phases 1-31 {time.perf_counter() - t_start:.1f} s")
+        + f"; phase 32 {t32:.1f} s, context model ms (kernel, plain, "
+        "bound) " + "; ".join(
+            f"{k} {r['ms']:.3f}, {r['plain_ms']:.2f}, {r['bound_ms']:.4f}"
+            for k, r in cm32["cases"].items())
+        + f"; phases 1-32 {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """PyTorch/CUDA port of the ICER codec (counterpart: ``icer_compression_tpu``).
 
 The grayscale and colour encode and decode run on an NVIDIA Hopper card:
-plain PyTorch for the data-parallel stages (DWT, context modelling, record
-sort and bit packing, finalize) and CUDA C++ kernels for the serial
-per-lane cores: ``csrc/slim_encode.cu`` (kernel 1, the slim coder),
-``csrc/plane_decode.cu`` (kernels 2 and 3, the plane decoders) and
-``csrc/full_encode.cu`` (kernels 4 and 5, the full state-machine coder).
-The streams are byte-identical to the JAX package's.
+plain PyTorch for the forward DWT and the finalize, and CUDA C++ kernels
+for the rest: ``csrc/context_model.cu`` (the context model, coefficients
+to coder words), ``csrc/slim_encode.cu`` (kernel 1, the slim coder),
+``csrc/slim_pack.cu`` (its sort and pack), ``csrc/plane_decode.cu``
+(kernels 2 and 3, the plane decoders), ``csrc/full_encode.cu`` (kernels 4
+and 5, the full state-machine coder) and ``csrc/wavelet.cu`` (the inverse
+DWT).  The streams are byte-identical to the JAX package's.
 
 Entry points: ``models.grayscale.compress`` / ``decompress``, the batch
 forms ``models.grayscale.compress_batch`` / ``models.decode.decompress_batch``

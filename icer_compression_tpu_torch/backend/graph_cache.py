@@ -120,6 +120,7 @@ SEEN_KEYS = 4096          # keys whose passes are counted, most recent
 def kernel_counters():
     """The counted kernel wrappers a pass may run: (module, name) of each
     function whose ``launches`` it increments."""
+    from ..ops import context_model as CM
     from ..ops import entropy_full as EF
     from ..ops import entropy_slim as ES
     from ..ops import plane_decode as PD
@@ -127,7 +128,8 @@ def kernel_counters():
     return [(ES, "encode_lanes_slim"), (ES, "encode_lanes_slim_two_word"),
             (ES, "pack_lanes_slim"), (ES, "pack_lanes_slim_two_word"),
             (EF, "encode_lanes_full"), (EF, "encode_lanes_full_tiled"),
-            (PD, "decode_planes"), (WV, "inverse_pass")]
+            (PD, "decode_planes"), (WV, "inverse_pass"),
+            (CM, "context_words")]
 
 
 def is_decode(key) -> bool:

@@ -21,7 +21,10 @@ stage, stage S S + 1 times, into a count per stage.  Sort and pack (both
 record modes) runs on the plain kernel 1's outputs for a block of 2,560
 steps whose lanes pass 2,048 ordinals and evict, uncut and with a slice
 and a payload cap that flag some lanes each, against the sort-based plain
-version.
+version.  The context model runs every coded group of two small encoders
+(``CM_CASES``: every subband, both sample widths, plane windows, an empty
+one, a lane share with dummy lanes) on seeded sign-magnitude
+coefficients, against the plain ``emit`` and ``bucket_words``.
 
 This module imports the kernel wrappers, which import ``kernels``; it is
 imported lazily by ``kernels.build_all`` for that reason.
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .ops import context_model as CM
 from .ops import entropy_full as EF
 from .ops import entropy_slim as ES
 from .ops import plane_decode as PD
@@ -57,6 +61,10 @@ UNIT_QUOTA = 1600                 # cuts the stream inside its last plane
 W1_CANVAS = (2, 11, 12)           # two canvases larger than every block
 W1_LENGTHS = range(2, 10)
 W1_FILTERS = range(7)             # A-F, Q
+# (w, h, stages, segments, mag_bits, plane_cuts, lane_share, images) of the
+# context-model check
+CM_CASES = ((40, 36, 3, 5, 15, (0, (4, 4), (2, 6)), (1, 0), 2),
+            (33, 29, 2, 5, 7, None, (2, 1), 3))
 
 
 class KernelMismatch(RuntimeError):
@@ -262,6 +270,36 @@ def _w1(dev):
             torch.cat([ov for _out, ov in outs]))
 
 
+def cm_coefficients(rng, B: int, h: int, w: int, mag_bits: int):
+    """(B, h, w) int32 sign-magnitude coefficients whose magnitudes spread
+    over every plane (a random number of low bits each), zeros among them,
+    and the sign set on some zero magnitudes, as the transform leaves
+    -2^mag_bits."""
+    mag = rng.integers(0, 1 << mag_bits, (B, h, w))
+    mag >>= rng.integers(0, mag_bits + 1, (B, h, w))
+    mag[rng.random((B, h, w)) < 0.2] = 0
+    sign = rng.integers(0, 2, (B, h, w))
+    return torch.from_numpy((mag | (sign << mag_bits)).astype(np.int32))
+
+
+def _cm(dev):
+    """Every coded bucket's words of each of CM_CASES, one flat tensor a
+    case (``Encoder.coder_words``: the kernel on the card, the plain
+    version on the host)."""
+    from .ops import encode as E
+    rng = np.random.default_rng(SEED)
+    outs = []
+    for w, h, stages, segments, mag_bits, cuts, share, B in CM_CASES:
+        enc = E.TorchGrayscaleEncoder(w, h, stages, 0, segments, mag_bits,
+                                      dev, plane_cuts=cuts, lane_share=share,
+                                      graph=False)
+        img = cm_coefficients(rng, B, h, w, mag_bits).to(dev)
+        outs.append(torch.cat([
+            enc.coder_words(enc.buckets[bi], gis, img).reshape(-1)
+            for bi, gis in enc._coded]))
+    return tuple(outs)
+
+
 def _marks(dev):
     counts = torch.zeros(len(trace.STAGES), dtype=torch.int64, device=dev)
     for stage in range(len(trace.STAGES)):
@@ -310,6 +348,10 @@ CHECKS = {
                  ("canvas", "overflow"), _w1),),
     "stage_mark": (
         Instance("stage marks", "stage_mark_launch", ("counts",), _marks),),
+    "context_model": (
+        Instance("CM", "context_words_launch",
+                 tuple(f"words of case {i}" for i in range(len(CM_CASES))),
+                 _cm),),
 }
 
 # the wrappers' launch counts, which the check leaves as it found them (and
@@ -318,7 +360,7 @@ _COUNTED = (ES.encode_lanes_slim, ES.encode_lanes_slim_two_word,
             ES.pack_lanes_slim, ES.pack_lanes_slim_two_word,
             EF.encode_lanes_full, EF.encode_lanes_full_tiled,
             PD.decode_planes, PD.decode_plane_seeded,
-            WV.inverse_pass)
+            WV.inverse_pass, CM.context_words)
 
 
 def first_difference(label: str, name: str, got: torch.Tensor,

@@ -37,7 +37,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("slim_encode", "slim_pack", "plane_decode", "full_encode",
-           "wavelet", "stage_mark")
+           "wavelet", "stage_mark", "context_model")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -186,7 +186,8 @@ def check(status: int, name: str) -> None:
 # the kernels that count their runs on the device, each its slot
 RUN_SLOTS = ("slim_encode", "slim_encode_two_word", "full_encode",
              "full_encode_tiled", "plane_decode", "plane_decode_seeded",
-             "wavelet_inverse", "slim_pack", "slim_pack_two_word")
+             "wavelet_inverse", "slim_pack", "slim_pack_two_word",
+             "context_model")
 
 
 def _device(device) -> str:

@@ -8,13 +8,23 @@ segment plane (and a whole batch of segment lanes) is modelled at once.
 Semantics: already-scanned neighbours (W, N, NW, NE) are tested at the
 current plane, the others at ``lsb + 1``; segment borders are
 insignificant; category-3 bits go to the uncoded context 17.
+
+On the card the encoder runs ``context_words`` (``csrc/context_model.cu``):
+one launch per stage group writes the group's coder words for every plane
+of its window straight into its bucket's rows.  ``plane_emissions_words``
+is its plain version (``ops/encode``: ``Encoder.emit`` and
+``Encoder.bucket_words`` over it), which the encoder runs on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..core import constants as C
 from .bitutils import msb_index
 
@@ -105,3 +115,58 @@ def plane_emissions_words(seg: torch.Tensor, subband_code: torch.Tensor,
     w1 = ((sign_event.reshape(n, -1) * pv) | (sign_ctx.reshape(n, -1) << 1)
           | (agreement.reshape(n, -1) << 6))
     return w0, w1
+
+
+def lane_table(lanes) -> np.ndarray:
+    """(N, 5) int32 rows (row, col, h, w, subband) of a group's lanes
+    (``ops/encode.Lane``), the geometry ``context_words`` reads; a dummy
+    lane gets h = w = 0, so all its pixels are invalid."""
+    return np.array([(l.row, l.col, 0 if l.dummy else l.h,
+                      0 if l.dummy else l.w, l.subband) for l in lanes],
+                    np.int32).reshape(-1, 5)
+
+
+def context_words(img: torch.Tensor, lanes: torch.Tensor, mh: int, mw: int,
+                  lo: int, hi: int, mag_bits: int,
+                  out: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/context_model.cu``: a stage group's coder words
+    for the planes lo .. hi - 1 from the (B, H, W) int32 sign-magnitude
+    coefficients ``img``, written into ``out``, the group's contiguous
+    (B * (hi - lo) * N, Lk) int32 rows of its bucket in the order (image,
+    plane, lane) (``lanes``: ``lane_table`` on the device; every lane a
+    canvas of mh x mw).  Each row is [w0[0], w1[0], w0[1], w1[1], ...]
+    padded with zeros, as ``Encoder.bucket_words`` over
+    ``plane_emissions_words``.  Queued on the current stream, no host sync
+    and no allocation, so a captured pass replays it.  Returns ``out``."""
+    B, H, W = img.shape
+    N = lanes.shape[0]
+    rows, Lk = out.shape
+    if (img.dtype != torch.int32 or out.dtype != torch.int32
+            or lanes.dtype != torch.int32 or lanes.shape != (N, 5)
+            or not out.is_contiguous() or rows != B * (hi - lo) * N
+            or Lk % 2 or Lk < 2 * mh * mw
+            or not img.device == lanes.device == out.device):
+        raise ValueError(
+            f"context_words: out {out.dtype} {tuple(out.shape)} on "
+            f"{out.device} does not hold {B} images x {hi - lo} planes x "
+            f"{N} lanes of {mh}x{mw} pixels (int32 img {img.dtype} on "
+            f"{img.device}, lanes {tuple(lanes.shape)} on {lanes.device})")
+    img = img.contiguous()
+    lanes = lanes.contiguous()
+    dev = img.device
+    fn = kernels.load("context_model").context_words_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_longlong] \
+        + [ctypes.c_void_p] * 3
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(img.data_ptr(), B, H, W, lanes.data_ptr(), N, mh, mw, lo,
+                    hi, mag_bits, Lk, out.data_ptr(),
+                    kernels.run_slot(dev, "context_model"), stream)
+    kernels.check(status, "context_model")
+    context_words.launches += 1
+    return out
+
+
+context_words.launches = 0

@@ -9,10 +9,12 @@ and ``_make_bucket_fn_slim`` without the per-plane caps -- ``encode_batch``
 and ``_unpack_batch``).
 
 Per batch of B same-geometry images: DWT + LL-mean removal +
-sign-magnitude, then per stage group a gather of every segment rectangle
-into one padded lane batch and its emission words for every bitplane of
-the group's plane window, then per length bucket the coder backend, all on
-the device:
+sign-magnitude, then per stage group the coder words of every segment
+lane for every bitplane of the group's plane window, written into its
+length bucket's rows (on the card one launch of csrc/context_model.cu a
+group; on the CPU its plain version, a gather of every segment rectangle
+into one padded lane batch and ``plane_emissions_words`` a plane), then
+per bucket the coder backend, all on the device:
 
   ``auto``   ``slim`` on every bucket (the default);
   ``slim``   kernel 1 over the interleaved words, then the sort/rebuild/
@@ -76,11 +78,11 @@ from ..core.status import IcerError, IcerStatus
 from ..core.subbands import dim_low, subband_view
 from ..device import Pending, to_device, to_host
 from ..utils import trace
+from . import context_model as CM
 from . import entropy_full as EF
 from . import entropy_slim as ES
 from . import entropy_sorted as SO
 from . import wavelet
-from .context_model import plane_emissions_words
 
 ENTROPY_BACKENDS = ("auto", "slim", "pallas", "sorted")
 
@@ -158,14 +160,7 @@ def _plan_groups(image_w, image_h, stages, segments, share=(1, 0)):
                               dummy=True))
         per = len(lanes) // nshare
         lanes = lanes[k * per:(k + 1) * per]
-        pix_valid = np.zeros((len(lanes), mh, mw), dtype=np.int32)
-        for i, l in enumerate(lanes):
-            pix_valid[i, :l.h, :l.w] = not l.dummy
-        groups.append({
-            "lanes": lanes, "mh": mh, "mw": mw, "L": 2 * mh * mw,
-            "sub_codes": np.array([l.subband for l in lanes], np.int32),
-            "pix_valid": pix_valid,
-        })
+        groups.append({"lanes": lanes, "mh": mh, "mw": mw, "L": 2 * mh * mw})
     return groups
 
 
@@ -325,20 +320,18 @@ class TorchGrayscaleEncoder:
         self.pass_images = max(1, min(
             PASS_WORDS // CODER_DIVISORS[b["coder"]] // max(1, b["words"])
             for b in self.buckets))
-        # per group: gather index of every lane rectangle into the padded
-        # flattened image (out-of-rect reads are masked by pix_valid)
-        self._wp = image_w + max(g["mw"] for g in self.groups)
-        hp = image_h + max(g["mh"] for g in self.groups)
-        self._npad = (hp, self._wp)
         for g, cut in zip(self.groups, self.plane_cuts):
-            mh, mw = g["mh"], g["mw"]
-            idx = np.array([[(l.row + j) * self._wp + l.col + np.arange(mw)
-                             for j in range(mh)] for l in g["lanes"]],
-                           np.int64)
             g["cut"] = cut
-            g["idx_t"] = torch.as_tensor(idx, device=self.device)
-            g["pv_t"] = torch.as_tensor(g["pix_valid"], device=self.device)
-            g["sub_t"] = torch.as_tensor(g["sub_codes"], device=self.device)
+            g["lane_t"] = torch.as_tensor(CM.lane_table(g["lanes"]),
+                                          device=self.device)
+            # the payload-table key of each of an image's rows of the
+            # group, (plane, lane) in order; None for a dummy lane
+            g["row_keys"] = [None if l.dummy
+                             else (l.stage, l.subband, lsb, l.seg)
+                             for lsb in range(*cut) for l in g["lanes"]]
+        # (height, width) of the plain version's zero-padded image, None
+        # until ``_plain_tables`` has made its tables
+        self._npad = None
 
     # ---- device stages --------------------------------------------------
     def transform(self, images: torch.Tensor):
@@ -356,13 +349,63 @@ class TorchGrayscaleEncoder:
         return wavelet.to_sign_magnitude(img, self.mag_bits), ll_mean, \
             overflow
 
+    def coder_words(self, b, gis, img: torch.Tensor) -> torch.Tensor:
+        """Bucket ``b``'s (rows, Lk) coder words, its coded groups ``gis``
+        in turn, from the pass's sign-magnitude coefficients ``img``: on
+        the card ``_kernel_words``, on the CPU the plain version, ``emit``
+        then ``bucket_words``."""
+        if img.device.type == "cuda":
+            return self._kernel_words(b, gis, img)
+        return self.bucket_words(b, {gi: self.emit(self.groups[gi], img)
+                                     for gi in b["groups"]})
+
+    def _kernel_words(self, b, gis, img: torch.Tensor) -> torch.Tensor:
+        """Bucket ``b``'s coder words on the card: one launch of
+        ``csrc/context_model.cu`` (``context_model.context_words``) per
+        coded group, each writing its rows in place."""
+        B = img.shape[0]
+        out = torch.empty((B * b["rows"], bucket_sizes(b["L"])[0]),
+                          dtype=torch.int32, device=img.device)
+        r = 0
+        for gi in gis:
+            g = self.groups[gi]
+            lo, hi = g["cut"]
+            n = B * (hi - lo) * len(g["lanes"])
+            CM.context_words(img, g["lane_t"], g["mh"], g["mw"], lo, hi,
+                             self.mag_bits, out[r:r + n])
+            r += n
+        return out
+
+    def _plain_tables(self) -> None:
+        """The plain version's tables, made at its first use: per group the
+        pixel mask, the subband codes and the gather index of every lane
+        rectangle into the zero-padded flattened image (out-of-rect reads
+        are masked by ``pv_t``), then the padded image's shape."""
+        wp = self.w + max(g["mw"] for g in self.groups)
+        for g in self.groups:
+            mh, mw = g["mh"], g["mw"]
+            pv = np.zeros((len(g["lanes"]), mh, mw), dtype=np.int32)
+            for i, l in enumerate(g["lanes"]):
+                pv[i, :l.h, :l.w] = not l.dummy
+            g["pv_t"] = torch.as_tensor(pv, device=self.device)
+            g["sub_t"] = torch.as_tensor([l.subband for l in g["lanes"]],
+                                         dtype=torch.int32, device=self.device)
+            idx = np.array([[(l.row + j) * wp + l.col + np.arange(mw)
+                             for j in range(mh)] for l in g["lanes"]],
+                           np.int64)
+            g["idx_t"] = torch.as_tensor(idx, device=self.device)
+        self._npad = (self.h + max(g["mh"] for g in self.groups), wp)
+
     def emit(self, g, img: torch.Tensor):
         """Group g's packed emission words for the planes of its window,
-        rows ordered (image, plane, lane): returns (w0, w1), each
-        (B * planes * N, mh * mw), or None for an empty window."""
+        rows ordered (image, plane, lane), by the plain version
+        (``plane_emissions_words``): returns (w0, w1), each (B * planes *
+        N, mh * mw), or None for an empty window."""
         lo, hi = g["cut"]
         if lo >= hi:
             return None
+        if self._npad is None:
+            self._plain_tables()
         B = img.shape[0]
         hp, wp = self._npad
         padded = torch.zeros((B, hp, wp), dtype=torch.int32,
@@ -375,8 +418,8 @@ class TorchGrayscaleEncoder:
         pv = g["pv_t"].repeat(B, 1, 1)
         w0s, w1s = [], []
         for lsb in range(lo, hi):
-            w0, w1 = plane_emissions_words(batch, sub, pv, lsb,
-                                           self.mag_bits)
+            w0, w1 = CM.plane_emissions_words(batch, sub, pv, lsb,
+                                              self.mag_bits)
             w0s.append(w0.reshape(B, N, mh * mw))
             w1s.append(w1.reshape(B, N, mh * mw))
         w0 = torch.stack(w0s, dim=1).reshape(-1, mh * mw)
@@ -578,16 +621,12 @@ class TorchGrayscaleEncoder:
         and the end of the pass (utils/trace ``mark``)."""
         trace.mark(trace.TRANSFORM, x)
         img, ll_mean, overflow = self.transform(x)
-        trace.mark(trace.CONTEXT_MODEL, x)
-        emitted = [self.emit(g, img) for g in self.groups]
-        del img
         outs = [overflow, ll_mean]
-        for bi, _gis in self._coded:
+        for bi, gis in self._coded:
             b = self.buckets[bi]
+            trace.mark(trace.CONTEXT_MODEL, x)
+            words = self.coder_words(b, gis, img)
             trace.mark(trace.CODER_INPUT, x)
-            words = self.bucket_words(b, emitted)
-            for gi in b["groups"]:      # each group is in one bucket
-                emitted[gi] = None
             outs += [words, *self._code(b, words)]
         trace.mark(trace.END, x)
         return tuple(outs)
@@ -637,24 +676,23 @@ class TorchGrayscaleEncoder:
         for bi, ((_b, gis), (payload, total, flag)) in enumerate(
                 zip(self._coded, p.fetched)):
             payload = payload.numpy()
-            total = total.numpy()
-            flag = flag.numpy()
+            total = total.tolist()
+            flagged = set(np.flatnonzero(flag.numpy()).tolist())
             r = 0
             for gi in gis:
-                lanes = self.groups[gi]["lanes"]
-                lo, hi = self.groups[gi]["cut"]
-                for img_i in range(real):
-                    for lsb in range(lo, hi):
-                        for l in lanes:
-                            key = (l.stage, l.subband, lsb, l.seg)
-                            if flag[r] and not l.dummy:
-                                redo.append((img_i, key, bi, r))
-                            elif not l.dummy:
-                                nb = int(total[r])
-                                tables[img_i][key] = (
-                                    payload[r, :(nb + 7) // 8].tobytes(), nb)
-                            r += 1
-                r += (B - real) * (hi - lo) * len(lanes)   # the padding's
+                keys = self.groups[gi]["row_keys"]
+                for img_i, table in enumerate(tables):
+                    for key in keys:
+                        if key is None:         # a dummy lane's row
+                            pass
+                        elif r in flagged:
+                            redo.append((img_i, key, bi, r))
+                        else:
+                            nb = total[r]
+                            table[key] = (payload[r, :(nb + 7) >> 3].tobytes(),
+                                          nb)
+                        r += 1
+                r += (B - real) * len(keys)     # the padding's rows
         if redo:
             with trace.span("encode.host_reencode"):
                 # the pass again, eagerly: its words are a function of its

@@ -1,11 +1,12 @@
-// Host emulation of the CUDA features csrc/slim_pack.cu uses, so that its
-// kernels compile with g++ (-std=c++20) and run on the CPU in the tests:
-// each thread of a block is a std::thread, made once a launch, and the
-// blocks of a launch run one after another on them; __syncthreads is a
-// barrier of the block, a warp shuffle one of the warp; __shared__
-// variables are static (one block at a time).  The source's LAUNCH macro
-// becomes host_launch.
+// Host emulation of the CUDA features csrc/slim_pack.cu and
+// csrc/context_model.cu use, so that their kernels compile with g++
+// (-std=c++20) and run on the CPU in the tests: each thread of a block is a
+// std::thread, made once a launch, and the blocks of a launch run one after
+// another on them; __syncthreads is a barrier of the block, a warp shuffle
+// one of the warp; __shared__ variables are static (one block at a time).
+// The source's LAUNCH macro becomes host_launch.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
@@ -76,6 +77,9 @@ inline unsigned __brev(unsigned x) {
 }
 template <class T>
 T __ldg(const T* p) { return *p; }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+using std::max;
+using std::min;
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }

@@ -178,7 +178,8 @@ def wide_plain():
 
 
 @pytest.mark.parametrize("name", ["slim_encode", "plane_decode",
-                                  "full_encode", "slim_pack"])
+                                  "full_encode", "slim_pack",
+                                  "context_model"])
 def test_guard_inputs_run_through_every_wrapper(name, request, monkeypatch):
     """The check's fixed inputs are valid for each instance's wrapper (here
     the plain versions on both sides; the block past 2**17 ordinals, run
@@ -298,3 +299,49 @@ def test_sort_pack_blocks_match_the_wrapper():
     assert int(consts["kPer"]) == ES.PACK_ALIGN
     assert int(consts["kThreads"]) * int(consts["kPer"]) == ES.PACK_CHUNK
     assert "kChunk = kThreads * kPer" in src
+
+
+def test_context_model_source_names_and_wiring():
+    """``csrc/context_model.cu``: no kernel or device function name holds a
+    name the benchmark counts as kernel 1 or kernel 2; the source is a
+    library of ``KERNELS`` with one launch function, its run slot, which
+    the wrapper passes, and an instance of the first-use check; the
+    wrapper's launches are counted by the check and by the graph cache;
+    the check's cases code every subband, a plane window, an empty one and
+    dummy lanes."""
+    from benchmark.roofline import K1_NAMES, K2_NAMES
+    from icer_compression_tpu_torch import kernel_check
+    from icer_compression_tpu_torch.backend import graph_cache
+    from icer_compression_tpu_torch.ops import context_model as CM
+    from icer_compression_tpu_torch.ops import encode as E
+    src = (kernels.CSRC / "context_model.cu").read_text()
+    names = _device_functions(src)
+    assert {"context_words_kernel", "ctx_ll", "ctx_hh"} <= set(names)
+    for name in names:
+        for fragment in K1_NAMES + K2_NAMES:
+            assert fragment not in name, (name, fragment)
+    assert "context_model" in kernels.KERNELS
+    assert "context_model" in kernels.RUN_SLOTS
+    assert re.findall(r'extern "C" int (\w+)\(', src) \
+        == ["context_words_launch"]
+    assert [i.symbol for i in kernel_check.CHECKS["context_model"]] \
+        == ["context_words_launch"]
+    wrapper = (kernels.CSRC.parent / "ops" / "context_model.py").read_text()
+    assert 'kernels.run_slot(dev, "context_model")' in wrapper
+    assert CM.context_words in kernel_check._COUNTED
+    assert (CM, "context_words") in graph_cache.kernel_counters()
+    subbands, dummies, windows = set(), False, set()
+    for w, h, stages, segments, mag_bits, cuts, share, _B in \
+            kernel_check.CM_CASES:
+        enc = E.TorchGrayscaleEncoder(w, h, stages, 0, segments, mag_bits,
+                                      "cpu", plane_cuts=cuts,
+                                      lane_share=share, graph=False)
+        for _bi, gis in enc._coded:
+            for gi in gis:
+                g = enc.groups[gi]
+                subbands |= {l.subband for l in g["lanes"] if not l.dummy}
+                dummies |= any(l.dummy for l in g["lanes"])
+        windows |= {hi - lo for lo, hi in enc.plane_cuts}
+    assert subbands == {0, 1, 2, 3} and dummies
+    assert 0 in windows and {7, 9} <= windows
+    assert min(windows - {0}) < 7
